@@ -1,0 +1,15 @@
+"""legion_tpu_torch — the PyTorch / CUDA port of ``legion_tpu``.
+
+The port mirrors ``legion_tpu``'s package layout so each module has a
+counterpart under the same name. Plain tensor code is PyTorch; every
+kernel that ``legion_tpu`` wrote in Pallas for the TPU is a CUDA C++
+kernel for Hopper (``csrc/``), built with ``nvcc`` at first use and
+bound with ``ctypes`` (``ops/_build.py``). Each kernel has a plain
+PyTorch version beside it, which a tensor on the CPU goes through.
+
+``legion_tpu`` stays the reference: the port imports only its JAX-free
+modules (``config``, ``data.format``, ``data.synthetic``,
+``utils.logging``) and never ``jax``, ``flax``, ``optax`` or ``orbax``.
+"""
+
+__version__ = "0.1.0"

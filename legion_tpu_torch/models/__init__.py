@@ -1,0 +1,31 @@
+from typing import Optional
+
+import torch
+
+from legion_tpu_torch.models.sage import SAGE  # noqa: F401
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(arch: str, in_dim: int, hidden_dim: int, num_classes: int,
+                num_layers: int, dropout: float, dtype=None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.nn.Module:
+    """Model factory keyed by the config's arch string (port of
+    ``legion_tpu.models.build_model``). Unlike flax, a torch module needs
+    its input width up front: ``in_dim`` is the (padded) feature width.
+
+    dtype: compute dtype ("float32" | "bfloat16" or a torch dtype);
+    params stay float32. generator: source of the initial weights.
+    """
+    if isinstance(dtype, str):
+        dtype = _DTYPES[dtype]
+    dtype = dtype or torch.float32
+    if arch == "sage":
+        return SAGE(in_dim, hidden_dim, num_classes, num_layers, dropout,
+                    dtype=dtype, generator=generator)
+    if arch in ("gcn", "lp_sage"):
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to legion_tpu_torch yet; it is "
+            "queued in ROADMAP.md")
+    raise ValueError(f"unknown arch {arch!r}")

@@ -1,0 +1,123 @@
+"""GraphSAGE (mean aggregator) over sampled blocks (port of
+``legion_tpu/models/sage.py``).
+
+Per layer ``h' = W_self h_dst + W_neigh mean_{u in sampled N(dst)} h_u +
+b``, with the bias on the self path only, ReLU and dropout between
+layers and none after the last. Blocks arrive in model order (outermost
+hop first); the dst nodes of a block are the first ``dst_cap`` src rows.
+
+Mixed precision as in the reference: parameters stay float32 and are cast
+to the compute dtype at each ``F.linear``; aggregation sums in float32
+inside the kernels. The dense products stay ``F.linear``, as the JAX
+package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
+                                               identity_masked_mean)
+from legion_tpu_torch.ops.segment import fanout_gather_mean
+from legion_tpu_torch.sampling.block import Block
+
+
+def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
+    """flax's default Dense kernel init: truncated normal (2 std) with
+    variance 1 / fan_in."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+class SAGEConv(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_dim = out_dim
+        self.dtype = dtype
+        self.fc_self = nn.Linear(in_dim, out_dim, bias=True)
+        self.fc_neigh = nn.Linear(in_dim, out_dim, bias=False)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        _lecun_normal_(self.fc_self.weight, generator)
+        _lecun_normal_(self.fc_neigh.weight, generator)
+        nn.init.zeros_(self.fc_self.bias)
+
+    def _dense(self, fc: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = None if fc.bias is None else fc.bias.to(dt)
+        return F.linear(h.to(dt), fc.weight.to(dt), bias)
+
+    def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
+        h_dst = h_src[: block.dst_cap]
+        if block.identity_offset is not None:
+            # K1: contiguous slot rows, summed in f32, emitted in the
+            # compute dtype in the same pass
+            agg = identity_masked_mean(h_src, block.nbr_mask,
+                                       block.identity_offset,
+                                       out_dtype=self.dtype)
+            h_neigh = self._dense(self.fc_neigh, agg)
+        elif self.out_dim < h_src.shape[-1]:
+            # fc_neigh has no bias and the mean is linear, so transforming
+            # first is exact and narrows what K2 gathers and scatters
+            h_t = self._dense(self.fc_neigh, h_src)
+            h_neigh = gathered_masked_mean(h_t, block.nbr_pos,
+                                           block.nbr_mask)
+        else:
+            h_neigh = self._dense(self.fc_neigh,
+                                  fanout_gather_mean(h_src, block))
+        return self._dense(self.fc_self, h_dst) + h_neigh
+
+
+def _dropout(h: torch.Tensor, rate: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with an explicit generator (flax's semantics:
+    keep with probability 1 - rate and scale kept values by 1/keep)."""
+    keep = 1.0 - rate
+    if keep == 0.0:
+        return torch.zeros_like(h)
+    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                   device=h.device))
+
+
+class SAGE(nn.Module):
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 2, dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.dtype = dtype
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(
+            SAGEConv(dims[i], dims[i + 1], dtype) for i in range(num_layers))
+        for layer in self.layers:
+            layer.reset_parameters(generator)
+
+    def forward(self, blocks: Sequence[Block], x: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if len(blocks) != self.num_layers:
+            raise ValueError(f"{len(blocks)} blocks for {self.num_layers} "
+                             "layers")
+        use_dropout = not deterministic and self.dropout > 0.0
+        if use_dropout and generator is None:
+            raise ValueError("dropout needs a generator")
+        # An identity first block feeds K1 the raw features, which casts
+        # only what it emits: no whole-array cast of the largest tensor.
+        h = x if blocks[0].identity_offset is not None else x.to(self.dtype)
+        for i, (layer, block) in enumerate(zip(self.layers, blocks)):
+            h = layer(block, h)
+            if i != self.num_layers - 1:
+                h = F.relu(h)
+                if use_dropout:
+                    h = _dropout(h, self.dropout, generator)
+        return h

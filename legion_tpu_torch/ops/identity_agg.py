@@ -1,0 +1,216 @@
+"""K1 and K2: masked norm-reduce aggregation over a block's fanout slots
+(port of ``legion_tpu/ops/identity_agg_pallas.py``).
+
+* K1 ``identity_masked_mean``: identity-layout blocks (the last hop is
+  identity-appended), where the f slots of dst ``d`` are the contiguous
+  rows ``x[off + d*f : off + (d+1)*f]``. Raw features carry no gradient,
+  so K1 has no backward, as on the TPU.
+* K2 ``gathered_masked_mean``: the slots of dst ``d`` are the rows
+  ``h_t[nbr_pos[d, j]]`` of transformed activations, which do carry
+  gradient. Forward and backward are CUDA kernels bound in one
+  ``torch.autograd.Function``; the backward scatter-adds
+  ``m[d, j] * scale[d]`` into ``d_h_t[nbr_pos[d, j]]``.
+
+norm: "mean" (SAGE), "sqrt" (sum / sqrt(in-degree), GCN) or "sum"; a
+dst with no valid slot gives a zero row. The kernels live in
+``csrc/legion_kernels.cu`` (``masked_agg_kernel``,
+``masked_agg_bwd_kernel``), with their source notes. A CPU tensor takes
+the plain PyTorch version beside each kernel; a CUDA tensor takes the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from legion_tpu_torch.ops import _build
+
+_DTYPES = tuple(_build.DTYPE_CODES)
+
+
+def _check_args(x, nbr_mask, norm, *dtypes):
+    if norm not in _build.NORM_CODES:
+        raise ValueError(f"norm must be one of {tuple(_build.NORM_CODES)}, "
+                         f"got {norm!r}")
+    if x.dim() != 2 or nbr_mask.dim() != 2 or nbr_mask.dtype != torch.bool:
+        raise ValueError("want 2-d rows and a 2-d bool nbr_mask")
+    for dt in (x.dtype, *dtypes):
+        if dt not in _DTYPES:
+            raise ValueError(f"dtype {dt} not in {_DTYPES}")
+
+
+def _normalize(s: torch.Tensor, nbr_mask: torch.Tensor,
+               norm: str) -> torch.Tensor:
+    """Apply the norm to f32 per-dst sums (plain versions)."""
+    if norm == "sum":
+        return s
+    denom = nbr_mask.sum(1, keepdim=True, dtype=torch.float32).clamp(min=1.0)
+    return s / denom if norm == "mean" else s * torch.rsqrt(denom)
+
+
+def clamp_positions(nbr_pos: torch.Tensor, n: int) -> torch.Tensor:
+    """Positions as int64 indices clamped to n rows, as the kernels clamp
+    them: a position past the frontier exists only after a cap overflow,
+    which the train step reports."""
+    return nbr_pos.clamp(0, n - 1).long()
+
+
+def _masked_reduce_plain(rows: torch.Tensor, nbr_mask: torch.Tensor,
+                         norm: str) -> torch.Tensor:
+    """(P, f, D) rows -> (P, D) f32 masked norm-reduce."""
+    s = (rows.float() * nbr_mask[..., None]).sum(1)
+    return _normalize(s, nbr_mask, norm)
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+def identity_masked_mean_plain(x, nbr_mask, identity_offset, norm="mean",
+                               out_dtype=torch.bfloat16):
+    p, f = nbr_mask.shape
+    rows = x[identity_offset: identity_offset + p * f].reshape(p, f, -1)
+    return _masked_reduce_plain(rows, nbr_mask, norm).to(out_dtype)
+
+
+def identity_masked_mean(x: torch.Tensor, nbr_mask: torch.Tensor,
+                         identity_offset: int, norm: str = "mean",
+                         out_dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """out[d] = norm-reduce over valid slots j of
+    x[identity_offset + d*f + j]; x: (F, D) f32 or bf16, nbr_mask: (P, f)
+    bool; out: (P, D) in out_dtype, summed in f32."""
+    _check_args(x, nbr_mask, norm, out_dtype)
+    p, f = nbr_mask.shape
+    if x.shape[0] < identity_offset + p * f:
+        raise ValueError(f"x has {x.shape[0]} rows < offset {identity_offset}"
+                         f" + {p}*{f}")
+    if x.device.type == "cpu" and nbr_mask.device.type == "cpu":
+        return identity_masked_mean_plain(x, nbr_mask, identity_offset, norm,
+                                          out_dtype)
+    _build.require_cuda(x, nbr_mask)
+    if x.requires_grad:
+        raise ValueError("identity_masked_mean has no backward: its input "
+                         "is raw features")
+    out = torch.empty((p, x.shape[1]), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    _build.check(lib.legion_identity_masked_mean(
+        x.data_ptr(), _build.DTYPE_CODES[x.dtype],
+        nbr_mask.view(torch.uint8).data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[out_dtype], x.shape[0], p, f, x.shape[1],
+        identity_offset,
+        _build.NORM_CODES[norm], _build.stream_of(x)), "identity_masked_mean")
+    identity_masked_mean.launches += 1
+    return out
+
+
+identity_masked_mean.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+def gathered_masked_mean_plain(h_t, nbr_pos, nbr_mask, norm="mean"):
+    """Plain version; differentiable in h_t through PyTorch's autograd."""
+    rows = h_t[clamp_positions(nbr_pos, h_t.shape[0])]   # (P, f, D)
+    return _masked_reduce_plain(rows, nbr_mask, norm).to(h_t.dtype)
+
+
+def gathered_masked_mean_backward_plain(g, nbr_pos, nbr_mask, num_src,
+                                        norm="mean", out_dtype=None):
+    """d_h_t of the masked norm-reduce: d_h_t[nbr_pos[d, j]] +=
+    m[d, j] * scale[d], summed in f32 and cast to out_dtype."""
+    scale = _normalize(g.float(), nbr_mask, norm)                  # (P, D)
+    contrib = scale[:, None, :] * nbr_mask[..., None]              # (P, f, D)
+    d = torch.zeros((num_src, g.shape[1]), dtype=torch.float32,
+                    device=g.device)
+    d.index_add_(0, clamp_positions(nbr_pos, num_src).reshape(-1),
+                 contrib.reshape(-1, g.shape[1]))
+    return d.to(out_dtype or g.dtype)
+
+
+def gathered_masked_mean_backward(g: torch.Tensor, nbr_pos: torch.Tensor,
+                                  nbr_mask: torch.Tensor, num_src: int,
+                                  norm: str = "mean",
+                                  out_dtype: torch.dtype | None = None
+                                  ) -> torch.Tensor:
+    """K2 backward: (P, D) upstream gradient -> (num_src, D) gradient of
+    h_t, accumulated by f32 atomics and cast to out_dtype (default g's)."""
+    out_dtype = out_dtype or g.dtype
+    _check_args(g, nbr_mask, norm, out_dtype)
+    if nbr_pos.shape != nbr_mask.shape or nbr_pos.dtype != torch.int32:
+        raise ValueError("nbr_pos must be int32 with nbr_mask's shape")
+    if g.device.type == "cpu":
+        return gathered_masked_mean_backward_plain(g, nbr_pos, nbr_mask,
+                                                   num_src, norm, out_dtype)
+    _build.require_cuda(g, nbr_pos, nbr_mask)
+    p, f = nbr_mask.shape
+    d = torch.zeros((num_src, g.shape[1]), dtype=torch.float32,
+                    device=g.device)
+    if g.numel() == 0:
+        return d.to(out_dtype)
+    lib = _build.load_library()
+    _build.check(lib.legion_gathered_masked_mean_bwd(
+        g.data_ptr(), _build.DTYPE_CODES[g.dtype], nbr_pos.data_ptr(),
+        nbr_mask.view(torch.uint8).data_ptr(), d.data_ptr(), num_src, p, f,
+        g.shape[1], _build.NORM_CODES[norm], _build.stream_of(g)),
+        "gathered_masked_mean_backward")
+    gathered_masked_mean_backward.launches += 1
+    return d.to(out_dtype)
+
+
+gathered_masked_mean_backward.launches = 0
+
+
+def _gathered_forward_cuda(h_t, nbr_pos, nbr_mask, norm):
+    _build.require_cuda(h_t, nbr_pos, nbr_mask)
+    p, f = nbr_mask.shape
+    out = torch.empty((p, h_t.shape[1]), dtype=h_t.dtype, device=h_t.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    _build.check(lib.legion_gathered_masked_mean(
+        h_t.data_ptr(), _build.DTYPE_CODES[h_t.dtype], nbr_pos.data_ptr(),
+        nbr_mask.view(torch.uint8).data_ptr(), out.data_ptr(), h_t.shape[0],
+        p, f, h_t.shape[1], _build.NORM_CODES[norm], _build.stream_of(h_t)),
+        "gathered_masked_mean")
+    gathered_masked_mean.launches += 1
+    return out
+
+
+class _GatheredMaskedMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h_t, nbr_pos, nbr_mask, norm):
+        ctx.save_for_backward(nbr_pos, nbr_mask)
+        ctx.norm = norm
+        ctx.num_src = h_t.shape[0]
+        ctx.dtype = h_t.dtype
+        return _gathered_forward_cuda(h_t, nbr_pos, nbr_mask, norm)
+
+    @staticmethod
+    def backward(ctx, g):
+        nbr_pos, nbr_mask = ctx.saved_tensors
+        d = gathered_masked_mean_backward(g.contiguous(), nbr_pos, nbr_mask,
+                                          ctx.num_src, ctx.norm, ctx.dtype)
+        return d, None, None, None
+
+
+def gathered_masked_mean(h_t: torch.Tensor, nbr_pos: torch.Tensor,
+                         nbr_mask: torch.Tensor,
+                         norm: str = "mean") -> torch.Tensor:
+    """out[d] = norm-reduce over valid slots j of h_t[nbr_pos[d, j]];
+    h_t: (S, D) f32 or bf16 at its true width D; nbr_pos: (P, f) int32;
+    nbr_mask: (P, f) bool. out: (P, D) in h_t's dtype, summed in f32.
+    Differentiable in h_t."""
+    _check_args(h_t, nbr_mask, norm)
+    if nbr_pos.shape != nbr_mask.shape or nbr_pos.dtype != torch.int32:
+        raise ValueError("nbr_pos must be int32 with nbr_mask's shape")
+    if h_t.device.type == "cpu":
+        return gathered_masked_mean_plain(h_t, nbr_pos, nbr_mask, norm)
+    return _GatheredMaskedMean.apply(h_t, nbr_pos, nbr_mask, norm)
+
+
+gathered_masked_mean.launches = 0

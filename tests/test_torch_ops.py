@@ -1,0 +1,308 @@
+"""Port parity: the plain PyTorch versions of the port's kernels against
+legion_tpu's Pallas kernels, run as tests/test_pallas_ops.py runs them on
+the CPU (interpret mode). The ``cuda``-marked tests hold each CUDA kernel
+to its plain version on the card and skip where there is none; JAX is
+imported inside the parity tests only, so that on a machine with a card
+and no JAX ``pytest --noconftest -m cuda tests/test_torch_ops.py`` runs.
+
+Tolerances: 2e-2 absolute and relative against the TPU kernels, which
+round rows to bf16 before their summing dot
+(identity_agg_pallas.py:93-95); 1e-5 between two float32 formulations of
+the same sum; bitwise for the gather, a copy."""
+
+import numpy as np
+import pytest
+import torch
+
+from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+from legion_tpu_torch.ops.identity_agg import (
+    gathered_masked_mean, gathered_masked_mean_backward,
+    gathered_masked_mean_backward_plain, gathered_masked_mean_plain,
+    identity_masked_mean, identity_masked_mean_plain)
+from legion_tpu_torch.ops.segment import (fanout_gather_mean,
+                                          fanout_gather_sum, segment_mean_coo)
+from legion_tpu_torch.sampling.block import Block
+
+torch.set_num_threads(2)
+
+NORMS = ("mean", "sqrt", "sum")
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+LAUNCH_COUNTED = (identity_masked_mean, gathered_masked_mean,
+                  gathered_masked_mean_backward, gather_rows)
+
+
+def _identity_case(seed, p=128, f=5, d=128, off=64):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((off + p * f + 3, d)).astype(np.float32)
+    mask = rng.random((p, f)) > 0.4
+    mask[7] = False                     # zero-in-degree dst rows
+    mask[p - 1] = False
+    return x, mask, off
+
+
+def _gathered_case(seed, p=128, f=7, s=300, d=47):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((s, d)).astype(np.float32)
+    mask = rng.random((p, f)) > 0.4
+    mask[5] = False
+    pos = np.where(mask, rng.integers(0, s, (p, f)), 0).astype(np.int32)
+    w = rng.standard_normal((p, d)).astype(np.float32)
+    return h, pos, mask, w
+
+
+# -- K1 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("norm", NORMS)
+def test_identity_masked_mean_plain_matches_pallas(norm, x_dtype):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from legion_tpu.ops.identity_agg_pallas import identity_masked_mean_pallas
+    x, mask, off = _identity_case(4)
+    xj = jnp.asarray(x, getattr(jnp, x_dtype))
+    with pltpu.force_tpu_interpret_mode():
+        want = identity_masked_mean_pallas(
+            xj, jnp.asarray(mask), off, out_dtype=jnp.float32, norm=norm,
+            interpret=True)
+    xt = torch.from_numpy(x).to(TORCH_DT[x_dtype])
+    got = identity_masked_mean(xt, torch.from_numpy(mask), off, norm=norm,
+                               out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (128, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
+    assert (got[7] == 0).all() and (got[-1] == 0).all()
+    # bf16 emission is the f32 result rounded once
+    bf = identity_masked_mean(xt, torch.from_numpy(mask), off, norm=norm)
+    assert bf.dtype == torch.bfloat16
+    assert torch.equal(bf, got.to(torch.bfloat16))
+
+
+# -- K2 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("norm", NORMS)
+def test_gathered_masked_mean_plain_matches_pallas(norm):
+    """Forward and gradient, at a width (47) that is no multiple of 128."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from legion_tpu.ops.identity_agg_pallas import (
+        gathered_masked_mean as jax_gathered_masked_mean)
+    h, pos, mask, w = _gathered_case(6)
+
+    def fused(hj):
+        return jax_gathered_masked_mean(hj, jnp.asarray(pos),
+                                        jnp.asarray(mask), norm=norm,
+                                        interpret=True)
+
+    hj, wj = jnp.asarray(h), jnp.asarray(w)
+    with pltpu.force_tpu_interpret_mode():
+        want = fused(hj)
+        want_g = jax.grad(lambda a: jnp.sum(fused(a) * wj))(hj)
+
+    ht = torch.from_numpy(h).requires_grad_(True)
+    pt, mt = torch.from_numpy(pos), torch.from_numpy(mask)
+    out = gathered_masked_mean(ht, pt, mt, norm=norm)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=2e-2, atol=2e-2)
+    assert (out[5] == 0).all()
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(want_g),
+                               rtol=2e-2, atol=2e-2)
+    # the explicit backward (the CUDA kernel's plain twin) is that gradient
+    d = gathered_masked_mean_backward(torch.from_numpy(w), pt, mt, h.shape[0],
+                                      norm)
+    np.testing.assert_allclose(d.numpy(), ht.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+# -- K3 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,d", [(256, 100), (512, 128), (300, 47)])
+def test_gather_rows_plain_matches_pallas(m, d):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from legion_tpu.ops.gather_pallas import gather_rows_pallas
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((1000, d)).astype(np.float32)
+    ids = rng.integers(-1, 1000, size=m).astype(np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want = gather_rows_pallas(jnp.asarray(table), jnp.asarray(ids))
+    got = gather_rows(torch.from_numpy(table), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- plain aggregators --------------------------------------------------------
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_segment_aggregators_match_jax(identity):
+    """fanout_gather_{sum,mean} against legion_tpu's, and the scatter
+    baseline segment_mean_coo against fanout_gather_mean, at 1e-5."""
+    import jax.numpy as jnp
+
+    from legion_tpu.ops.segment import fanout_gather_mean as jax_fanout_mean
+    from legion_tpu.ops.segment import fanout_gather_sum as jax_fanout_sum
+    from legion_tpu.sampling.block import Block as JaxBlock
+    rng = np.random.default_rng(8)
+    p, f, s, d = 40, 6, 400, 24
+    h = rng.standard_normal((s, d)).astype(np.float32)
+    mask = rng.random((p, f)) > 0.35
+    mask[3] = False
+    if identity:
+        off = s - p * f
+        pos = (off + np.arange(p * f).reshape(p, f)).astype(np.int32)
+    else:
+        off = None
+        pos = np.where(mask, rng.integers(0, s, (p, f)), 0).astype(np.int32)
+    jblk = JaxBlock(nbr_pos=jnp.asarray(pos), nbr_mask=jnp.asarray(mask),
+                    num_src=jnp.int32(s), num_dst=jnp.int32(p),
+                    identity_offset=off)
+    blk = Block(nbr_pos=torch.from_numpy(pos), nbr_mask=torch.from_numpy(mask),
+                num_src=torch.tensor(s, dtype=torch.int32),
+                num_dst=torch.tensor(p, dtype=torch.int32),
+                identity_offset=off)
+    ht = torch.from_numpy(h)
+    np.testing.assert_allclose(fanout_gather_sum(ht, blk).numpy(),
+                               np.asarray(jax_fanout_sum(jnp.asarray(h),
+                                                         jblk)),
+                               rtol=1e-5, atol=1e-5)
+    mean = fanout_gather_mean(ht, blk)
+    np.testing.assert_allclose(mean.numpy(),
+                               np.asarray(jax_fanout_mean(jnp.asarray(h),
+                                                          jblk)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(segment_mean_coo(ht, blk).numpy(), mean.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert (mean[3] == 0).all()
+
+
+# -- wrappers on the CPU ------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions_without_launching():
+    before = [fn.launches for fn in LAUNCH_COUNTED]
+    x, mask, off = _identity_case(1)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    assert torch.equal(identity_masked_mean(xt, mt, off),
+                       identity_masked_mean_plain(xt, mt, off))
+    h, pos, m2, w = _gathered_case(2)
+    args = (torch.from_numpy(h), torch.from_numpy(pos), torch.from_numpy(m2))
+    assert torch.equal(gathered_masked_mean(*args),
+                       gathered_masked_mean_plain(*args))
+    assert torch.equal(
+        gathered_masked_mean_backward(torch.from_numpy(w), *args[1:], 300),
+        gathered_masked_mean_backward_plain(torch.from_numpy(w), *args[1:],
+                                            300))
+    ids = torch.tensor([3, -1, 0], dtype=torch.int32)
+    assert torch.equal(gather_rows(xt, ids), gather_rows_plain(xt, ids))
+    assert [fn.launches for fn in LAUNCH_COUNTED] == before
+
+
+def test_wrappers_reject_bad_arguments():
+    x, mask, off = _identity_case(1)
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    with pytest.raises(ValueError, match="norm"):
+        identity_masked_mean(xt, mt, off, norm="max")
+    with pytest.raises(ValueError, match="rows"):
+        identity_masked_mean(xt, mt, x.shape[0])
+    with pytest.raises(ValueError, match="dtype"):
+        identity_masked_mean(xt.double(), mt, off)
+    with pytest.raises(ValueError):
+        identity_masked_mean(xt, mt.to(torch.uint8), off)
+    h, pos, m2, _ = _gathered_case(2)
+    with pytest.raises(ValueError, match="int32"):
+        gathered_masked_mean(torch.from_numpy(h),
+                             torch.from_numpy(pos).long(),
+                             torch.from_numpy(m2))
+    with pytest.raises(ValueError, match="int32"):
+        gather_rows(xt, torch.tensor([0, 1]))
+
+
+# -- on the card --------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _bf16_close(got, want):
+    """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: the kernel
+    and the plain version sum in f32 in different orders, which can flip
+    one bf16 rounding."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [128, 47])
+def test_cuda_identity_masked_mean(cuda, d, x_dtype, out_dtype):
+    x, mask, off = _identity_case(11, p=1000, f=10, d=d, off=77)
+    xt = torch.from_numpy(x).to(cuda, TORCH_DT[x_dtype])
+    mt = torch.from_numpy(mask).to(cuda)
+    for norm in NORMS:
+        n0 = identity_masked_mean.launches
+        got = identity_masked_mean(xt, mt, off, norm, TORCH_DT[out_dtype])
+        assert identity_masked_mean.launches == n0 + 1
+        want = identity_masked_mean_plain(xt, mt, off, norm,
+                                          TORCH_DT[out_dtype])
+        _bf16_close(got, want)
+        assert (got[7] == 0).all()
+    with pytest.raises(ValueError, match="backward"):
+        identity_masked_mean(xt.clone().requires_grad_(True), mt, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [47, 64])
+def test_cuda_gathered_masked_mean_fwd_bwd(cuda, d, dtype):
+    h, pos, mask, w = _gathered_case(12, p=1000, f=25, s=5000, d=d)
+    dt = TORCH_DT[dtype]
+    pt, mt = torch.from_numpy(pos).to(cuda), torch.from_numpy(mask).to(cuda)
+    for norm in NORMS:
+        ht = torch.from_numpy(h).to(cuda, dt).requires_grad_(True)
+        n0 = (gathered_masked_mean.launches,
+              gathered_masked_mean_backward.launches)
+        out = gathered_masked_mean(ht, pt, mt, norm)
+        (out.float() * torch.from_numpy(w).to(cuda)).sum().backward()
+        assert (gathered_masked_mean.launches,
+                gathered_masked_mean_backward.launches) == (n0[0] + 1,
+                                                            n0[1] + 1)
+        _bf16_close(out, gathered_masked_mean_plain(ht.detach(), pt, mt, norm))
+        g = torch.from_numpy(w).to(cuda, dt)
+        want = gathered_masked_mean_backward_plain(g, pt, mt, h.shape[0],
+                                                   norm, torch.float32)
+        got = gathered_masked_mean_backward(g, pt, mt, h.shape[0], norm,
+                                            torch.float32)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        _bf16_close(ht.grad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 128), ("float32", 47),
+                                     ("bfloat16", 47), ("bfloat16", 100)])
+def test_cuda_gather_rows(cuda, dtype, d):
+    rng = np.random.default_rng(13)
+    table = torch.from_numpy(rng.standard_normal((5000, d)).astype(
+        np.float32)).to(cuda, TORCH_DT[dtype])
+    ids = torch.from_numpy(rng.integers(-1, 5000, 3001).astype(
+        np.int32)).to(cuda)
+    # a strided view is refused, not silently copied
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(table[:, :d // 2], ids)
+    with pytest.raises(ValueError, match="device"):
+        gather_rows(table, ids.cpu())
+    n0 = gather_rows.launches
+    if d * table.element_size() % 4:
+        # the kernel moves 16- or 4-byte words
+        with pytest.raises(ValueError, match="4 bytes"):
+            gather_rows(table, ids)
+        assert gather_rows.launches == n0
+        return
+    got = gather_rows(table, ids)
+    assert gather_rows.launches == n0 + 1
+    assert torch.equal(got, gather_rows_plain(table, ids))
