@@ -7,9 +7,10 @@ kernel for Hopper (``csrc/``), built with ``nvcc`` at first use and
 bound with ``ctypes`` (``ops/_build.py``). Each kernel has a plain
 PyTorch version beside it, which a tensor on the CPU goes through.
 
-``legion_tpu`` stays the reference: the port imports only its JAX-free
-modules (``config``, ``data.format``, ``data.synthetic``,
-``utils.logging``) and never ``jax``, ``flax``, ``optax`` or ``orbax``.
+``legion_tpu`` stays the reference: the port imports nothing of it, and
+never ``jax``, ``flax``, ``optax`` or ``orbax``; numpy copies of its
+configuration, dataset format and synthetic graphs live under ``config``
+and ``data``. ``tools`` holds the measurement scripts run on the card.
 """
 
 __version__ = "0.1.0"

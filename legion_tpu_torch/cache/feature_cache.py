@@ -1,0 +1,143 @@
+"""Hotness-ordered feature cache: hot rows in device memory, misses
+staged from host RAM (port of ``legion_tpu/cache/feature_cache.py``).
+
+The cache is static after presampling, so a sorted hot-id array and
+``torch.searchsorted`` serve as its hash: no buckets and no atomics (the
+reference used a cuckoo hash, ``src/GPUCache.cu:387-432``). Misses are
+compacted on the device, their ids read by the host once per step, their
+rows gathered from host memory into a pinned buffer and copied to the
+device, so the host->device bytes are exactly the misses' rows.
+
+``combine_rows`` merges cached and staged rows with two calls of the
+gather kernel K3 (``ops/gather.py``) and one ``torch.where``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from legion_tpu_torch.data.format import host_tensor
+from legion_tpu_torch.ops.gather import gather_rows
+
+
+def cache_dtype_for(model_dtype: str, feature_dim: int):
+    """(storage dtype, bytes per cached row) for a model compute dtype:
+    bf16 training stores cache rows and staged misses in bf16 (twice the
+    rows per budget, half the host->device bytes; the model computes in
+    bf16 anyway)."""
+    if model_dtype == "bfloat16":
+        return torch.bfloat16, feature_dim * 2
+    return torch.float32, feature_dim * 4
+
+
+class CachePlan(NamedTuple):
+    slot: torch.Tensor       # (M,) int32 cache slot (valid where hit)
+    hit: torch.Tensor        # (M,) bool
+    miss_idx: torch.Tensor   # (M,) int32 unclamped miss rank (valid where
+    #                          miss; ranks >= miss_cap overflowed staging
+    #                          and combine_rows zeroes those rows)
+    miss_ids: torch.Tensor   # (miss_cap,) int32 global ids to stage, -1 pad
+    num_miss: torch.Tensor   # () int32 total misses (may exceed miss_cap)
+    num_hit: torch.Tensor    # () int32
+    num_valid: torch.Tensor  # () int32
+
+    def overflow(self) -> torch.Tensor:
+        """Misses beyond staging capacity (their rows read as zeros)."""
+        return (self.num_miss - self.miss_ids.shape[0]).clamp(min=0)
+
+
+class FeatureCache:
+    """Host features plus a device hot-row cache. ``hot_ids`` is sorted
+    ascending (``build`` sorts it) and ``rows[i]`` is the feature row of
+    ``hot_ids[i]`` in the cache dtype."""
+
+    def __init__(self, hot_ids: torch.Tensor, rows: torch.Tensor,
+                 host_features: np.ndarray, miss_cap: int):
+        self.hot_ids = hot_ids
+        self.rows = rows
+        self.host_features = host_features
+        self.miss_cap = int(miss_cap)
+        self._host = host_tensor(host_features)     # only ever read
+
+    @classmethod
+    def build(cls, host_features: np.ndarray, hot_order: np.ndarray,
+              capacity: int, miss_cap: int, dtype=torch.float32,
+              device: torch.device | str = "cpu") -> "FeatureCache":
+        """Cache the first ``capacity`` ids of ``hot_order`` (the cost
+        model's hotness-descending feat_order; the reference's FillUp,
+        src/GPUCache.cu:769-826) in ``dtype`` on ``device``."""
+        capacity = int(min(capacity, len(hot_order)))
+        hot = np.sort(np.asarray(hot_order[:capacity], np.int32))
+        rows = torch.from_numpy(np.ascontiguousarray(host_features[hot]))
+        return cls(torch.from_numpy(hot).to(device),
+                   rows.to(dtype).to(device), host_features, miss_cap)
+
+    @staticmethod
+    def plan_ids(hot_ids: torch.Tensor, frontier: torch.Tensor,
+                 miss_cap: int) -> CachePlan:
+        """Classify each frontier id as a cache hit or miss and compact
+        the miss ids for host staging, on the device with no host sync;
+        hot_ids sorted ascending."""
+        c = hot_ids.shape[0]
+        valid = frontier >= 0
+        ids = torch.where(valid, frontier, 0)
+        if c > 0:
+            slot = torch.searchsorted(hot_ids, ids, out_int32=True).clamp(
+                0, c - 1)
+            hit = valid & (hot_ids[slot] == ids)
+        else:
+            slot = torch.zeros_like(ids)
+            hit = torch.zeros_like(valid)
+        miss = valid & ~hit
+        midx = torch.cumsum(miss, 0, dtype=torch.int32) - 1
+        # compaction: miss k goes to slot k; the rest to a dropped slot
+        dest = torch.where(miss & (midx < miss_cap), midx, miss_cap).long()
+        miss_ids = torch.full((miss_cap + 1,), -1, dtype=torch.int32,
+                              device=frontier.device)
+        miss_ids.scatter_(0, dest, torch.where(miss, frontier, -1))
+        return CachePlan(
+            slot=slot, hit=hit, miss_idx=midx, miss_ids=miss_ids[:miss_cap],
+            num_miss=miss.sum(dtype=torch.int32),
+            num_hit=hit.sum(dtype=torch.int32),
+            num_valid=valid.sum(dtype=torch.int32))
+
+    @staticmethod
+    def combine_rows(rows: torch.Tensor, plan: CachePlan,
+                     staged: torch.Tensor,
+                     frontier: torch.Tensor) -> torch.Tensor:
+        """The frontier's feature matrix from cached rows and the staged
+        miss rows (``staged``: (miss_cap, D) rows of ``plan.miss_ids``).
+        Padded slots (-1) and overflowed misses (rank beyond staging
+        capacity, see ``CachePlan.overflow``) come out zero."""
+        miss = (frontier >= 0) & ~plan.hit
+        missed = gather_rows(staged, torch.where(
+            miss & (plan.miss_idx < staged.shape[0]), plan.miss_idx, -1))
+        if rows.shape[0] == 0:
+            return missed
+        cached = gather_rows(rows, torch.where(plan.hit, plan.slot, -1))
+        return torch.where(plan.hit[:, None], cached, missed)
+
+    def plan(self, frontier: torch.Tensor) -> CachePlan:
+        return self.plan_ids(self.hot_ids, frontier, self.miss_cap)
+
+    def combine(self, plan: CachePlan, staged: torch.Tensor,
+                frontier: torch.Tensor) -> torch.Tensor:
+        return self.combine_rows(self.rows, plan, staged, frontier)
+
+    def stage(self, miss_ids: np.ndarray,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Host gather of the rows of ``miss_ids`` in the cache dtype (a
+        zero row for -1), into ``out`` (e.g. a pinned buffer) when given,
+        so the bytes staged match the cache dtype."""
+        ids = torch.from_numpy(np.asarray(miss_ids, np.int64))
+        rows = self._host.index_select(0, ids.clamp(min=0))
+        if out is None:
+            out = torch.empty(rows.shape, dtype=self.rows.dtype)
+        out.copy_(rows)
+        invalid = ids < 0
+        if bool(invalid.any()):
+            out[invalid] = 0
+        return out

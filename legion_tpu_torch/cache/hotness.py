@@ -1,13 +1,81 @@
-"""Cap sizing from presampling observation: ``observed_caps`` copied from
-``legion_tpu/cache/hotness.py:82`` (numpy only). The port may not import
-``legion_tpu.cache``, whose ``__init__`` loads JAX;
-``tests/test_torch_sampler.py`` holds the two equal."""
+"""Presampling hotness measurement (port of
+``legion_tpu/cache/hotness.py``): ``presample_hotness`` and
+``observed_caps``.
+
+The reference dedicates a profiling epoch before training: sampling runs
+without feature extraction while per-node access counters accumulate
+(``src/Kernels.cu:525``, ``src/GPUCache.cu:227-235``), and the realized
+frontier sizes size the buffers at 1.2x (``src/Server.cu:273-282``). Here
+the epoch is a Python loop of the device sampler; the histograms are
+``index_add_`` into (N,) int32 device tensors and the observed counts stay
+device tensors, so the loop never waits for the device. The port may not
+import ``legion_tpu.cache``, whose ``__init__`` loads JAX;
+``tests/test_torch_cache.py`` and ``tests/test_torch_sampler.py`` hold
+the two equal.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
+
+
+class HotnessResult(NamedTuple):
+    node_hot: torch.Tensor      # (N,) int32: feature-access counts
+    edge_hot: torch.Tensor      # (N,) int32: adjacency-row read counts
+    max_frontier: torch.Tensor  # () int32: max unique nodes per batch
+    max_per_hop: torch.Tensor   # (hops+1,) int32: max valid count per level
+
+
+def presample_hotness(graph: DeviceGraph, seeds_epoch: torch.Tensor,
+                      num_seeds: torch.Tensor, fanouts: Sequence[int],
+                      caps: Sequence[int], num_nodes: int,
+                      generator: Optional[torch.Generator] = None,
+                      uniforms: Optional[Sequence[Sequence[torch.Tensor]]]
+                      = None) -> HotnessResult:
+    """Run a presampling epoch and return hotness histograms.
+
+    seeds_epoch: (steps, seed_cap) int32 and num_seeds: (steps,) int32, on
+    the graph's device. Randomness: ``uniforms[i]`` (the per-hop uniforms
+    of step i, see ``sample_batch``) when given, else ``generator``.
+
+    Feature hotness counts every unique frontier membership (those rows
+    would be gathered); topology hotness counts every time a node's
+    adjacency row is read by a sampler hop (every level but the
+    outermost, whose nodes are never expanded)."""
+    fanouts, caps = tuple(fanouts), tuple(caps)
+    dev = seeds_epoch.device
+    node_hot = torch.zeros((num_nodes,), dtype=torch.int32, device=dev)
+    edge_hot = torch.zeros((num_nodes,), dtype=torch.int32, device=dev)
+    max_frontier = torch.zeros((), dtype=torch.int32, device=dev)
+    max_per_hop = torch.zeros((len(fanouts) + 1,), dtype=torch.int32,
+                              device=dev)
+    slot = torch.arange(caps[-1], dtype=torch.int32, device=dev)
+    for i in range(seeds_epoch.shape[0]):
+        seeds = seeds_epoch[i]
+        batch = sample_batch(
+            graph, seeds, num_seeds[i], torch.zeros_like(seeds), fanouts,
+            caps, dedup_last=True,
+            generator=None if uniforms is not None else generator,
+            uniforms=None if uniforms is None else uniforms[i])
+        fvalid = batch.frontier >= 0
+        fids = torch.where(fvalid, batch.frontier, 0).long()
+        node_hot.index_add_(0, fids, fvalid.to(torch.int32))
+        # rows read: every valid node of every level but the last; the
+        # level-k node set is the frontier's first num_k entries (prefix
+        # numbering), so one masked add per level suffices
+        levels = [batch.num_seeds] + [b.num_src for b in batch.blocks]
+        for nvalid in levels[:len(fanouts)]:
+            edge_hot.index_add_(0, fids,
+                                ((slot < nvalid) & fvalid).to(torch.int32))
+        max_frontier = torch.maximum(max_frontier, batch.num_frontier)
+        max_per_hop = torch.maximum(max_per_hop,
+                                    torch.stack(levels).to(torch.int32))
+    return HotnessResult(node_hot, edge_hot, max_frontier, max_per_hop)
 
 
 def observed_caps(max_per_hop, slack: float = 1.2, align: int = 8,
@@ -20,6 +88,8 @@ def observed_caps(max_per_hop, slack: float = 1.2, align: int = 8,
     dedup_last=False — the final cap is then the exact identity-append
     extent caps[-2]*(1+fanout), not an observed (deduped) count.
     """
+    if isinstance(max_per_hop, torch.Tensor):
+        max_per_hop = max_per_hop.cpu().numpy()
     m = np.asarray(max_per_hop)
     caps = np.ceil(m * slack / align).astype(int) * align
     caps = np.maximum.accumulate(caps)

@@ -1,12 +1,19 @@
 """Configuration of the port (counterpart of ``legion_tpu/config.py``).
 
-The fields the single-device trainer acts on, with the reference's names
-and defaults, so they mean the same here. ``legion_tpu.config`` is not
+The fields the port's drivers act on, with the reference's names and
+defaults, so they mean the same here. ``legion_tpu.config`` is not
 imported: the port and its smoke script load nothing of the JAX package.
-Fields of paths not ported yet (placements, the cache and parallel
-sections, the JAX program's tuning, the dataset registry) are left out,
-so setting one fails instead of being ignored; ``checkpoint_dir`` and
-``profile_dir`` are kept because ``Trainer`` raises when they are set.
+Fields of paths not ported yet (topology placement, the parallel section,
+the JAX program's tuning, the dataset registry, the striped cache's
+``group_size`` and the cost model's ``cost_model_granularity``) are left
+out, so setting one fails instead of being ignored; ``checkpoint_dir``
+and ``profile_dir`` are kept because the drivers raise when they are set,
+and so do the values of a kept field that name an unported path
+(``feature_placement="hbm_sharded"``). ``feature_placement`` and
+``CacheConfig.enabled`` choose the driver: ``Trainer`` raises unless
+features are in device memory with the cache off, and
+``run_cached_training`` raises unless they are in host memory with the
+cache on.
 """
 
 from __future__ import annotations
@@ -14,14 +21,30 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+FEATURE_PLACEMENTS = ("hbm", "host")
+
 
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:
     num_classes: int = 0                # 0: one more than the largest label
+    # Where features live: "hbm" (the whole table in device memory,
+    # train.loop.Trainer) or "host" (host RAM behind the hot-row cache,
+    # train.cached_driver.run_cached_training).
+    feature_placement: str = "hbm"
     # Zero-pad the feature dim to this column multiple before device
     # placement (0 = off). Inert for numerics; 128 f32 columns make
     # 512-byte rows, which the gather kernel moves in 16-byte words.
     feature_pad_align: int = 128
+
+    def __post_init__(self):
+        if self.feature_placement == "hbm_sharded":
+            raise NotImplementedError(
+                "feature_placement='hbm_sharded' (the multi-device drivers) "
+                "is not ported to legion_tpu_torch yet (queued in ROADMAP.md)")
+        if self.feature_placement not in FEATURE_PLACEMENTS:
+            raise ValueError(f"feature_placement must be one of "
+                             f"{FEATURE_PLACEMENTS}, got "
+                             f"{self.feature_placement!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +63,7 @@ class SamplerConfig:
     probe_caps_min_cap: int = 262144
     probe_caps_batches: int = 3
     # Dedup the final hop's frontier (False: identity-append it, K1's
-    # layout).
+    # layout). The cached path always dedups.
     dedup_last: bool = False
 
 
@@ -59,8 +82,25 @@ class TrainConfig:
     learning_rate: float = 0.003
     epochs: int = 10
     seed: int = 0
-    checkpoint_dir: Optional[str] = None    # not ported: Trainer raises
-    profile_dir: Optional[str] = None       # not ported: Trainer raises
+    # Steps of sample + cache plan the cached trainer enqueues ahead of
+    # the one it trains (the reference's PIPELINE_DEPTH 2,
+    # src/Server.cu:15).
+    pipeline_depth: int = 2
+    checkpoint_dir: Optional[str] = None    # not ported: drivers raise
+    profile_dir: Optional[str] = None       # not ported: drivers raise
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """Hotness-aware feature cache (reference ``src/GPUCache.cu``).
+
+    ``budget_bytes`` is the device-memory budget the cost model gives the
+    feature cache of the one card (``src/GPUCache.cu:661-767``); the
+    topology stays whole in device memory."""
+
+    enabled: bool = False               # True: run_cached_training
+    budget_bytes: int = 4 << 30
+    presample_steps: int = 0            # 0 = one full epoch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +109,4 @@ class Config:
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)

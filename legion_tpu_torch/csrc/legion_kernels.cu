@@ -2,8 +2,8 @@
 //
 // Each kernel replaces a Pallas TPU kernel of legion_tpu/ops/ and computes
 // what that kernel computes, redesigned for the H100 rather than copied
-// block by block. All four are gathers, reductions or scatters with no
-// matrix product: at the main-path shapes they do < 1 FLOP per byte moved,
+// block by block. All are gathers, reductions or scatters with no matrix
+// product: at the main-path shapes they do < 1 FLOP per byte moved,
 // far below the ~295 FLOP/byte at which the H100's bf16 tensor cores would
 // bound them, so device-memory bytes bound every one of them. The design
 // answer is the same for all: read each byte once, in coalesced 16-byte
@@ -16,7 +16,8 @@
 // Plain C launchers (extern "C" below) take raw pointers and the caller's
 // stream, launch without synchronising, allocate nothing, and return
 // cudaGetLastError(). Wrappers and plain PyTorch versions of each kernel:
-// legion_tpu_torch/ops/identity_agg.py and legion_tpu_torch/ops/gather.py.
+// legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py and
+// legion_tpu_torch/ops/sample.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +69,10 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
   *reinterpret_cast<W*>(p) = w;
 }
 
+// The fill value of a gather position outside the rows (JAX's take fills
+// float rows with NaN).
+__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
+
 // The norm of a sum over cnt valid slots (cnt clamped to 1: a dst with no
 // valid slot has a zero sum and keeps it).
 __device__ __forceinline__ float apply_norm(float v, int cnt, int norm) {
@@ -81,9 +86,11 @@ __device__ __forceinline__ float apply_norm(float v, int cnt, int norm) {
 // K1 and K2 forward: masked norm-reduce over f slots per dst row.
 //
 //   out[r, c] = norm( sum_{j < f, mask[r, j]} x[row(r, j), c] )
-//   row(r, j) = pos ? pos[r*f + j] : offset + r*f + j, clamped to the n
-//               rows of x (a position past the frontier exists only after
-//               a cap overflow, which the train step reports)
+//   row(r, j) = pos ? pos[r*f + j] : offset + r*f + j
+//
+// A valid slot whose row lies outside the n rows of x (a position past the
+// frontier, which exists only after a cap overflow) is not read: it makes
+// the whole output row NaN, as JAX's fill-mode take makes its row NaN.
 //
 // K1 (pos == nullptr) replaces identity_masked_mean_pallas
 // (legion_tpu/ops/identity_agg_pallas.py:137): the f slots of dst r are the
@@ -121,19 +128,24 @@ masked_agg_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ pos,
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
   int cnt = 0;
+  bool filled = false;
   for (int j = 0; j < f; ++j) {
     if (!m[j]) continue;
     ++cnt;
-    int64_t row = pos ? static_cast<int64_t>(pos[r * f + j])
-                      : offset + r * f + j;
-    row = row < 0 ? 0 : (row < n ? row : n - 1);
+    const int64_t row = pos ? static_cast<int64_t>(pos[r * f + j])
+                            : offset + r * f + j;
+    if (row < 0 || row >= n) {
+      filled = true;
+      continue;
+    }
     float v[VEC];
     load_vec<VEC>(x + row * d + c, v);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] += v[i];
   }
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = apply_norm(acc[i], cnt, norm);
+  for (int i = 0; i < VEC; ++i)
+    acc[i] = filled ? nan_f32() : apply_norm(acc[i], cnt, norm);
   store_vec<VEC>(out + r * d + c, acc);
 }
 
@@ -144,7 +156,9 @@ masked_agg_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ pos,
 //
 //   dx[pos[r, j], c] += mask[r, j] * g[r, c] * scale(cnt_r)
 //
-// with pos clamped to the n rows of dx, as in the forward.
+// A slot whose position lies outside the n rows of dx is dropped, as the
+// transpose of a fill-mode take drops it; it still counts in cnt_r, since
+// the forward's mean counted it.
 //
 // Bound: bytes and atomics. It reads g (P x D) once and issues one f32
 // atomicAdd per valid (edge, column): 8320 x 25 x 47 at the main path,
@@ -174,8 +188,8 @@ masked_agg_bwd_kernel(const Tg* __restrict__ g,
   const float s = apply_norm(to_f32(g[t]), cnt, norm);
   for (int j = 0; j < f; ++j) {
     if (!m[j]) continue;
-    int64_t row = pos[r * f + j];
-    row = row < 0 ? 0 : (row < n ? row : n - 1);
+    const int64_t row = pos[r * f + j];
+    if (row < 0 || row >= n) continue;
     atomicAdd(dx + row * d + c, s);
   }
 }
@@ -209,6 +223,58 @@ gather_rows_kernel(const W* __restrict__ table,
   const int64_t id = ids[r];
   W v{};
   if (id >= 0) v = table[(id < n ? id : n - 1) * words + w];
+  out[t] = v;
+}
+
+// ---------------------------------------------------------------------------
+// Neighbor sampling: replaces select_lanes_pallas
+// (legion_tpu/ops/select_pallas.py:46) together with the code the JAX
+// sampler wraps around it (legion_tpu/sampling/sampler.py:289-385): per
+// frontier node p and slot f,
+//
+//   deg  = indptr[id+1] - indptr[id]              (id = frontier[p])
+//   draw = min(int(u[p, f] * float(deg)), max(deg - 1, 0))
+//   out[p, f] = indices[indptr[id] + draw]  if id >= 0, deg > 0, f < deg
+//               -1                          otherwise
+//
+// On the TPU a node's CSR run was fetched as one or two 512-byte lines and
+// the sampled lane picked out of the line by a VMEM masked sum (K4), since
+// a 4-byte HBM gather per edge wasted the DMA descriptor; ids >= 2^24 had
+// to take that kernel because the f32 one-hot select is exact only below
+// 2^24. Hopper reads the CSR in place: the window is the node's run, the
+// lane offset is the draw, and the select is one 4-byte load, exact for
+// every int32 id.
+//
+// Bound: latency of dependent loads (frontier id -> indptr pair -> one
+// index), about 12 bytes of useful reads per slot; at the main path's hop 2
+// it is 1.2M slots. Design: one thread per (p, f) slot, the threads of a
+// warp on consecutive slots of one or two nodes, so the frontier and indptr
+// reads coalesce or hit L1 and only the neighbor read scatters. The draw is
+// computed bit-exactly as the plain version's float32 ops: __int2float_rn,
+// __fmul_rn (no contraction into an FMA) and truncation toward zero.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sample_neighbors_kernel(const int32_t* __restrict__ indptr,
+                        const int32_t* __restrict__ indices,
+                        const int32_t* __restrict__ frontier,
+                        const float* __restrict__ u,
+                        int32_t* __restrict__ out, int64_t p, int f) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= p * f) return;
+  const int64_t r = t / f;
+  const int j = static_cast<int>(t - r * f);
+  const int32_t id = frontier[r];
+  int32_t v = -1;
+  if (id >= 0) {
+    const int32_t start = indptr[id];
+    const int32_t deg = indptr[id + 1] - start;
+    if (deg > 0 && j < deg) {
+      int32_t draw = __float2int_rz(__fmul_rn(u[t], __int2float_rn(deg)));
+      draw = draw < deg - 1 ? draw : deg - 1;
+      v = indices[static_cast<int64_t>(start) + draw];
+    }
+  }
   out[t] = v;
 }
 
@@ -328,6 +394,19 @@ int legion_gather_rows(const void* table, const void* ids, void* out,
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+int legion_sample_neighbors(const void* indptr, const void* indices,
+                            const void* frontier, const void* u, void* out,
+                            int64_t p, int f, void* stream) {
+  if (p * f == 0) return cudaSuccess;
+  sample_neighbors_kernel<<<blocks_for(p * f), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(indptr),
+      static_cast<const int32_t*>(indices),
+      static_cast<const int32_t*>(frontier), static_cast<const float*>(u),
+      static_cast<int32_t*>(out), p, f);
   return cudaGetLastError();
 }
 

@@ -1,23 +1,48 @@
-"""In-memory graph container (counterpart of ``legion_tpu/data/format.py``).
+"""Graph container and packed on-disk format (counterpart of
+``legion_tpu/data/format.py``).
 
-``GraphData``, ``from_coo`` and ``pad_feature_dim`` as the reference
-defines them, in numpy, so the port and its smoke script need nothing of
-the JAX package. The packed on-disk format (``save_dataset`` /
-``load_dataset``) is not ported yet (ROADMAP.md).
+``GraphData``, ``from_coo``, ``pad_feature_dim``, ``save_dataset`` and
+``load_dataset`` as the reference defines them, in numpy, so the port and
+its smoke script need nothing of the JAX package. Each package reads the
+other's dataset directories. The packed layout (the reference's
+``src/GPUGraphStore.cu:254-340``):
+
+=================  ==========  ==========================================
+file               dtype       contents
+=================  ==========  ==========================================
+``edge_src``       int64       CSR indptr, ``num_nodes + 1`` entries
+``edge_dst``       int32       CSR indices (neighbor ids), ``num_edges``
+``features``       float32     ``num_nodes x feature_dim`` row-major
+``labels``         int32       ``num_nodes``
+``trainingset``    int32       train node ids
+``validationset``  int32       valid node ids
+``testingset``     int32       test node ids
+``meta.json``      json        counts and dims
+=================  ==========  ==========================================
+
+``load_dataset(mmap=True)`` leaves every array a ``numpy.memmap``, so a
+feature table larger than RAM stays in the page cache; ``host_tensor``
+wraps such an array as a CPU tensor without copying it. The reference's
+optional ``partition_K_bn`` file (multi-device partitions) is neither
+written nor read here yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import warnings
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
 class GraphData:
-    """Host-side graph (numpy). ``indptr[v]:indptr[v+1]`` indexes the
-    incoming message neighbors of ``v``: the nodes whose features are
-    aggregated into ``v``."""
+    """Host-side graph (numpy; arrays may be memmaps).
+    ``indptr[v]:indptr[v+1]`` indexes the incoming message neighbors of
+    ``v``: the nodes whose features are aggregated into ``v``."""
 
     indptr: np.ndarray        # (N+1,) int64
     indices: np.ndarray       # (E,) int32
@@ -42,6 +67,69 @@ class GraphData:
     @property
     def num_classes(self) -> int:
         return int(self.labels.max()) + 1
+
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr).astype(np.int64)
+
+
+def save_dataset(g: GraphData, path: str) -> None:
+    """Write GraphData in the packed binary layout described above."""
+    os.makedirs(path, exist_ok=True)
+
+    def w(name, arr, dtype):
+        np.ascontiguousarray(arr, dtype=dtype).tofile(os.path.join(path, name))
+
+    w("edge_src", g.indptr, np.int64)
+    w("edge_dst", g.indices, np.int32)
+    w("features", g.features, np.float32)
+    w("labels", g.labels, np.int32)
+    w("trainingset", g.train_ids, np.int32)
+    w("validationset", g.valid_ids, np.int32)
+    w("testingset", g.test_ids, np.int32)
+    meta = {
+        "num_nodes": g.num_nodes,
+        "num_edges": g.num_edges,
+        "feature_dim": g.feature_dim,
+        "num_classes": g.num_classes,
+        "train_num": int(g.train_ids.shape[0]),
+        "valid_num": int(g.valid_ids.shape[0]),
+        "test_num": int(g.test_ids.shape[0]),
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_dataset(path: str, mmap: bool = True) -> GraphData:
+    """Load a packed dataset directory; with ``mmap`` the arrays stay on
+    disk and in the page cache."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    n, e, fdim = meta["num_nodes"], meta["num_edges"], meta["feature_dim"]
+
+    def r(name, dtype, shape):
+        fp = os.path.join(path, name)
+        if mmap:
+            return np.memmap(fp, dtype=dtype, mode="r", shape=shape)
+        return np.fromfile(fp, dtype=dtype).reshape(shape)
+
+    return GraphData(
+        indptr=r("edge_src", np.int64, (n + 1,)),
+        indices=r("edge_dst", np.int32, (e,)),
+        features=r("features", np.float32, (n, fdim)),
+        labels=r("labels", np.int32, (n,)),
+        train_ids=r("trainingset", np.int32, (meta["train_num"],)),
+        valid_ids=r("validationset", np.int32, (meta["valid_num"],)),
+        test_ids=r("testingset", np.int32, (meta["test_num"],)),
+    )
+
+
+def host_tensor(array: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``array``'s memory, with no copy. A read-only
+    memmap is accepted (torch warns that it cannot mark the tensor
+    read-only): the caller only reads the tensor or copies it elsewhere."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.asarray(array))
 
 
 def from_coo(src: np.ndarray, dst: np.ndarray, num_nodes: int,

@@ -46,6 +46,8 @@ _SIGNATURES = {
                                         _I, _P),
     # table, ids, out, m, n, row_bytes, stream
     "legion_gather_rows": (_P, _P, _P, _L, _L, _L, _P),
+    # indptr, indices, frontier, u, out, p, f, stream
+    "legion_sample_neighbors": (_P, _P, _P, _P, _P, _L, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -12,7 +12,10 @@
   ``m[d, j] * scale[d]`` into ``d_h_t[nbr_pos[d, j]]``.
 
 norm: "mean" (SAGE), "sqrt" (sum / sqrt(in-degree), GCN) or "sum"; a
-dst with no valid slot gives a zero row. The kernels live in
+dst with no valid slot gives a zero row. K2 gathers with the fill
+semantics of JAX's ``jnp.take``: a valid slot whose position is past
+h_t's rows (after a cap overflow) makes its dst row NaN, and the
+backward drops it. The kernels live in
 ``csrc/legion_kernels.cu`` (``masked_agg_kernel``,
 ``masked_agg_bwd_kernel``), with their source notes. A CPU tensor takes
 the plain PyTorch version beside each kernel; a CUDA tensor takes the
@@ -48,11 +51,23 @@ def _normalize(s: torch.Tensor, nbr_mask: torch.Tensor,
     return s / denom if norm == "mean" else s * torch.rsqrt(denom)
 
 
-def clamp_positions(nbr_pos: torch.Tensor, n: int) -> torch.Tensor:
-    """Positions as int64 indices clamped to n rows, as the kernels clamp
-    them: a position past the frontier exists only after a cap overflow,
-    which the train step reports."""
-    return nbr_pos.clamp(0, n - 1).long()
+def in_rows(pos: torch.Tensor, n: int) -> torch.Tensor:
+    """Which positions address one of n rows. A position past the
+    frontier exists only after a cap overflow, which the train step
+    reports."""
+    return (pos >= 0) & (pos < n)
+
+
+def take_rows(h: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``h[pos]`` with the fill semantics of JAX's ``jnp.take``: a
+    position outside h's rows gives a NaN row, and in the backward its
+    gradient is dropped (the ``torch.where`` routes none to the clamped
+    row)."""
+    ok = in_rows(pos, h.shape[0])
+    rows = h[pos.clamp(0, h.shape[0] - 1).long()]
+    return torch.where(ok[..., None], rows,
+                       torch.full((), float("nan"), dtype=h.dtype,
+                                  device=h.device))
 
 
 def _masked_reduce_plain(rows: torch.Tensor, nbr_mask: torch.Tensor,
@@ -114,20 +129,23 @@ identity_masked_mean.launches = 0
 # ---------------------------------------------------------------------------
 
 def gathered_masked_mean_plain(h_t, nbr_pos, nbr_mask, norm="mean"):
-    """Plain version; differentiable in h_t through PyTorch's autograd."""
-    rows = h_t[clamp_positions(nbr_pos, h_t.shape[0])]   # (P, f, D)
+    """Plain version; differentiable in h_t through PyTorch's autograd.
+    A valid slot past h_t's rows makes its row NaN (``take_rows``)."""
+    rows = take_rows(h_t, nbr_pos)                        # (P, f, D)
     return _masked_reduce_plain(rows, nbr_mask, norm).to(h_t.dtype)
 
 
 def gathered_masked_mean_backward_plain(g, nbr_pos, nbr_mask, num_src,
                                         norm="mean", out_dtype=None):
     """d_h_t of the masked norm-reduce: d_h_t[nbr_pos[d, j]] +=
-    m[d, j] * scale[d], summed in f32 and cast to out_dtype."""
+    m[d, j] * scale[d], summed in f32 and cast to out_dtype. A slot past
+    num_src is dropped; it still counts in the mean's denominator."""
     scale = _normalize(g.float(), nbr_mask, norm)                  # (P, D)
-    contrib = scale[:, None, :] * nbr_mask[..., None]              # (P, f, D)
+    keep = nbr_mask & in_rows(nbr_pos, num_src)
+    contrib = scale[:, None, :] * keep[..., None]                  # (P, f, D)
     d = torch.zeros((num_src, g.shape[1]), dtype=torch.float32,
                     device=g.device)
-    d.index_add_(0, clamp_positions(nbr_pos, num_src).reshape(-1),
+    d.index_add_(0, nbr_pos.clamp(0, num_src - 1).long().reshape(-1),
                  contrib.reshape(-1, g.shape[1]))
     return d.to(out_dtype or g.dtype)
 

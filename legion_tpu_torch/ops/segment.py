@@ -3,14 +3,16 @@
 ``fanout_gather_*`` are the gather + masked-reduce formulation over a
 block's dense ``(dst_cap, fanout)`` grid, in the input's dtype;
 ``segment_mean_coo`` is the scatter-based (DGL-style SpMM) baseline over
-the flattened COO edge list, kept as a cross-check.
+the flattened COO edge list, kept as a cross-check. Both gather with
+``jnp.take``'s fill semantics (``take_rows``): a position past the src
+rows gives a NaN row, and its gradient is dropped.
 """
 
 from __future__ import annotations
 
 import torch
 
-from legion_tpu_torch.ops.identity_agg import clamp_positions
+from legion_tpu_torch.ops.identity_agg import take_rows
 from legion_tpu_torch.sampling.block import Block
 
 
@@ -22,7 +24,7 @@ def fanout_gather_sum(h_src: torch.Tensor, block: Block) -> torch.Tensor:
         off = block.identity_offset
         rows = h_src[off:off + p * f].reshape(p, f, -1)
     else:
-        rows = h_src[clamp_positions(block.nbr_pos, h_src.shape[0])]
+        rows = take_rows(h_src, block.nbr_pos)
     m = block.nbr_mask[..., None].to(h_src.dtype)
     return (rows * m).sum(1)
 
@@ -38,8 +40,7 @@ def segment_mean_coo(h_src: torch.Tensor, block: Block) -> torch.Tensor:
     """Scatter-based mean over the COO edge list (the reference client's
     SpMM formulation): index_add_ of masked messages per dst."""
     src, dst, mask = block.coo()
-    msgs = (h_src[clamp_positions(src, h_src.shape[0])]
-            * mask[:, None].to(h_src.dtype))
+    msgs = take_rows(h_src, src) * mask[:, None].to(h_src.dtype)
     dst = dst.long()
     summ = torch.zeros((block.dst_cap, h_src.shape[1]), dtype=h_src.dtype,
                        device=h_src.device).index_add_(0, dst, msgs)

@@ -7,8 +7,9 @@ so a later change can capture the whole step as one CUDA graph.
 What is carried over, and what is not:
 
 * ``DeviceGraph`` is a plain int32 CSR. The reference's lined, aligned
-  and windowed layouts and its lane select exist to cut TPU DMA
-  descriptors; the H100 reads the CSR directly.
+  and windowed layouts and its lane select (K4) exist to cut TPU DMA
+  descriptors; the H100 reads the CSR directly, in the sampling kernel
+  (``ops/sample.py``), for node ids of any int32 width.
 * Sampling has the semantics of ``sample_neighbors_per_edge``
   (``sampler.py:258``), the bit-identical oracle of every JAX layout:
   given the same uniforms, the port draws the same neighbors.
@@ -27,7 +28,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from legion_tpu_torch.data.format import host_tensor
 from legion_tpu_torch.ops.gather import gather_rows
+from legion_tpu_torch.ops.sample import sample_neighbors as sample_kernel
 from legion_tpu_torch.sampling.block import Block, SampledBatch, frontier_caps
 
 # Padding sentinel that sorts after every real node id (externally the
@@ -54,42 +57,24 @@ class DeviceGraph:
         if int(indptr[-1]) >= 2 ** 31:
             raise ValueError("on-device CSR needs < 2^31 edges")
         indptr = np.asarray(indptr).astype(np.int32)
-        indices = np.asarray(indices, dtype=np.int32)
+        indices = np.ascontiguousarray(indices, dtype=np.int32)
         if indices.shape[0] == 0:
             # keep clamped reads in bounds; every slot is masked anyway
             indices = np.zeros(1, np.int32)
+        # an int32 memmap goes to the device as it is, without a host copy
         return cls(torch.from_numpy(indptr).to(device),
-                   torch.from_numpy(indices).to(device))
-
-
-def _draws(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
-    """Uniform-with-replacement draw offsets in [0, deg) per (node, slot),
-    computed in float32 exactly as the reference: min(int(u * deg),
-    max(deg - 1, 0))."""
-    d = deg[:, None]
-    return torch.minimum((u * d.to(torch.float32)).to(torch.int32),
-                         (d - 1).clamp(min=0))
+                   host_tensor(indices).to(device))
 
 
 def sample_neighbors(graph: DeviceGraph, frontier: torch.Tensor,
                      u: torch.Tensor) -> torch.Tensor:
-    """One hop of uniform-with-replacement sampling.
+    """One hop of uniform-with-replacement sampling, through the sampling
+    kernel (``ops/sample.py``).
 
     frontier: (P,) int32 global ids, -1 padded; u: (P, fanout) float32
     uniforms in [0, 1). Returns (P, fanout) int32 neighbor ids, -1 where
     the slot is invalid (padded source, or slot >= degree)."""
-    fanout = u.shape[1]
-    valid = frontier >= 0
-    ids = torch.where(valid, frontier, 0).long()
-    start = graph.indptr[ids]
-    deg = graph.indptr[ids + 1] - start
-    addr = (start[:, None] + _draws(u, deg)).clamp(
-        0, graph.indices.shape[0] - 1)
-    nbr = graph.indices[addr.long()]
-    slot = torch.arange(fanout, dtype=torch.int32, device=frontier.device)
-    d = deg[:, None]
-    ok = valid[:, None] & (slot[None, :] < d) & (d > 0)
-    return torch.where(ok, nbr, -1)
+    return sample_kernel(graph.indptr, graph.indices, frontier, u)
 
 
 def grow_frontier(frontier_prev: torch.Tensor, num_prev: torch.Tensor,

@@ -1,0 +1,96 @@
+"""Where the time of the cached path at papers100M class goes.
+
+    python -m legion_tpu_torch.tools.profile_cached
+
+from the repository root, on a machine with the card. It runs
+``run_cached_training`` on ``pa_cell``'s configuration and dataset
+(generated into ``.bench_cache/`` on first use) for three epochs and
+traces epoch 1 (epoch 0 warms up) under ``torch.profiler``. It prints
+one JSON line: every epoch's ms/step, staging seconds, hit rate, host GB
+and edges/s; for the profiled epoch the wall time, the device-busy time
+(the self device times of the CUDA kernels and copies, summed: one
+stream, so nothing overlaps), the idle share ``1 - busy / wall``, the
+largest device rows and the largest host rows. Ranges that the profiler
+mirrors onto the device timeline (``Optimizer.step#Adam.step``) are not
+summed, since the kernels inside them are.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from unittest import mock
+
+import torch
+
+from legion_tpu_torch.cache.pipeline import CachedTrainer
+from legion_tpu_torch.tools import pa_cell
+from legion_tpu_torch.train.cached_driver import run_cached_training
+
+EPOCHS, PROFILED_EPOCH = 3, 1
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _rows(events, key, n):
+    top = sorted(events, key=lambda e: -getattr(e, key))[:n]
+    return [[e.key, e.count, getattr(e, key) / 1e3] for e in top]
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_cached needs a CUDA device")
+    log = lambda s: print(s, file=sys.stderr, flush=True)   # noqa: E731
+    data, gen_s, load_s = pa_cell.dataset(ROOT, log)
+    run_epoch = CachedTrainer.run_epoch
+    calls, profiled = [], {}
+
+    def traced(self, state, seeds, labels):
+        calls.append(None)
+        if len(calls) != PROFILED_EPOCH + 1:
+            return run_epoch(self, state, seeds, labels)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            r = run_epoch(self, state, seeds, labels)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        # device rows named as a host row are ranges the profiler mirrors
+        # onto the device timeline (the optimizer step): their kernels are
+        # rows of their own already
+        host = {e.key for e in ev
+                if e.device_type == torch.autograd.DeviceType.CPU}
+        dev = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in host]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        wall = r["seconds"] * 1e3
+        profiled.update(
+            epoch=PROFILED_EPOCH, steps=r["steps"], wall_ms=wall,
+            device_busy_ms=busy, idle_share=1.0 - busy / wall,
+            stage_s=r["stage_s"],
+            device_top=_rows(dev, "self_device_time_total", 25),
+            host_top=_rows(ev, "self_cpu_time_total", 15))
+        return r
+
+    with mock.patch.object(CachedTrainer, "run_epoch", traced):
+        res = run_cached_training(pa_cell.config(EPOCHS), data, "cuda",
+                                  log=log)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "device": smi, "gen_s": gen_s, "load_s": load_s,
+        "epochs": [{"ms_per_step": 1e3 * h["seconds"] / h["steps"],
+                    **{k: h[k] for k in ("stage_s", "cache_hit_rate",
+                                         "host_gb", "edges_per_s",
+                                         "staging_overflow")}}
+                   for h in res["history"]],
+        "profiled": profiled}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

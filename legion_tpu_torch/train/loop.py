@@ -118,6 +118,10 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
 class Trainer:
     """Single-device trainer with the topology and features in device
     memory. ``device`` is required: the trainer never picks one itself.
+    Host-resident features behind the cache (``feature_placement="host"``,
+    ``CacheConfig(enabled=True)``) go through
+    ``train.cached_driver.run_cached_training`` instead; the trainer
+    raises on either.
 
     Not ported yet (each raises when set): ``train.checkpoint_dir``,
     ``train.profile_dir`` and ``num_shards > 1``."""
@@ -131,6 +135,12 @@ class Trainer:
                 raise NotImplementedError(
                     f"{what} is not ported to legion_tpu_torch yet "
                     "(queued in ROADMAP.md)")
+        if cfg.dataset.feature_placement != "hbm" or cfg.cache.enabled:
+            raise ValueError(
+                f"Trainer keeps the features in device memory; "
+                f"feature_placement={cfg.dataset.feature_placement!r} with "
+                f"CacheConfig(enabled={cfg.cache.enabled}) runs through "
+                "legion_tpu_torch.train.cached_driver.run_cached_training")
         self.cfg = cfg
         self.data = data
         self.device = torch.device(device)

@@ -5,6 +5,7 @@ its name and default, and each generator gives the same arrays for the
 same arguments, so the port needs nothing of the JAX package."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -34,7 +35,8 @@ def _defaults(cls):
 
 
 @pytest.mark.parametrize("name", ["DatasetConfig", "SamplerConfig",
-                                  "ModelConfig", "TrainConfig"])
+                                  "ModelConfig", "TrainConfig",
+                                  "CacheConfig"])
 def test_config_sections_match_reference(name):
     port, ref = (_defaults(getattr(port_config, name)),
                   _defaults(getattr(jax_config, name)))
@@ -49,13 +51,31 @@ def test_config_holds_the_ported_fields():
     got = {f.name: sorted(_defaults(type(getattr(cfg, f.name))))
            for f in dataclasses.fields(cfg)}
     assert got == {
-        "dataset": ["feature_pad_align", "num_classes"],
+        "dataset": ["feature_pad_align", "feature_placement", "num_classes"],
         "sampler": sorted(_defaults(jax_config.SamplerConfig)),
         "model": sorted(_defaults(jax_config.ModelConfig)),
         "train": ["checkpoint_dir", "epochs", "learning_rate",
-                  "profile_dir", "seed"]}
+                  "pipeline_depth", "profile_dir", "seed"],
+        "cache": sorted(set(_defaults(jax_config.CacheConfig))
+                        - {"group_size", "cost_model_granularity"})}
     with pytest.raises(TypeError):
         port_config.TrainConfig(scan_unroll=2)
+    with pytest.raises(TypeError):
+        port_config.DatasetConfig(topology_placement="host")
+    with pytest.raises(TypeError):
+        port_config.CacheConfig(cost_model_granularity=0.1)
+
+
+def test_config_rejects_unported_values():
+    """Values of a kept field that name an unported path raise."""
+    assert port_config.DatasetConfig(feature_placement="host")
+    with pytest.raises(NotImplementedError, match="hbm_sharded"):
+        port_config.DatasetConfig(feature_placement="hbm_sharded")
+    with pytest.raises(ValueError, match="feature_placement"):
+        port_config.DatasetConfig(feature_placement="disk")
+    # a striped cache (group_size > 1) has no field to set
+    with pytest.raises(TypeError, match="group_size"):
+        port_config.CacheConfig(group_size=2)
 
 
 def _assert_same_graph(got, want):
@@ -99,3 +119,119 @@ def test_from_coo_and_pad_match_reference():
         np.testing.assert_array_equal(
             port_format.pad_feature_dim(feats, align),
             jax_format.pad_feature_dim(feats, align))
+    got = port_format.from_coo(*args)
+    np.testing.assert_array_equal(got.degrees(),
+                                  jax_format.from_coo(*args).degrees())
+
+
+# -- the packed on-disk format -------------------------------------------------
+
+def _files(path):
+    return {p.name: p.read_bytes() for p in sorted(path.iterdir())}
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+@pytest.mark.parametrize("mmap", [True, False])
+def test_packed_format_is_read_by_both(tmp_path, writer, mmap):
+    """Each package reads the other's dataset directory, and both write
+    the same bytes for the same graph."""
+    g = port_synthetic.random_power_law_graph(num_nodes=300, avg_degree=5,
+                                              feature_dim=6, num_classes=4)
+    jg = jax_format.GraphData(**dataclasses.asdict(g))
+    a, b = tmp_path / "port", tmp_path / "reference"
+    port_format.save_dataset(g, str(a))
+    jax_format.save_dataset(jg, str(b))
+    assert _files(a) == _files(b)
+    path = str(a if writer == "port" else b)
+    for got in (port_format.load_dataset(path, mmap=mmap),
+                jax_format.load_dataset(path, mmap=mmap)):
+        _assert_same_graph(got, g)
+        assert isinstance(got.features, np.memmap) == mmap
+
+
+@pytest.mark.parametrize("seed,chunk_nodes", [(2, 1300), (0, 10 ** 6)])
+def test_streaming_power_law_graph_writes_the_reference_files(
+        tmp_path, seed, chunk_nodes):
+    """Same arguments, same bytes in every file, with chunks that split
+    the nodes unevenly and with one chunk."""
+    kw = dict(num_nodes=5000, avg_degree=6.5, feature_dim=5, num_classes=9,
+              seed=seed, train_num=300, valid_num=40, test_num=50,
+              chunk_nodes=chunk_nodes, log=lambda s: None)
+    a = port_synthetic.streaming_power_law_graph(str(tmp_path / "p"), **kw)
+    b = jax_synthetic.streaming_power_law_graph(str(tmp_path / "r"), **kw)
+    assert _files(tmp_path / "p") == _files(tmp_path / "r")
+    g = port_format.load_dataset(a)
+    assert g.num_nodes == 5000 and g.indices.max() < 5000
+    assert len(g.train_ids) == 300 and b.endswith("r")
+
+
+def test_zipf_sources_split_over_threads_changes_nothing():
+    """The threaded search equals one searchsorted over all uniforms."""
+    rng = np.random.default_rng(0)
+    cdf = np.cumsum(np.arange(1, 1001, dtype=np.float64) ** -0.8)
+    cdf /= cdf[-1]
+    perm = rng.permutation(1000).astype(np.int32)
+    u = rng.random(3 * (1 << 20) + 17)
+    got = port_synthetic._zipf_sources(cdf, perm, u)
+    np.testing.assert_array_equal(got, perm[np.searchsorted(cdf, u)])
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("mmap", [True, False])
+def test_loaded_arrays_reach_torch_without_a_host_copy(tmp_path, mmap):
+    """The device graph's indices and the feature cache's host table wrap
+    the loaded arrays (read-only memmaps included) without copying them
+    and without a warning."""
+    import warnings
+
+    from legion_tpu_torch.cache.feature_cache import FeatureCache
+    from legion_tpu_torch.sampling.sampler import DeviceGraph
+
+    g = port_synthetic.random_power_law_graph(num_nodes=300, avg_degree=5,
+                                              feature_dim=6, num_classes=4)
+    port_format.save_dataset(g, str(tmp_path))
+    got = port_format.load_dataset(str(tmp_path), mmap=mmap)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        graph = DeviceGraph.from_host(got.indptr, got.indices, "cpu")
+        cache = FeatureCache.build(got.features, np.arange(10), 10, 16)
+        staged = cache.stage(np.array([3, -1, 299], np.int32))
+    assert graph.indices.data_ptr() == got.indices.ctypes.data
+    assert cache._host.data_ptr() == got.features.ctypes.data
+    np.testing.assert_array_equal(graph.indices.numpy(), g.indices)
+    np.testing.assert_array_equal(
+        staged.numpy(),
+        np.stack([g.features[3], np.zeros(6), g.features[299]]))
+
+
+def test_pa_cell_dataset_is_remade_when_its_arguments_change(tmp_path,
+                                                            monkeypatch):
+    """The papers100M-class cell's cached graph is reused only for the
+    same generator arguments; a leftover without meta.json and a copy made
+    with other arguments are removed and the graph is generated anew."""
+    from legion_tpu_torch.tools import pa_cell
+
+    cfg = pa_cell.config(epochs=2)
+    assert cfg.cache.enabled and cfg.dataset.feature_placement == "host"
+    assert cfg.cache.budget_bytes == 171_966_464 and cfg.train.epochs == 2
+    small = dict(pa_cell.GRAPH_ARGS, num_nodes=2000, num_classes=7,
+                 train_num=100, valid_num=20, test_num=20)
+    monkeypatch.setattr(pa_cell, "GRAPH_ARGS", small)
+    root = str(tmp_path)
+    leftover = tmp_path / ".bench_cache" / "synth_pa_torch_leftover"
+    leftover.mkdir(parents=True)
+    quiet = dict(log=lambda s: None)
+
+    first, gen_s, _ = pa_cell.dataset(root, **quiet)
+    assert gen_s > 0 and not leftover.exists()
+    assert first.num_nodes == 2000 and len(first.train_ids) == 100
+    again, gen_s, _ = pa_cell.dataset(root, **quiet)
+    assert gen_s == 0.0
+    np.testing.assert_array_equal(again.indices, first.indices)
+
+    monkeypatch.setattr(pa_cell, "GRAPH_ARGS", dict(small, seed=1))
+    other, gen_s, _ = pa_cell.dataset(root, **quiet)
+    assert gen_s > 0
+    assert sorted(p.name for p in (tmp_path / ".bench_cache").iterdir()) == [
+        os.path.basename(pa_cell.dataset_dir(root))]
+    assert not np.array_equal(other.indices, first.indices)

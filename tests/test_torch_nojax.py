@@ -1,6 +1,6 @@
 """The port must not load JAX: importing legion_tpu_torch and its sampling,
-ops, models and train modules in a fresh interpreter leaves jax, flax,
-optax and orbax out of sys.modules."""
+ops, models, cache, data, train and tools modules in a fresh interpreter leaves
+jax, flax, optax and orbax out of sys.modules."""
 
 import os
 import subprocess
@@ -15,8 +15,15 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import legion_tpu_torch
+import legion_tpu_torch.cache.cost_model
+import legion_tpu_torch.cache.feature_cache
 import legion_tpu_torch.cache.hotness
+import legion_tpu_torch.cache.pipeline
+import legion_tpu_torch.data.format
 import legion_tpu_torch.models
+import legion_tpu_torch.ops.sample
+import legion_tpu_torch.train.cached_driver
+import legion_tpu_torch.utils.logging
 import legion_tpu_torch.models.convert
 import legion_tpu_torch.ops.gather
 import legion_tpu_torch.ops.identity_agg
@@ -26,6 +33,9 @@ import legion_tpu_torch.sampling.seeds
 import legion_tpu_torch.train.loop
 import legion_tpu_torch.config
 import legion_tpu_torch.data.synthetic
+import legion_tpu_torch.tools.ab_trainer
+import legion_tpu_torch.tools.pa_cell
+import legion_tpu_torch.tools.profile_cached
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
                 if m in sys.modules)
 print("LOADED", loaded)

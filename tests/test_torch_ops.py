@@ -117,6 +117,97 @@ def test_gathered_masked_mean_plain_matches_pallas(norm):
                                atol=1e-6)
 
 
+def _overflowed_block(small_graph, p=128, d=24):
+    """A real hop-1 block sampled past its cap (the overflow case of
+    tests/test_torch_sampler.py: hop-1 cap 150 < the realized uniques),
+    padded with masked dst rows to p = 128 for the Pallas tile, and
+    random src activations of the cap's 150 rows."""
+    import jax
+
+    from tests.test_torch_sampler import _sample_both
+    jb, _ = _sample_both(small_graph.indptr, small_graph.indices,
+                         np.arange(small_graph.num_nodes), 64, (5, 3),
+                         (72, 150, 600), True, jax.random.PRNGKey(0))
+    blk = jb.blocks[0]
+    s = 150
+    pos = np.zeros((p, 5), np.int32)
+    mask = np.zeros((p, 5), bool)
+    pos[:72], mask[:72] = np.asarray(blk.nbr_pos), np.asarray(blk.nbr_mask)
+    assert int(blk.num_src) > s and (pos[mask] >= s).any()
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal((s, d)).astype(np.float32)
+    w = rng.standard_normal((p, d)).astype(np.float32)
+    return h, pos, mask, w
+
+
+def test_positions_past_the_rows_fill_nan_as_jax(small_graph):
+    """After a cap overflow a valid slot can point past the src rows. JAX's
+    fill-mode take makes such a dst row NaN and drops the slot from the
+    gradient; the port's K2 plain version, its explicit backward and the
+    plain aggregators do the same. Finite rows agree at 1e-5 (two float32
+    sums) and gradients at 1e-5. The Pallas kernel (interpreted) turns
+    its whole 128-row tile NaN, since its summing dot multiplies the NaN
+    row by zeros; its gradient is the same."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from legion_tpu.ops.identity_agg_pallas import (
+        gathered_masked_mean as jax_gathered_masked_mean)
+    from legion_tpu.ops.segment import fanout_gather_mean as jax_fanout_mean
+    from legion_tpu.ops.segment import segment_mean_coo as jax_segment_mean
+    from legion_tpu.sampling.block import Block as JaxBlock
+    h, pos, mask, w = _overflowed_block(small_graph)
+    p, s = pos.shape[0], h.shape[0]
+    nan_rows = ((pos >= s) & mask).any(1)
+    jblk = JaxBlock(nbr_pos=jnp.asarray(pos), nbr_mask=jnp.asarray(mask),
+                    num_src=jnp.int32(s), num_dst=jnp.int32(p))
+    blk = Block(nbr_pos=torch.from_numpy(pos), nbr_mask=torch.from_numpy(mask),
+                num_src=torch.tensor(s, dtype=torch.int32),
+                num_dst=torch.tensor(p, dtype=torch.int32))
+    hj, wj = jnp.asarray(h), jnp.asarray(w)
+
+    def fused(a):
+        return jax_gathered_masked_mean(a, jnp.asarray(pos),
+                                        jnp.asarray(mask), interpret=True)
+
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = np.asarray(fused(hj))
+        grad_pallas = np.asarray(jax.grad(
+            lambda a: jnp.sum(fused(a) * wj))(hj))
+    for jax_fn, port_fn in ((jax_fanout_mean, fanout_gather_mean),
+                            (jax_segment_mean, segment_mean_coo),
+                            (jax_fanout_mean, None)):
+        want = np.asarray(jax_fn(hj, jblk))
+        want_g = np.asarray(jax.grad(
+            lambda a: jnp.sum(jax_fn(a, jblk) * wj))(hj))
+        ht = torch.from_numpy(h).requires_grad_(True)
+        got = (port_fn(ht, blk) if port_fn is not None else
+               gathered_masked_mean(ht, blk.nbr_pos, blk.nbr_mask))
+        np.testing.assert_array_equal(np.isnan(want).any(1), nan_rows)
+        np.testing.assert_array_equal(np.isnan(got.detach().numpy()),
+                                      np.isnan(want))
+        np.testing.assert_allclose(got.detach().numpy()[~nan_rows],
+                                   want[~nan_rows], rtol=1e-5, atol=1e-5)
+        (got * torch.from_numpy(w)).sum().backward()
+        assert np.isfinite(ht.grad.numpy()).all()
+        np.testing.assert_allclose(ht.grad.numpy(), want_g, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(grad_pallas, want_g, rtol=1e-5,
+                                   atol=1e-5)
+    # the Pallas kernel's NaN tiles cover every NaN row
+    assert np.isnan(want_pallas).any(1)[nan_rows].all()
+    # K2's explicit backward (the CUDA kernel's plain twin) drops the slot
+    # but keeps it in the mean's count, as the transpose of the fill take
+    d = gathered_masked_mean_backward(torch.from_numpy(w), blk.nbr_pos,
+                                      blk.nbr_mask, s)
+    ht = torch.from_numpy(h).requires_grad_(True)
+    out = gathered_masked_mean_plain(ht, blk.nbr_pos, blk.nbr_mask)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(d.numpy(), ht.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
 # -- K3 -----------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,d", [(256, 100), (512, 128), (300, 47)])
@@ -280,6 +371,32 @@ def test_cuda_gathered_masked_mean_fwd_bwd(cuda, d, dtype):
                                             torch.float32)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
         _bf16_close(ht.grad, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_gathered_masked_mean_fills_nan(cuda, dtype):
+    """A valid slot past the rows: the kernel reads nothing there, gives
+    NaN in exactly the plain version's rows, and its backward drops it."""
+    h, pos, mask, w = _gathered_case(14, p=300, f=10, s=500, d=64)
+    mask[[3, 77, 299], 2] = True
+    pos[[3, 77, 299], 2] = [500, 10 ** 6, 2 ** 31 - 1]
+    dt = TORCH_DT[dtype]
+    ht = torch.from_numpy(h).to(cuda, dt)
+    pt, mt = torch.from_numpy(pos).to(cuda), torch.from_numpy(mask).to(cuda)
+    got = gathered_masked_mean(ht, pt, mt)
+    want = gathered_masked_mean_plain(ht, pt, mt)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert nan.any(1).nonzero().flatten().tolist() == [3, 77, 299]
+    _bf16_close(got[~nan.any(1)], want[~nan.any(1)])
+    g = torch.from_numpy(w).to(cuda)
+    torch.testing.assert_close(
+        gathered_masked_mean_backward(g, pt, mt, 500, "mean", torch.float32),
+        gathered_masked_mean_backward_plain(g, pt, mt, 500, "mean",
+                                            torch.float32),
+        rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -211,3 +211,16 @@ def test_trainer_rejects_unported_settings(small_graph, what):
             **{what: "ckpt"}))
     with pytest.raises(NotImplementedError, match=what):
         Trainer(cfg, small_graph, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("placement,enabled", [("host", False),
+                                               ("host", True),
+                                               ("hbm", True)])
+def test_trainer_points_host_features_at_the_cached_driver(
+        small_graph, placement, enabled):
+    cfg = dataclasses.replace(
+        _cfg(small_graph.num_classes),
+        dataset=port_config.DatasetConfig(feature_placement=placement),
+        cache=port_config.CacheConfig(enabled=enabled))
+    with pytest.raises(ValueError, match="run_cached_training"):
+        Trainer(cfg, small_graph, device="cpu")
