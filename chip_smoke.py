@@ -18,16 +18,38 @@ non-zero:
    against its plain PyTorch version on the tensors that batch's step
    gives it, with the error against a stated tolerance and the median
    time of both (CUDA events, 20 reps after warm-up): the sampling kernel
-   bitwise at the batch's two hop shapes, K3, K1, K2 forward and
-   backward; then K2 on a tiny block with a position past its rows
-   (NaN in exactly the plain version's rows, the slot dropped backward);
+   bitwise at the batch's two hop shapes, K3, K1 (also with GCN's
+   "sqrt" norm), K2 forward and backward (also with GCN's "sum" norm)
+   and K5 (``grouped_masked_sum``: float32 value and gradient on the
+   batch's identity block, a bf16 case, and width 47 with a float mask);
+   K3 and K5 are also timed beside the one PyTorch call that computes
+   the same function (``index_select``, ``einsum``), and each kernel's
+   time stands beside its bound: the larger of the bytes this batch
+   makes it move over 3.35 TB/s and its operations over 67 TFLOP/s; then
+   K2 on a tiny block with a position past its rows (NaN in exactly the
+   plain version's rows, the slot dropped backward);
 4. main path: two training epochs and a validation pass through the
-   ``Trainer``; every kernel's launch count over that run must be > 0;
+   ``Trainer``; every kernel's launch count over that run must be > 0
+   but K5's, which SAGE does not reach. Then GCN at the same width on
+   the same graph, one epoch and a validation pass each in bf16 and in
+   float32: finite losses, no cap overflow, one batch's logits against
+   the plain versions on the CPU, and exact launch counts (bf16: K1 once
+   per train and eval step, K2 forward once per step and backward once
+   per train step, K5 never; float32: K5 once per train and eval step,
+   K1 never);
 5. learning: the reference's verify recipe (50k-node planted-label
    graph, 2 epochs) must reach validation accuracy > 0.15 (7x chance),
    one batch's logits from the kernels must match the plain versions on
    the CPU, and the cached driver on the same graph, with a budget that
-   caches a quarter of its rows, must reach > 0.15 as well;
+   caches a quarter of its rows, must reach > 0.15 as well. On the same
+   graph: GCN (float32, 2 epochs; judged by a falling loss, since GCN
+   has no self-feature path and stays near chance here); LP-SAGE (batch
+   1023, 2 epochs through the ``Trainer`` and 1 through the cached
+   driver: a finite, falling loss, an eval LP loss within a factor 5 of
+   the train loss, the "Val LP-loss" label); and checkpoint and resume
+   (a ``Trainer`` saves after one epoch, a fresh one on the directory
+   resumes at epoch 1 with equal parameters and generator state, and
+   its next epoch's losses match the first trainer's own next epoch);
 6. cached path at papers100M class (``legion_tpu_torch.tools.pa_cell``):
    ``run_cached_training`` with tools/smoke_pa_scale.py's configuration
    (SAGE-256 bf16, fanout [25,10], batch 8000, host-resident features, 6
@@ -54,6 +76,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -61,6 +84,17 @@ SOURCE = "legion_tpu_torch/csrc/legion_kernels.cu"
 
 # bench_graph's full size (the ogbn-products stand-in) and its classes
 NODES, CLASSES = 2_449_029, 47
+
+# Published peaks of the H100 SXM (NVIDIA's data sheet) that the kernels'
+# bounds are stated against: device memory, and float32 outside the
+# tensor cores (none of these kernels holds a matrix product).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+# what the kernels line holds of each kernel, beside its launch counts
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 def emit(obj):
@@ -92,6 +126,17 @@ def time_ms(fn, reps=20, warmup=3, trials=5):
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory peak, or the operations
+    at the float32 peak, whichever is larger."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_F32_FLOP_PER_S
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_flops": int(flops)}
+
+
 def require(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -104,6 +149,7 @@ def kernel_table():
         gathered_masked_mean, gathered_masked_mean_backward,
         identity_masked_mean)
     from legion_tpu_torch.ops.sample import sample_neighbors
+    from legion_tpu_torch.ops.spmm import grouped_masked_sum
     return {
         "identity_masked_mean": (
             identity_masked_mean,
@@ -117,6 +163,8 @@ def kernel_table():
         "gather_rows": (gather_rows, "legion_tpu/ops/gather_pallas.py:68"),
         "sample_neighbors": (sample_neighbors,
                              "legion_tpu/ops/select_pallas.py:46"),
+        "grouped_masked_sum": (grouped_masked_sum,
+                               "legion_tpu/ops/spmm_pallas.py:90"),
     }
 
 
@@ -173,8 +221,13 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
         k, p = sample_neighbors(*args), sample_neighbors_plain(*args)
         require(torch.equal(k, p), f"sample_neighbors at {tuple(u.shape)} "
                 "is bitwise its plain version")
-        out.append({"shape": list(u.shape),
-                    "valid_slots": int((k >= 0).sum()),
+        slots, valid = u.numel(), int((k >= 0).sum())
+        # frontier, uniforms and output once; an indptr pair per valid
+        # node and one index per valid slot; ~3 operations per slot
+        nbytes = (4 * fr.numel() + 8 * slots + 8 * int((fr >= 0).sum())
+                  + 4 * valid)
+        out.append({"shape": list(u.shape), "valid_slots": valid,
+                    **bound(nbytes, 3 * slots), "library_ms": None,
                     "max_abs_err": float((k - p).abs().max()),
                     "ms": time_ms(lambda: sample_neighbors(*args)),
                     "plain_ms": time_ms(
@@ -240,6 +293,316 @@ def k2_fill_case():
             "K2 backward drops the slots past the rows as its plain version")
     return {"nan_rows": nan_rows, "finite_rows": int(ok.sum()),
             "bwd_max_abs_err": float((kb - pb).abs().max())}
+
+
+def stderr_log(s):
+    print(s, file=sys.stderr, flush=True)
+
+
+def logits_vs_cpu(tr, cfg, seed_ids, tol):
+    """One eval batch of ``seed_ids`` at the trainer's eval caps: the
+    model's logits on the card (through the kernels) against the same
+    model and batch on the CPU (through the plain versions), within
+    tol x max|logit|. Returns (max abs error, max |logit|)."""
+    import torch
+
+    from legion_tpu_torch.models import build_model
+    from legion_tpu_torch.sampling.block import Block
+    from legion_tpu_torch.sampling.sampler import (gather_features,
+                                                   sample_batch)
+    dev = tr.device
+    seeds = torch.from_numpy(seed_ids.copy()).to(dev)
+    batch = sample_batch(tr.graph, seeds,
+                         torch.tensor(len(seed_ids), dtype=torch.int32,
+                                      device=dev),
+                         seeds, cfg.sampler.fanouts, tr.eval_caps,
+                         dedup_last=cfg.sampler.dedup_last,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    blocks = tuple(reversed(batch.blocks))
+    with torch.no_grad():
+        out = tr.model(blocks, gather_features(tr.features, batch.frontier))
+        cpu_model = build_model(cfg.model.arch, tr.features.shape[1],
+                                cfg.model.hidden_dim, CLASSES,
+                                cfg.model.num_layers, cfg.model.dropout,
+                                cfg.model.dtype)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   tr.model.state_dict().items()})
+        cpu_blocks = tuple(Block(b.nbr_pos.cpu(), b.nbr_mask.cpu(),
+                                 b.num_src.cpu(), b.num_dst.cpu(),
+                                 b.identity_offset) for b in blocks)
+        ref = cpu_model(cpu_blocks, gather_features(tr.features.cpu(),
+                                                    batch.frontier.cpu()))
+    out, ref = out.cpu().float(), ref.float()
+    require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+            "finite logits of the reference's shape")
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    require(err <= tol * scale,
+            f"{cfg.model.arch} {cfg.model.dtype} logits on the card within "
+            f"{tol} x max|logit| of the CPU plain path ({err} vs {scale})")
+    return err, scale
+
+
+def check_grouped_masked_sum(x, mask, off):
+    """K5 against its plain version on the identity block of a main-path
+    batch: x2 = x[off : off + P*f], (P, f) mask. float32 value and the
+    gradient of a weighted sum within 1e-5 of the summed magnitudes (two
+    orders of one f32 sum); bf16 within one flipped rounding; width 47
+    with float weights in both dtypes (rows that 16-byte loads cannot
+    take). Timed beside ``torch.einsum``, the one PyTorch call that
+    computes the same function."""
+    import torch
+
+    from legion_tpu_torch.ops.spmm import (grouped_masked_sum,
+                                           grouped_masked_sum_plain)
+    p, f = mask.shape
+    x2 = x[off: off + p * f]
+    d = x2.shape[1]
+    gen = torch.Generator(device=x.device).manual_seed(11)
+    w = torch.randn((p, d), generator=gen, device=x.device)
+
+    def f32_close(k, pl, mag, what):
+        require(bool(((k - pl).abs() <= 1e-5 * mag + 1e-30).all()),
+                f"grouped_masked_sum {what} within 1e-5 of the magnitudes")
+        return float((k - pl).abs().max())
+
+    def bf16_close(k, pl, what):
+        k, pl = k.float(), pl.float()
+        require(float(((k - pl).abs() - (8e-3 * pl.abs() + 1e-3)).max()) <= 0,
+                f"grouped_masked_sum {what} within bf16 tolerance")
+        return float((k - pl).abs().max())
+
+    rec = {"shape": [p, f, d]}
+    k, pl = grouped_masked_sum(x2, mask, f), grouped_masked_sum_plain(
+        x2, mask, f)
+    rec["max_abs_err"] = f32_close(
+        k, pl, grouped_masked_sum_plain(x2.abs(), mask, f), "forward")
+    grads = []
+    for fn in (grouped_masked_sum, grouped_masked_sum_plain):
+        xg = x2.clone().requires_grad_(True)
+        (fn(xg, mask, f) * w).sum().backward()
+        grads.append(xg.grad)
+        del xg
+    require(torch.equal(grads[0], grads[1]),
+            "grouped_masked_sum's gradient of a weighted sum is the plain "
+            "version's (each element one product)")
+    del grads
+    xb = x2.to(torch.bfloat16)
+    rec["bf16_max_abs_err"] = bf16_close(
+        grouped_masked_sum(xb, mask, f),
+        grouped_masked_sum_plain(xb, mask, f), "bf16")
+    # width 47 and float weights: no 16-byte loads, a multiply per slot
+    xo = x2[:, :47].contiguous()
+    wm = mask * (0.5 + torch.rand(mask.shape, generator=gen,
+                                  device=x.device))
+    rec["odd_f32_max_abs_err"] = f32_close(
+        grouped_masked_sum(xo, wm, f), grouped_masked_sum_plain(xo, wm, f),
+        grouped_masked_sum_plain(xo.abs(), wm, f), "at width 47")
+    xob = xo.to(torch.bfloat16)[1:-(f - 1)]     # a 2-byte-aligned start
+    rec["odd_bf16_max_abs_err"] = bf16_close(
+        grouped_masked_sum(xob, wm[:-1], f),
+        grouped_masked_sum_plain(xob, wm[:-1], f), "bf16 at width 47")
+    del xb, xo, xob
+    mf = mask.to(x2.dtype)
+    x3 = x2.view(p, f, d)
+    lib = torch.einsum("pfd,pf->pd", x3, mf)
+    rec["library_max_abs_err"] = float((lib - pl).abs().max())
+    del lib, k, pl
+    rec.update(
+        bound(x2.numel() * x2.element_size() + mask.numel()
+              + p * d * x2.element_size(), 2 * x2.numel()),
+        ms=time_ms(lambda: grouped_masked_sum(x2, mask, f)),
+        plain_ms=time_ms(lambda: grouped_masked_sum_plain(x2, mask, f)),
+        library_ms=time_ms(lambda: torch.einsum("pfd,pf->pd", x3, mf)))
+    return rec
+
+
+def gcn_path(kernels, data, dtype):
+    """GCN at full width on the main path's graph through the Trainer: one
+    epoch and a validation pass, the launch counts of both, and one eval
+    batch's logits against the CPU plain path (float32: 1e-4 x
+    max|logit|; bf16: 3e-2, a few bf16 ulps through two layers whose
+    products round at different points on the two devices)."""
+    import torch
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         SamplerConfig, TrainConfig)
+    from legion_tpu_torch.train.loop import Trainer
+    cfg = Config(
+        dataset=DatasetConfig(num_classes=CLASSES),
+        sampler=SamplerConfig(fanouts=(25, 10), batch_size=8000,
+                              observed_cap_slack=1.03, dedup_last=False),
+        model=ModelConfig(arch="gcn", hidden_dim=256, num_layers=2,
+                          dropout=0.5, dtype=dtype),
+        train=TrainConfig(learning_rate=0.003))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launches(kernels)
+    rec = tr.train_one_epoch(0)
+    train_launches = read_launches(kernels)
+    reset_launches(kernels)
+    valid_acc = tr.evaluate("valid")
+    eval_launches = read_launches(kernels)
+    require(all(math.isfinite(v) for v in rec["losses"]),
+            f"finite GCN {dtype} losses")
+    require(rec["cap_overflow"] == 0, f"no cap overflow in GCN {dtype}")
+    require(0.0 <= valid_acc <= 1.0, f"GCN {dtype} validation accuracy")
+    t, e = rec["steps"], tr.plan.valid_steps
+    bf16 = dtype == "bfloat16"
+    # layer 0's identity block: K1 ("sqrt") in bf16, K5 in float32;
+    # layer 1: K2 ("sum") forward every step, backward every train step
+    want = {"identity_masked_mean": (t if bf16 else 0, e if bf16 else 0),
+            "grouped_masked_sum": (0 if bf16 else t, 0 if bf16 else e),
+            "gathered_masked_mean": (t, e),
+            "gathered_masked_mean_backward": (t, 0)}
+    for name, (nt, ne) in want.items():
+        require((train_launches[name], eval_launches[name]) == (nt, ne),
+                f"GCN {dtype} launched {name} {nt} times in {t} train steps "
+                f"and {ne} in {e} eval steps, got {train_launches[name]} and "
+                f"{eval_launches[name]}")
+    err, scale = logits_vs_cpu(tr, cfg, data.valid_ids[:512],
+                               3e-2 if bf16 else 1e-4)
+    launches = {k: train_launches[k] + eval_launches[k] for k in kernels}
+    emit({"phase": f"gcn_{dtype}", "trainer_init_s": init_s,
+          "caps": list(tr.caps), "steps": t, "eval_steps": e,
+          "losses": rec["losses"], "cap_overflow": rec["cap_overflow"],
+          "ms_per_step": 1e3 * rec["epoch_s"] / t,
+          "edges_per_s": rec["edges_per_s"], "valid_acc": valid_acc,
+          "train_launches": train_launches, "eval_launches": eval_launches,
+          "logits_vs_cpu_max_abs_err": err, "logits_max_abs": scale,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches
+
+
+def gcn_learns(data):
+    """GCN (float32, hidden 256) on the planted-label graph for 2 epochs:
+    the loss must fall. Accuracy is not judged: GraphConv has no
+    self-feature path and about half of the planted signal is the node's
+    own features, so GCN stays near chance on this graph by design."""
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         SamplerConfig, TrainConfig)
+    from legion_tpu_torch.train.loop import Trainer
+    cfg = Config(dataset=DatasetConfig(num_classes=CLASSES),
+                 sampler=SamplerConfig(fanouts=(25, 10), batch_size=1024),
+                 model=ModelConfig(arch="gcn", hidden_dim=256, num_layers=2),
+                 train=TrainConfig(epochs=2))
+    tr = Trainer(cfg, data, device="cuda")
+    res = tr.fit(log=stderr_log)
+    loss = [h["mean_loss"] for h in res["history"]]
+    require(all(math.isfinite(v) for v in loss) and loss[1] < loss[0],
+            f"GCN's mean loss falls ({loss})")
+    return {"mean_loss": loss, "valid_acc": tr.evaluate("valid"),
+            "test_acc": res["test_acc"]}
+
+
+def lp_sage_path(data):
+    """LP-SAGE (SAGE-256 float32, batch 1023 = 3 x 341 pairs) on the
+    planted-label graph: 2 epochs through the Trainer, 1 through the
+    cached driver."""
+    from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
+                                         ModelConfig, SamplerConfig,
+                                         TrainConfig)
+    from legion_tpu_torch.train.cached_driver import run_cached_training
+    from legion_tpu_torch.train.loop import Trainer
+
+    def check(loss, valid, logs, what):
+        require(all(math.isfinite(v) for v in loss), f"{what}: finite loss")
+        require(math.isfinite(valid) and loss[-1] / 5 < valid < loss[-1] * 5,
+                f"{what}: eval LP loss {valid} within a factor 5 of the "
+                f"train loss {loss[-1]}")
+        require(any("Val LP-loss" in s for s in logs)
+                and not any("Val Acc" in s for s in logs),
+                f"{what}: the epoch line says Val LP-loss")
+
+    def cfg(epochs, **kw):
+        return Config(dataset=DatasetConfig(num_classes=CLASSES,
+                                            **kw.pop("dataset", {})),
+                      sampler=SamplerConfig(fanouts=(25, 10), batch_size=1023,
+                                            **kw.pop("sampler", {})),
+                      model=ModelConfig(arch="lp_sage", hidden_dim=256,
+                                        num_layers=2),
+                      train=TrainConfig(epochs=epochs), **kw)
+
+    logs = []
+
+    def log(s):
+        logs.append(s)
+        stderr_log(s)
+
+    tr = Trainer(cfg(2), data, device="cuda")
+    res = tr.fit(log=log)
+    loss = [h["mean_loss"] for h in res["history"]]
+    valid = tr.evaluate("valid")
+    check(loss, valid, logs, "LP-SAGE Trainer")
+    require(loss[1] < loss[0], f"LP-SAGE's mean loss falls ({loss})")
+    del tr
+    logs.clear()
+    # the cached driver pads an eval batch to the train batch, and a pair
+    # needs all three thirds of that: eval batches as large as the batch
+    cres = run_cached_training(
+        cfg(1, dataset={"feature_placement": "host"},
+            sampler={"dedup_last": True, "eval_batch_size": 1023},
+            cache=CacheConfig(enabled=True, budget_bytes=data.num_nodes // 4
+                              * data.feature_dim * 4)),
+        data, "cuda", log=log)
+    ch = cres["history"][0]
+    check(ch["losses"], ch["valid"], logs, "LP-SAGE cached driver")
+    require(ch["losses"][-1] < ch["losses"][0],
+            "LP-SAGE's loss falls within the cached epoch")
+    return {"mean_loss": loss, "valid_lp_loss": valid,
+            "test_lp_loss": res["test_acc"],
+            "cached": {"first_loss": ch["losses"][0],
+                       "last_loss": ch["losses"][-1],
+                       "valid_lp_loss": ch["valid"],
+                       "test_lp_loss": cres["test_acc"],
+                       "hit_rate": ch["cache_hit_rate"]}}
+
+
+def checkpoint_resume(data):
+    """A Trainer (SAGE-256 float32, dropout 0.5) saves after one epoch; a
+    fresh one on the same directory resumes at epoch 1 with equal
+    parameters and generator state. Both then run epoch 1, the first as
+    the uninterrupted run: their losses agree within 1e-3 relative (K2
+    backward's float atomics add in an order that changes between runs,
+    so two runs of one state are equal only to rounding)."""
+    import torch
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         SamplerConfig, TrainConfig)
+    from legion_tpu_torch.train.loop import Trainer
+    from legion_tpu_torch.train.train_state import latest_checkpoint
+    with tempfile.TemporaryDirectory() as ck:
+        cfg = Config(dataset=DatasetConfig(num_classes=CLASSES),
+                     sampler=SamplerConfig(fanouts=(25, 10), batch_size=1024),
+                     model=ModelConfig(arch="sage", hidden_dim=256,
+                                       num_layers=2),
+                     train=TrainConfig(epochs=1, checkpoint_dir=ck))
+        first = Trainer(cfg, data, device="cuda")
+        first.fit(log=stderr_log)
+        steps = first.plan.train_steps
+        saved = latest_checkpoint(ck)
+        require(saved is not None and saved.endswith(f"step_{steps}"),
+                f"a checkpoint at step {steps}")
+        resumed = Trainer(cfg, data, device="cuda")
+        require((resumed.state.epoch, resumed.state.step) == (1, steps),
+                "the fresh trainer resumes at epoch 1")
+        require(all(torch.equal(a, b) for a, b in zip(
+            resumed.model.parameters(), first.model.parameters())),
+            "equal parameters after the restore")
+        require(torch.equal(resumed.state.generator.get_state(),
+                            first.state.generator.get_state()),
+                "equal generator state after the restore")
+        want = first.train_one_epoch(1)["losses"]
+        got = resumed.train_one_epoch(1)["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    require(len(got) == steps and worst <= 1e-3,
+            f"the resumed epoch's losses match the uninterrupted run's "
+            f"(worst relative difference {worst})")
+    return {"checkpoint": os.path.basename(saved), "steps": steps,
+            "losses_equal": got == want, "worst_rel_diff": worst,
+            "resumed_last_loss": got[-1], "uninterrupted_last_loss": want[-1]}
 
 
 def cached_path(kernels, results):
@@ -339,15 +702,12 @@ def main():
                                          TrainConfig)
     from legion_tpu_torch.data.synthetic import (bench_graph,
                                                  random_power_law_graph)
-    from legion_tpu_torch.models import build_model
     from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from legion_tpu_torch.ops.identity_agg import (
         gathered_masked_mean, gathered_masked_mean_backward,
         gathered_masked_mean_backward_plain, gathered_masked_mean_plain,
         identity_masked_mean, identity_masked_mean_plain)
-    from legion_tpu_torch.sampling.block import Block
-    from legion_tpu_torch.sampling.sampler import (gather_features,
-                                                   sample_batch)
+    from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.train.cached_driver import run_cached_training
     from legion_tpu_torch.train.loop import Trainer, masked_softmax_ce
 
@@ -398,19 +758,25 @@ def main():
     # the kernels line carries the larger hop (hop 2 from the hop-1
     # frontier); both are in this phase's line
     results["sample_neighbors"].update(
-        {k: hops[-1][k] for k in ("max_abs_err", "ms", "plain_ms")},
-        main_path_hops=hops)
+        {k: hops[-1][k] for k in KERNEL_KEYS}, main_path_hops=hops)
     blk0, blk1 = reversed(batch.blocks)        # model order
     require(blk0.identity_offset is not None, "layer 0's block is identity")
     table, ids = tr.features, batch.frontier
     k3 = gather_rows(table, ids)
     p3 = gather_rows_plain(table, ids)
     require(torch.equal(k3, p3), "gather_rows is bitwise its plain version")
+    # each distinct valid row read once (the identity-appended frontier
+    # repeats ids), every output row written once
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = int(torch.unique(ids[ids >= 0]).numel())
+    idx = ids.clamp(min=0).long()       # index_select zeroes no -1 row
     results["gather_rows"].update(
+        bound(4 * ids.numel() + (distinct + ids.numel()) * row_bytes, 0),
         max_abs_err=float((k3 - p3).abs().max()),
         ms=time_ms(lambda: gather_rows(table, ids)),
-        plain_ms=time_ms(lambda: gather_rows_plain(table, ids)))
-    del p3
+        plain_ms=time_ms(lambda: gather_rows_plain(table, ids)),
+        library_ms=time_ms(lambda: torch.index_select(table, 0, idx)))
+    del p3, idx
 
     def bf16_err(k, p, what):
         """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: kernel
@@ -422,7 +788,17 @@ def main():
         return float((k - p).abs().max())
 
     x, m1, off = k3, blk0.nbr_mask, blk0.identity_offset
+    d1, slots1 = x.shape[1], int(m1.sum())
+    # masked slots are skipped: the valid slots' rows and the mask are
+    # read, the bf16 rows written; one add per element read
     results["identity_masked_mean"].update(
+        bound(slots1 * d1 * x.element_size() + m1.numel()
+              + m1.shape[0] * d1 * 2, slots1 * d1),
+        library_ms=None,
+        sqrt_max_abs_err=bf16_err(       # GCN's norm
+            identity_masked_mean(x, m1, off, "sqrt", torch.bfloat16),
+            identity_masked_mean_plain(x, m1, off, "sqrt", torch.bfloat16),
+            "identity_masked_mean with norm sqrt"),
         max_abs_err=bf16_err(
             identity_masked_mean(x, m1, off, "mean", torch.bfloat16),
             identity_masked_mean_plain(x, m1, off, "mean", torch.bfloat16),
@@ -435,7 +811,18 @@ def main():
     with torch.no_grad():
         h = torch.relu(layer0(blk0, x))
         h_t = layer1._dense(layer1.fc_neigh, h)
+    d0, slots0, es = h_t.shape[1], int(m0.sum()), h_t.element_size()
+    rows0 = int(torch.unique(pos[m0]).numel())
+    # the distinct rows the valid slots name read once, positions and mask
+    # read, the dst rows written; one add per gathered element
     results["gathered_masked_mean"].update(
+        bound(rows0 * d0 * es + 5 * m0.numel() + m0.shape[0] * d0 * es,
+              slots0 * d0),
+        library_ms=None,
+        sum_max_abs_err=bf16_err(        # GCN's norm
+            gathered_masked_mean(h_t, pos, m0, "sum"),
+            gathered_masked_mean_plain(h_t, pos, m0, "sum"),
+            "gathered_masked_mean with norm sum"),
         max_abs_err=bf16_err(gathered_masked_mean(h_t, pos, m0),
                              gathered_masked_mean_plain(h_t, pos, m0),
                              "gathered_masked_mean"),
@@ -464,11 +851,27 @@ def main():
                    - gathered_masked_mean_backward_plain(gd, pos, m0, s)
                    .float()).abs() <= 8e-3 * mag).all()),
             "gathered_masked_mean_backward within 8e-3 relative in bf16")
+    ks = gathered_masked_mean_backward(gd.float(), pos, m0, s, "sum",
+                                       torch.float32)
+    ps = gathered_masked_mean_backward_plain(gd.float(), pos, m0, s, "sum",
+                                             torch.float32)
+    mags = gathered_masked_mean_backward_plain(gd.float().abs(), pos, m0, s,
+                                               "sum", torch.float32)
+    require(bool(((ks - ps).abs() <= 1e-5 * mags).all()),
+            "gathered_masked_mean_backward with norm sum within 1e-5")
+    # the upstream gradient, positions and mask read, every src row of the
+    # gradient written; one add per scattered element
     results["gathered_masked_mean_backward"].update(
+        bound(gd.numel() * gd.element_size() + 5 * m0.numel()
+              + s * d0 * gd.element_size(), slots0 * d0),
+        library_ms=None,
+        sum_max_abs_err=float((ks - ps).abs().max()),
         max_abs_err=float((kb - pb).abs().max()),
         ms=time_ms(lambda: gathered_masked_mean_backward(gd, pos, m0, s)),
         plain_ms=time_ms(
             lambda: gathered_masked_mean_backward_plain(gd, pos, m0, s)))
+    del ks, ps, mags
+    results["grouped_masked_sum"].update(check_grouped_masked_sum(x, m1, off))
     fill = k2_fill_case()
     emit({"phase": "kernels", "caps": list(tr.caps),
           "shapes": {"table": list(table.shape), "ids": ids.shape[0],
@@ -490,7 +893,10 @@ def main():
         require(rec["cap_overflow"] == 0,
                 f"no cap overflow in epoch {rec['epoch']}")
     for name, n in launches.items():
-        require(n > 0, f"the main path launched {name}")
+        if name == "grouped_masked_sum":     # GCN's kernel, below
+            require(n == 0, "SAGE does not reach grouped_masked_sum")
+        else:
+            require(n > 0, f"the main path launched {name}")
     emit({"phase": "main_path",
           "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
                     "features": data.feature_dim, "num_nodes_cut": None,
@@ -504,8 +910,15 @@ def main():
                       "edges_per_s": r["edges_per_s"]} for r in epochs],
           "valid_acc": valid_acc, "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    del tr, data
+    del tr
     torch.cuda.empty_cache()
+    # GCN at the same width on the same graph: bf16 (K1 "sqrt", K2 "sum")
+    # and float32 (K5)
+    by_path = {"main_path": launches}
+    for dtype in ("bfloat16", "float32"):
+        by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)
+        torch.cuda.empty_cache()
+    del data
 
     # -- 5. it learns, and agrees with the plain versions on a small input --
     data = random_power_law_graph(num_nodes=50_000, avg_degree=15,
@@ -516,38 +929,11 @@ def main():
                  model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2),
                  train=TrainConfig(epochs=2))
     tr = Trainer(cfg, data, device="cuda")
-    res = tr.fit(log=lambda s: print(s, file=sys.stderr, flush=True))
+    res = tr.fit(log=stderr_log)
     valid_acc = tr.evaluate("valid")
     require(valid_acc > 0.15, f"validation accuracy {valid_acc} > 0.15")
 
-    seeds = torch.from_numpy(data.valid_ids[:512].copy()).to(dev)
-    batch = sample_batch(tr.graph, seeds,
-                         torch.tensor(512, dtype=torch.int32, device=dev),
-                         seeds, cfg.sampler.fanouts, tr.eval_caps,
-                         dedup_last=cfg.sampler.dedup_last,
-                         generator=torch.Generator(device=dev).manual_seed(7))
-    blocks = tuple(reversed(batch.blocks))
-    with torch.no_grad():
-        out = tr.model(blocks, gather_features(tr.features, batch.frontier))
-        cpu_model = build_model(cfg.model.arch, tr.features.shape[1],
-                                cfg.model.hidden_dim, CLASSES,
-                                cfg.model.num_layers, cfg.model.dropout,
-                                cfg.model.dtype)
-        cpu_model.load_state_dict({k: v.cpu() for k, v in
-                                   tr.model.state_dict().items()})
-        cpu_blocks = tuple(Block(b.nbr_pos.cpu(), b.nbr_mask.cpu(),
-                                 b.num_src.cpu(), b.num_dst.cpu(),
-                                 b.identity_offset) for b in blocks)
-        ref = cpu_model(cpu_blocks, gather_features(tr.features.cpu(),
-                                                    batch.frontier.cpu()))
-    out = out.cpu()
-    require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
-            "finite logits of the reference's shape")
-    scale = float(ref.abs().max())
-    ref_err = float((out - ref).abs().max())
-    require(ref_err <= 1e-4 * scale,
-            f"CUDA logits within 1e-4 x max|logit| of the CPU plain path "
-            f"({ref_err} vs {scale})")
+    ref_err, scale = logits_vs_cpu(tr, cfg, data.valid_ids[:512], 1e-4)
     del tr
     # the cached driver on the same graph: host features, a budget of a
     # quarter of its float32 rows
@@ -561,9 +947,7 @@ def main():
                   cache=CacheConfig(enabled=True,
                                     budget_bytes=data.num_nodes // 4
                                     * data.feature_dim * 4))
-    cres = run_cached_training(ccfg, data, "cuda",
-                               log=lambda s: print(s, file=sys.stderr,
-                                                   flush=True))
+    cres = run_cached_training(ccfg, data, "cuda", log=stderr_log)
     ch = cres["history"][-1]
     require(ch["valid"] > 0.15,
             f"cached validation accuracy {ch['valid']} > 0.15")
@@ -580,17 +964,26 @@ def main():
                      "host_gb": [h["host_gb"] for h in cres["history"]],
                      "staging_overflow": [h["staging_overflow"]
                                           for h in cres["history"]]}})
-    del cres, data
+    del cres
+    emit({"phase": "gcn_learn", **gcn_learns(data)})
+    emit({"phase": "lp_sage", **lp_sage_path(data)})
+    emit({"phase": "checkpoint_resume", **checkpoint_resume(data)})
+    del data
     torch.cuda.empty_cache()
 
     # -- 6. the cached path at papers100M class -----------------------------
     cached_path(kernels, results)
 
     print(smi, flush=True)
+    # launches: the count on the SAGE main path (phase 4), and for K5, which
+    # SAGE does not reach, on the float32 GCN path; launches_by_path holds
+    # every full-width path's count
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": tpu,
-         "launches": launches[name],
-         **{k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
+         "launches": by_path["gcn_float32" if name == "grouped_masked_sum"
+                             else "main_path"][name],
+         "launches_by_path": {p: n[name] for p, n in by_path.items()},
+         **{k: results[name][k] for k in KERNEL_KEYS}}
         for name, (_, tpu) in kernels.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -32,26 +32,25 @@ import torch
 from legion_tpu_torch.cache.feature_cache import FeatureCache
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
-from legion_tpu_torch.train.loop import masked_softmax_ce
-from legion_tpu_torch.train.train_state import TrainState
+from legion_tpu_torch.train.loop import make_objective
+from legion_tpu_torch.train.train_state import (TrainState,
+                                                maybe_checkpoint_step)
 
 
 def make_cache_step_fns(cfg: Config):
     """(train_from, eval_from) over a sampled batch, its cache plan and
     the staged miss rows. ``train_from`` updates ``state`` in place (one
     Adam step) and returns the loss as a device tensor; ``eval_from``
-    returns the (correct, valid) seed counts as int32 device tensors."""
-    if cfg.model.arch == "lp_sage":
-        raise NotImplementedError(
-            "arch 'lp_sage' is not ported to legion_tpu_torch yet "
-            "(queued in ROADMAP.md)")
+    returns what eval accumulates (``train.loop.make_objective``): the
+    (correct, valid) seed counts, or for ``lp_sage`` the (LP loss sum,
+    valid-pair count)."""
+    loss_of, counts_of = make_objective(cfg)
 
     def train_from(state: TrainState, rows, batch, plan, staged):
         x = FeatureCache.combine_rows(rows, plan, staged, batch.frontier)
         out = state.model(tuple(reversed(batch.blocks)), x,
                           deterministic=False, generator=state.generator)
-        loss = masked_softmax_ce(out[: batch.seed_cap], batch.labels,
-                                 batch.seed_mask())
+        loss = loss_of(out, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -62,10 +61,7 @@ def make_cache_step_fns(cfg: Config):
     def eval_from(model, rows, batch, plan, staged):
         x = FeatureCache.combine_rows(rows, plan, staged, batch.frontier)
         out = model(tuple(reversed(batch.blocks)), x, deterministic=True)
-        mask = batch.seed_mask()
-        pred = out[: batch.seed_cap].argmax(-1)
-        return (((pred == batch.labels) & mask).sum(dtype=torch.int32),
-                mask.sum(dtype=torch.int32))
+        return counts_of(out, batch)
 
     return train_from, eval_from
 
@@ -190,6 +186,7 @@ class CachedTrainer:
                                       for blk in batch.blocks]).sum())
             tot[:] += p[:4]
             host_rows += min(int(p[1]), self.cache.miss_cap)
+            maybe_checkpoint_step(self.cfg.train, state, i)
 
         stage_s = self._pipeline(steps, dispatch, consume)
         # the epoch's only reads besides the per-step packed arrays
@@ -211,9 +208,10 @@ class CachedTrainer:
     def eval_epoch(self, model: torch.nn.Module, seeds: np.ndarray,
                    counts: np.ndarray, labels: np.ndarray,
                    generator: Optional[torch.Generator] = None) -> float:
-        """Accuracy over (steps, batch) eval seeds through the cached
-        feature path, pipelined like ``run_epoch`` and summed on the
-        device: one fetch for the epoch."""
+        """Accuracy (for ``lp_sage`` the mean LP loss per valid pair) over
+        (steps, batch) eval seeds through the cached feature path,
+        pipelined like ``run_epoch`` and summed on the device: one fetch
+        for the epoch."""
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(4242)

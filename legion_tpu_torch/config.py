@@ -6,9 +6,9 @@ imported: the port and its smoke script load nothing of the JAX package.
 Fields of paths not ported yet (topology placement, the parallel section,
 the JAX program's tuning, the dataset registry, the striped cache's
 ``group_size`` and the cost model's ``cost_model_granularity``) are left
-out, so setting one fails instead of being ignored; ``checkpoint_dir``
-and ``profile_dir`` are kept because the drivers raise when they are set,
-and so do the values of a kept field that name an unported path
+out, so setting one fails instead of being ignored; ``profile_dir`` is
+kept because the drivers raise when it is set, and so do the values of a
+kept field that name an unported path
 (``feature_placement="hbm_sharded"``). ``feature_placement`` and
 ``CacheConfig.enabled`` choose the driver: ``Trainer`` raises unless
 features are in device memory with the cache off, and
@@ -69,7 +69,7 @@ class SamplerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    arch: str = "sage"                  # the port builds "sage" only
+    arch: str = "sage"                  # sage | gcn | lp_sage
     hidden_dim: int = 256
     num_layers: int = 2
     dropout: float = 0.5
@@ -86,7 +86,11 @@ class TrainConfig:
     # the one it trains (the reference's PIPELINE_DEPTH 2,
     # src/Server.cu:15).
     pipeline_depth: int = 2
-    checkpoint_dir: Optional[str] = None    # not ported: drivers raise
+    # Both drivers restore the latest checkpoint of this directory at
+    # start and save after every epoch.
+    checkpoint_dir: Optional[str] = None
+    # > 0: the cached trainer also saves every N steps within an epoch.
+    checkpoint_every_steps: int = 0
     profile_dir: Optional[str] = None       # not ported: drivers raise
 
 

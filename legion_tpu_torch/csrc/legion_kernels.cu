@@ -16,8 +16,8 @@
 // Plain C launchers (extern "C" below) take raw pointers and the caller's
 // stream, launch without synchronising, allocate nothing, and return
 // cudaGetLastError(). Wrappers and plain PyTorch versions of each kernel:
-// legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py and
-// legion_tpu_torch/ops/sample.py.
+// legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py,
+// legion_tpu_torch/ops/sample.py and legion_tpu_torch/ops/spmm.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -278,6 +278,60 @@ sample_neighbors_kernel(const int32_t* __restrict__ indptr,
   out[t] = v;
 }
 
+// ---------------------------------------------------------------------------
+// K5: replaces grouped_masked_sum (legion_tpu/ops/spmm_pallas.py:90), the
+// SpMM of an identity-layout block:
+//
+//   out[g, c] = sum_{j < f} x2[g*f + j, c] * mask[g, j]
+//
+// The mask is bool or holds weights in x2's type; every slot is read and
+// multiplied, as the reference multiplies, so a weight of zero on a
+// non-finite value gives NaN there as it does in the reference. The
+// Pallas kernel streamed (G*f, D) tiles through VMEM for a divisor G of P
+// and 128-multiple D only; here any P, f and D run.
+//
+// Bound: bytes. At full width (P = 121856, f = 10, D = 128 f32) it reads
+// 1,218,560 rows of 512 B and writes 121,856, about 0.69 GB, at 1 multiply-
+// add per 4 bytes read. Design: one thread per (dst row, 16-byte column
+// group); the threads of a warp cover consecutive columns of one row, so
+// each of the f slot rows is read by coalesced 16-byte loads (4 f32 or 8
+// bf16; single elements where D or a pointer does not allow it) and every
+// byte is read once. The f products accumulate in f32 registers and are
+// cast once at the store. No shared memory, no reduction across threads.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float weight_of(uint8_t m) {
+  return m ? 1.0f : 0.0f;
+}
+__device__ __forceinline__ float weight_of(float m) { return m; }
+__device__ __forceinline__ float weight_of(__nv_bfloat16 m) {
+  return __bfloat162float(m);
+}
+
+template <typename T, typename Tm, int VEC>
+__global__ void __launch_bounds__(kThreads)
+grouped_masked_sum_kernel(const T* __restrict__ x, const Tm* __restrict__ mask,
+                          T* __restrict__ out, int64_t p, int f, int d) {
+  const int groups = d / VEC;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= p * groups) return;
+  const int64_t r = t / groups;
+  const int c = static_cast<int>(t - r * groups) * VEC;
+  const Tm* m = mask + r * f;
+  const T* rows = x + r * f * d + c;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < f; ++j) {
+    const float w = weight_of(m[j]);
+    float v[VEC];
+    load_vec<VEC>(rows + static_cast<int64_t>(j) * d, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] += v[i] * w;
+  }
+  store_vec<VEC>(out + r * d + c, acc);
+}
+
 inline unsigned blocks_for(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -335,6 +389,23 @@ void launch_gather(const void* table, const int32_t* ids, void* out,
   const int words = static_cast<int>(row_bytes / sizeof(W));
   gather_rows_kernel<W><<<blocks_for(m * words), kThreads, 0, stream>>>(
       static_cast<const W*>(table), ids, static_cast<W*>(out), m, n, words);
+}
+
+template <typename T, typename Tm>
+void launch_grouped_sum(const void* x, const void* mask, void* out, int64_t p,
+                        int f, int d, cudaStream_t stream) {
+  const T* xi = static_cast<const T*>(x);
+  const Tm* mi = static_cast<const Tm*>(mask);
+  T* o = static_cast<T*>(out);
+  constexpr int kVec = 16 / sizeof(T);
+  if (d % kVec == 0 && aligned(x, 16) && aligned(out, 16)) {
+    grouped_masked_sum_kernel<T, Tm, kVec>
+        <<<blocks_for(p * (d / kVec)), kThreads, 0, stream>>>(xi, mi, o, p, f,
+                                                              d);
+  } else {
+    grouped_masked_sum_kernel<T, Tm, 1>
+        <<<blocks_for(p * d), kThreads, 0, stream>>>(xi, mi, o, p, f, d);
+  }
 }
 
 }  // namespace
@@ -407,6 +478,28 @@ int legion_sample_neighbors(const void* indptr, const void* indices,
       static_cast<const int32_t*>(indices),
       static_cast<const int32_t*>(frontier), static_cast<const float*>(u),
       static_cast<int32_t*>(out), p, f);
+  return cudaGetLastError();
+}
+
+// mask_is_weight == 0: a bool mask (one byte per slot); otherwise weights
+// in x's type.
+int legion_grouped_masked_sum(const void* x, int dtype, const void* mask,
+                              int mask_is_weight, void* out, int64_t p, int f,
+                              int d, void* stream) {
+  if (p * d == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && !mask_is_weight) {
+    launch_grouped_sum<float, uint8_t>(x, mask, out, p, f, d, s);
+  } else if (dtype == kF32) {
+    launch_grouped_sum<float, float>(x, mask, out, p, f, d, s);
+  } else if (dtype == kBF16 && !mask_is_weight) {
+    launch_grouped_sum<__nv_bfloat16, uint8_t>(x, mask, out, p, f, d, s);
+  } else if (dtype == kBF16) {
+    launch_grouped_sum<__nv_bfloat16, __nv_bfloat16>(x, mask, out, p, f, d,
+                                                     s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

@@ -2,6 +2,7 @@ from typing import Optional
 
 import torch
 
+from legion_tpu_torch.models.gcn import GCN  # noqa: F401
 from legion_tpu_torch.models.sage import SAGE  # noqa: F401
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -24,8 +25,11 @@ def build_model(arch: str, in_dim: int, hidden_dim: int, num_classes: int,
     if arch == "sage":
         return SAGE(in_dim, hidden_dim, num_classes, num_layers, dropout,
                     dtype=dtype, generator=generator)
-    if arch in ("gcn", "lp_sage"):
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to legion_tpu_torch yet; it is "
-            "queued in ROADMAP.md")
+    if arch == "gcn":
+        return GCN(in_dim, hidden_dim, num_classes, num_layers, dropout,
+                   dtype=dtype, generator=generator)
+    if arch == "lp_sage":
+        # link prediction: a SAGE encoder whose output is the embedding
+        return SAGE(in_dim, hidden_dim, hidden_dim, num_layers, dropout,
+                    dtype=dtype, generator=generator)
     raise ValueError(f"unknown arch {arch!r}")

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "legion_gather_rows": (_P, _P, _P, _L, _L, _L, _P),
     # indptr, indices, frontier, u, out, p, f, stream
     "legion_sample_neighbors": (_P, _P, _P, _P, _P, _L, _I, _P),
+    # x, dtype, mask, mask_is_weight, out, p, f, d, stream
+    "legion_grouped_masked_sum": (_P, _I, _P, _I, _P, _L, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

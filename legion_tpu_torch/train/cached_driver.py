@@ -32,7 +32,9 @@ from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
-from legion_tpu_torch.train.train_state import create_train_state
+from legion_tpu_torch.train.train_state import (create_train_state,
+                                                restore_checkpoint,
+                                                save_checkpoint)
 from legion_tpu_torch.utils.logging import eval_labels
 
 
@@ -45,14 +47,15 @@ def run_cached_training(cfg: Config, data: GraphData,
     """Train ``cfg`` on ``data`` with host-resident features behind the
     hot-row cache on ``device``. Returns {"state", "history", "cost",
     "test_acc"}; each history record is ``CachedTrainer.run_epoch``'s
-    plus the epoch, its validation accuracy, the caps, the staging
-    capacity and the presample's seconds."""
-    for unsupported, what in ((cfg.train.checkpoint_dir, "checkpoint_dir"),
-                              (cfg.train.profile_dir, "profile_dir")):
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} is not ported to legion_tpu_torch yet "
-                "(queued in ROADMAP.md)")
+    plus the epoch, its validation figure (accuracy, or the LP loss for
+    ``lp_sage``), the caps, the staging capacity and the presample's
+    seconds. With ``train.checkpoint_dir`` set it resumes from that
+    directory's latest checkpoint, saves after every epoch and, with
+    ``train.checkpoint_every_steps``, within an epoch."""
+    if cfg.train.profile_dir:
+        raise NotImplementedError(
+            "profile_dir is not ported to legion_tpu_torch yet "
+            "(queued in ROADMAP.md)")
     if not (cfg.cache.enabled and cfg.dataset.feature_placement == "host"):
         raise ValueError(
             "run_cached_training keeps the features in host memory behind "
@@ -148,6 +151,10 @@ def run_cached_training(cfg: Config, data: GraphData,
                             cfg.train.seed)).to(device)
     state = create_train_state(model, cfg.train.learning_rate,
                                cfg.train.seed, device)
+    if (cfg.train.checkpoint_dir
+            and restore_checkpoint(cfg.train.checkpoint_dir, state)):
+        log(f"resumed from checkpoint at step {state.step}, "
+            f"epoch {state.epoch}")
 
     # ---- training (Run) ---------------------------------------------------
     tr = CachedTrainer(cfg, model, caps, graph, cache)
@@ -193,6 +200,8 @@ def run_cached_training(cfg: Config, data: GraphData,
             f"host_gb:{r['host_gb']:.3f}, {vlab}: {r['valid']:.4f}"
             + (f" [STAGING OVERFLOW {r['staging_overflow']} rows]"
                if r["staging_overflow"] else ""))
+        if cfg.train.checkpoint_dir:
+            save_checkpoint(cfg.train.checkpoint_dir, state)
     test_acc = eval_set(np.asarray(data.test_ids))
     log(f"{tlab}: {test_acc:.4f}")
     return {"state": state, "history": history, "cost": cost,

@@ -28,8 +28,11 @@ from legion_tpu_torch.sampling.sampler import (DeviceGraph, gather_features,
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
-from legion_tpu_torch.train.train_state import TrainState, create_train_state
-from legion_tpu_torch.utils.logging import log_metrics
+from legion_tpu_torch.train.train_state import (TrainState,
+                                                create_train_state,
+                                                restore_checkpoint,
+                                                save_checkpoint)
+from legion_tpu_torch.utils.logging import eval_labels, log_metrics
 
 
 def sum_edge_counts(per_step: torch.Tensor) -> int:
@@ -48,6 +51,55 @@ def masked_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * m).sum() / m.sum().clamp(min=1.0)
 
 
+def lp_logsigmoid_sum(emb: torch.Tensor, mask: torch.Tensor):
+    """Link-prediction loss SUM and valid-pair count: the thirds of the
+    batch are (anchor, positive, negative), and a pair costs
+    -logsigmoid(a.p) - logsigmoid(-(a.n)); a pair counts when all three of
+    its seeds are valid. Reduced in float32. Eval accumulates this
+    (sum, pairs) form, so that a partial last batch weighs by its real
+    pairs."""
+    emb = emb.float()
+    third = emb.shape[0] // 3
+    a, p, n = emb[:third], emb[third:2 * third], emb[2 * third:3 * third]
+    m = (mask[:third] & mask[third:2 * third] & mask[2 * third:3 * third])
+    mf = m.float()
+    pos = F.logsigmoid((a * p).sum(-1))
+    neg = F.logsigmoid(-(a * n).sum(-1))
+    return -((pos * mf).sum() + (neg * mf).sum()), m.sum(dtype=torch.int32)
+
+
+def lp_logsigmoid_loss(emb: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean LP loss per valid pair (the train objective)."""
+    s, pairs = lp_logsigmoid_sum(emb, mask)
+    return s / pairs.float().clamp(min=1.0)
+
+
+def make_objective(cfg: Config):
+    """(loss_of, counts_of) over a model's output and its batch, shared by
+    both drivers' step functions. ``loss_of`` is the train objective: the
+    masked cross-entropy, or for ``lp_sage`` the mean LP loss per pair.
+    ``counts_of`` is what eval accumulates: the (correct, valid) seed
+    counts as int32 device tensors, or for ``lp_sage`` the (LP loss sum,
+    valid-pair count); either way the epoch's a / b weighs a partial
+    batch by its real contents."""
+    is_lp = cfg.model.arch == "lp_sage"
+
+    def loss_of(out, batch):
+        out, mask = out[: batch.seed_cap], batch.seed_mask()
+        if is_lp:
+            return lp_logsigmoid_loss(out, mask)
+        return masked_softmax_ce(out, batch.labels, mask)
+
+    def counts_of(out, batch):
+        out, mask = out[: batch.seed_cap], batch.seed_mask()
+        if is_lp:
+            return lp_logsigmoid_sum(out, mask)
+        return (((out.argmax(-1) == batch.labels) & mask).sum(
+            dtype=torch.int32), mask.sum(dtype=torch.int32))
+
+    return loss_of, counts_of
+
+
 class StepFns(NamedTuple):
     """Step functions built by make_step_fns."""
     train_step: Callable
@@ -64,6 +116,7 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
     fanouts = tuple(cfg.sampler.fanouts)
     dedup_last = cfg.sampler.dedup_last
     caps = tuple(caps)
+    loss_of, counts_of = make_objective(cfg)
 
     def sample(graph, seeds, num_seeds, labels, generator, uniforms):
         return sample_batch(graph, seeds, num_seeds, labels, fanouts, caps,
@@ -82,8 +135,7 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
         x = gather_features(feats, batch.frontier)
         out = state.model(tuple(reversed(batch.blocks)), x,
                           deterministic=False, generator=state.generator)
-        loss = masked_softmax_ce(out[: batch.seed_cap], batch.labels,
-                                 batch.seed_mask())
+        loss = loss_of(out, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
@@ -102,15 +154,13 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
     @torch.no_grad()
     def eval_step(model, graph: DeviceGraph, feats, seeds, num_seeds, labels,
                   generator=None, uniforms=None):
-        """(correct, valid) seed counts of one batch, as int32 device
-        tensors."""
+        """(correct, valid) seed counts of one batch as int32 device
+        tensors; for ``lp_sage`` the (LP loss sum, valid-pair count), so
+        that the epoch's a / b is the pair-weighted mean loss."""
         batch = sample(graph, seeds, num_seeds, labels, generator, uniforms)
         x = gather_features(feats, batch.frontier)
         out = model(tuple(reversed(batch.blocks)), x, deterministic=True)
-        mask = batch.seed_mask()
-        pred = out[: batch.seed_cap].argmax(-1)
-        return (((pred == batch.labels) & mask).sum(dtype=torch.int32),
-                mask.sum(dtype=torch.int32))
+        return counts_of(out, batch)
 
     return StepFns(train_step=train_step, eval_step=eval_step)
 
@@ -123,13 +173,15 @@ class Trainer:
     ``train.cached_driver.run_cached_training`` instead; the trainer
     raises on either.
 
-    Not ported yet (each raises when set): ``train.checkpoint_dir``,
+    With ``train.checkpoint_dir`` set, the trainer restores the latest
+    checkpoint of that directory when it is built, ``fit`` saves one after
+    every epoch, and a fresh trainer on the same directory goes on from
+    the saved epoch. Not ported yet (each raises when set):
     ``train.profile_dir`` and ``num_shards > 1``."""
 
     def __init__(self, cfg: Config, data: GraphData,
                  device: torch.device | str, num_shards: int = 1):
         for unsupported, what in ((num_shards != 1, "num_shards > 1"),
-                                  (cfg.train.checkpoint_dir, "checkpoint_dir"),
                                   (cfg.train.profile_dir, "profile_dir")):
             if unsupported:
                 raise NotImplementedError(
@@ -176,6 +228,8 @@ class Trainer:
             dtype=cfg.model.dtype, generator=init_gen).to(self.device)
         self.state = create_train_state(self.model, cfg.train.learning_rate,
                                         cfg.train.seed, self.device)
+        if cfg.train.checkpoint_dir:
+            restore_checkpoint(cfg.train.checkpoint_dir, self.state)
         self.fns = make_step_fns(cfg, self.caps)
         self.fns_eval = make_step_fns(cfg, self.eval_caps)
         self.history: list[Dict] = []
@@ -253,6 +307,8 @@ class Trainer:
         return rec
 
     def evaluate(self, which: str = "valid") -> float:
+        """Accuracy over the valid or test seeds; for ``lp_sage`` the
+        mean LP loss per valid pair (lower is better)."""
         shards = self.shards_valid if which == "valid" else self.shards_test
         steps = (self.plan.valid_steps if which == "valid"
                  else self.plan.test_steps)
@@ -282,13 +338,16 @@ class Trainer:
     def fit(self, epochs: Optional[int] = None,
             log: Callable[[str], None] = print) -> Dict:
         epochs = epochs or self.cfg.train.epochs
+        vlab, tlab = eval_labels(self.cfg)
         for epoch in range(self.state.epoch, epochs):
             rec = self.train_one_epoch(epoch)
             acc = self.evaluate("valid")
             self.state.epoch = epoch + 1
             log(f"Epoch:{epoch}, Cost:{rec['epoch_s']:.3f} s, "
-                f"Loss:{rec['loss']:.4f}, Val Acc: {acc:.4f}, "
+                f"Loss:{rec['loss']:.4f}, {vlab}: {acc:.4f}, "
                 f"edges/s: {rec['edges_per_s']:.3e}")
+            if self.cfg.train.checkpoint_dir:
+                save_checkpoint(self.cfg.train.checkpoint_dir, self.state)
         test_acc = self.evaluate("test")
-        log(f"Accuracy on test data: {test_acc:.4f}")
+        log(f"{tlab}: {test_acc:.4f}")
         return {"test_acc": test_acc, "history": self.history}

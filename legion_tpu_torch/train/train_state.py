@@ -1,15 +1,21 @@
-"""Training state (port of ``legion_tpu/train/train_state.py``, without
-checkpointing, which is queued in ROADMAP.md).
+"""Training state with checkpoint and resume (port of
+``legion_tpu/train/train_state.py``).
 
 The model and the optimizer are updated in place; ``step`` and ``epoch``
 are host integers, so reading them never waits for the device. One
 device generator drives both sampling and dropout, as one PRNG key does
-in the reference.
+in the reference. The whole state (parameters, Adam moments, step and
+epoch counters, the generator's state) round-trips through ``torch.save``
+into ``<dir>/step_<n>``, so a run killed after a save resumes exactly
+where the saved state stood.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
+from typing import Optional
 
 import torch
 
@@ -32,3 +38,63 @@ def create_train_state(model: torch.nn.Module, learning_rate: float,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(model=model, optimizer=opt, generator=gen)
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+    """Write the state to ``<ckpt_dir>/step_<state.step>`` (replacing a
+    file of that step) and return the path. The file appears whole or not
+    at all: it is written beside its place and renamed."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {"model": state.model.state_dict(),
+               "optimizer": state.optimizer.state_dict(),
+               "step": state.step, "epoch": state.epoch,
+               "generator": state.generator.get_state()}
+    path = os.path.join(ckpt_dir, f"step_{state.step}")
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The ``step_<n>`` of the highest n in ckpt_dir, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for m in
+             (re.fullmatch(r"step_(\d+)", d) for d in os.listdir(ckpt_dir))
+             if m]
+    if not steps:
+        return None
+    return os.path.join(ckpt_dir, f"step_{max(steps)}")
+
+
+def restore_checkpoint(ckpt_dir: str,
+                       state: TrainState) -> Optional[TrainState]:
+    """Load the latest checkpoint of ckpt_dir into ``state`` (its model,
+    optimizer and generator, in place, on their devices) and return it;
+    None, with ``state`` untouched, when there is no checkpoint."""
+    path = latest_checkpoint(ckpt_dir)
+    if path is None:
+        return None
+    device = next(state.model.parameters()).device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.generator.set_state(payload["generator"].cpu())
+    state.step = int(payload["step"])
+    state.epoch = int(payload["epoch"])
+    return state
+
+
+def maybe_checkpoint_step(train_cfg, state: TrainState,
+                          step_index: int) -> None:
+    """Mid-epoch checkpoint cadence (``TrainConfig.checkpoint_every_steps``),
+    shared by the pipelined trainers so the cadence cannot drift between
+    drivers."""
+    if (train_cfg.checkpoint_dir and train_cfg.checkpoint_every_steps
+            and (step_index + 1) % train_cfg.checkpoint_every_steps == 0):
+        save_checkpoint(train_cfg.checkpoint_dir, state)

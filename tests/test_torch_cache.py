@@ -284,14 +284,6 @@ def test_eval_from_matches_jax(small_graph):
     assert int(tb) == B
 
 
-def test_lp_sage_step_fns_are_not_ported():
-    cfg = dataclasses.replace(
-        _cfg(port_config, 7),
-        model=port_config.ModelConfig(arch="lp_sage"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_cache_step_fns(cfg)
-
-
 # -- the pipelined trainer ----------------------------------------------------
 
 def _trainer(g, capacity=700, miss_cap=None, depth=2):
@@ -413,7 +405,7 @@ def test_run_cached_training_needs_host_features_and_the_cache(
         run_cached_training(cfg, small_graph, "cpu")
 
 
-@pytest.mark.parametrize("what", ["checkpoint_dir", "profile_dir"])
+@pytest.mark.parametrize("what", ["profile_dir"])
 def test_run_cached_training_rejects_unported_settings(small_graph, what):
     cfg = _cfg(port_config, 7)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(

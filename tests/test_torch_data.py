@@ -54,8 +54,8 @@ def test_config_holds_the_ported_fields():
         "dataset": ["feature_pad_align", "feature_placement", "num_classes"],
         "sampler": sorted(_defaults(jax_config.SamplerConfig)),
         "model": sorted(_defaults(jax_config.ModelConfig)),
-        "train": ["checkpoint_dir", "epochs", "learning_rate",
-                  "pipeline_depth", "profile_dir", "seed"],
+        "train": ["checkpoint_dir", "checkpoint_every_steps", "epochs",
+                  "learning_rate", "pipeline_depth", "profile_dir", "seed"],
         "cache": sorted(set(_defaults(jax_config.CacheConfig))
                         - {"group_size", "cost_model_granularity"})}
     with pytest.raises(TypeError):

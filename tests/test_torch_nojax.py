@@ -28,6 +28,9 @@ import legion_tpu_torch.models.convert
 import legion_tpu_torch.ops.gather
 import legion_tpu_torch.ops.identity_agg
 import legion_tpu_torch.ops.segment
+import legion_tpu_torch.ops.spmm
+import legion_tpu_torch.models.gcn
+import legion_tpu_torch.train.train_state
 import legion_tpu_torch.sampling.sampler
 import legion_tpu_torch.sampling.seeds
 import legion_tpu_torch.train.loop

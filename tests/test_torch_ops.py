@@ -8,7 +8,9 @@ and no JAX ``pytest --noconftest -m cuda tests/test_torch_ops.py`` runs.
 Tolerances: 2e-2 absolute and relative against the TPU kernels, which
 round rows to bf16 before their summing dot
 (identity_agg_pallas.py:93-95); 1e-5 between two float32 formulations of
-the same sum; bitwise for the gather, a copy."""
+the same sum; bitwise for the gather, a copy. K5 in bf16 sums in f32 and
+rounds once, so it lies within 2 bf16 ulps of the f32 result, while the
+reference's bf16 sum rounds at each of its f terms."""
 
 import numpy as np
 import pytest
@@ -21,6 +23,8 @@ from legion_tpu_torch.ops.identity_agg import (
     identity_masked_mean, identity_masked_mean_plain)
 from legion_tpu_torch.ops.segment import (fanout_gather_mean,
                                           fanout_gather_sum, segment_mean_coo)
+from legion_tpu_torch.ops.spmm import (grouped_masked_sum,
+                                       grouped_masked_sum_plain)
 from legion_tpu_torch.sampling.block import Block
 
 torch.set_num_threads(2)
@@ -28,7 +32,8 @@ torch.set_num_threads(2)
 NORMS = ("mean", "sqrt", "sum")
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LAUNCH_COUNTED = (identity_masked_mean, gathered_masked_mean,
-                  gathered_masked_mean_backward, gather_rows)
+                  gathered_masked_mean_backward, gather_rows,
+                  grouped_masked_sum)
 
 
 def _identity_case(seed, p=128, f=5, d=128, off=64):
@@ -225,6 +230,98 @@ def test_gather_rows_plain_matches_pallas(m, d):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# -- K5 -----------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7        # spacing of bf16 values relative to the value
+
+
+def _grouped_case(seed, p, f, d, float_mask):
+    rng = np.random.default_rng(seed)
+    x2 = rng.standard_normal((p * f, d)).astype(np.float32)
+    mask = rng.random((p, f)) > 0.3
+    mask[2] = False
+    if float_mask:      # edge weights, zero where masked
+        mask = (mask * rng.uniform(0.5, 2.0, (p, f))).astype(np.float32)
+    w = rng.standard_normal((p, d)).astype(np.float32)
+    return x2, mask, w
+
+
+def _jax_grouped_sum(x2, mask, f, w, dtype="float32"):
+    """legion_tpu's grouped_masked_sum and the gradient of sum(out * w),
+    with the Pallas kernel forced on and interpreted as
+    tests/test_pallas_ops.py runs it (it applies at 128-multiple widths;
+    other shapes take the XLA formulation of the same numerics)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from legion_tpu.ops import spmm_pallas
+    xj = jnp.asarray(x2, getattr(jnp, dtype))
+    mj, wj = jnp.asarray(mask), jnp.asarray(w)
+
+    def loss(a):
+        out = spmm_pallas.grouped_masked_sum(a, mj, f)
+        return jnp.sum(out.astype(jnp.float32) * wj)
+
+    spmm_pallas.FORCE_PALLAS = True
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            out = spmm_pallas.grouped_masked_sum(xj, mj, f)
+            grad = jax.grad(loss)(xj)
+    finally:
+        spmm_pallas.FORCE_PALLAS = False
+    return (np.array(out.astype(jnp.float32)),
+            np.array(grad.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("float_mask", [False, True])
+@pytest.mark.parametrize("p,f,d", [(64, 10, 128), (32, 3, 100)])
+def test_grouped_masked_sum_plain_matches_pallas(p, f, d, float_mask):
+    """Value and gradient in float32 at 1e-5, with a bool and a float
+    mask; the mask gets no gradient."""
+    x2, mask, w = _grouped_case(0, p, f, d, float_mask)
+    want, want_g = _jax_grouped_sum(x2, mask, f, w)
+    xt = torch.from_numpy(x2).requires_grad_(True)
+    mt = torch.from_numpy(mask)
+    if float_mask:
+        mt.requires_grad_(True)
+    out = grouped_masked_sum(xt, mt, f)
+    assert out.dtype == torch.float32 and out.shape == (p, d)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+    assert (out[2] == 0).all()
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want_g, rtol=1e-5, atol=1e-5)
+    assert mt.grad is None
+
+
+@pytest.mark.parametrize("float_mask", [False, True])
+@pytest.mark.parametrize("p,f,d", [(64, 10, 128), (32, 3, 100)])
+def test_grouped_masked_sum_bf16(p, f, d, float_mask):
+    """bf16 rows (and bf16-rounded weights): the port's result is the
+    float32 sum rounded once, so within 2 bf16 ulps of it; the
+    reference's, summed in bf16, within one ulp of the summed magnitudes
+    per term. The gradient is repeat(w) * mask, one bf16 product."""
+    x2, mask, w = _grouped_case(1, p, f, d, float_mask)
+    xb = torch.from_numpy(x2).to(torch.bfloat16)
+    mt = torch.from_numpy(mask)
+    mb = mt.to(torch.bfloat16).float() if float_mask else mt.float()
+    exact = (xb.float().reshape(p, f, d) * mb[..., None]).sum(1)
+    mag = (xb.float().reshape(p, f, d).abs() * mb[..., None]).sum(1)
+    out = grouped_masked_sum(xb.clone().requires_grad_(True), mt, f)
+    assert out.dtype == torch.bfloat16
+    assert bool(((out.float() - exact).abs()
+                 <= 2 * BF16_ULP * exact.abs() + 1e-30).all())
+    want, want_g = _jax_grouped_sum(x2, mask, f, w, "bfloat16")
+    assert bool(((torch.from_numpy(want) - exact).abs()
+                 <= f * BF16_ULP * mag + 1e-30).all())
+    xg = xb.clone().requires_grad_(True)
+    (grouped_masked_sum(xg, mt, f).float() * torch.from_numpy(w)).sum(
+    ).backward()
+    np.testing.assert_allclose(xg.grad.float().numpy(), want_g,
+                               rtol=2 * BF16_ULP, atol=1e-6)
+
+
 # -- plain aggregators --------------------------------------------------------
 
 @pytest.mark.parametrize("identity", [False, True])
@@ -287,6 +384,11 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                             300))
     ids = torch.tensor([3, -1, 0], dtype=torch.int32)
     assert torch.equal(gather_rows(xt, ids), gather_rows_plain(xt, ids))
+    x2, gm, _ = _grouped_case(3, 16, 4, 24, True)
+    assert torch.equal(
+        grouped_masked_sum(torch.from_numpy(x2), torch.from_numpy(gm), 4),
+        grouped_masked_sum_plain(torch.from_numpy(x2), torch.from_numpy(gm),
+                                 4))
     assert [fn.launches for fn in LAUNCH_COUNTED] == before
 
 
@@ -308,6 +410,15 @@ def test_wrappers_reject_bad_arguments():
                              torch.from_numpy(m2))
     with pytest.raises(ValueError, match="int32"):
         gather_rows(xt, torch.tensor([0, 1]))
+    x2 = torch.zeros(12, 8)
+    with pytest.raises(ValueError, match="mask"):
+        grouped_masked_sum(x2, torch.ones(4, 3, dtype=torch.bool), 4)
+    with pytest.raises(ValueError, match="rows"):
+        grouped_masked_sum(x2, torch.ones(5, 3, dtype=torch.bool), 3)
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_masked_sum(x2.double(), torch.ones(4, 3, dtype=torch.bool), 3)
+    with pytest.raises(ValueError, match="bool or float"):
+        grouped_masked_sum(x2, torch.ones(4, 3, dtype=torch.int32), 3)
 
 
 # -- on the card --------------------------------------------------------------
@@ -423,3 +534,41 @@ def test_cuda_gather_rows(cuda, dtype, d):
     got = gather_rows(table, ids)
     assert gather_rows.launches == n0 + 1
     assert torch.equal(got, gather_rows_plain(table, ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("float_mask", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,f,d", [(1000, 10, 128), (333, 7, 47),
+                                   (64, 3, 100)])
+def test_cuda_grouped_masked_sum(cuda, p, f, d, dtype, float_mask):
+    """The kernel against its plain version, value and gradient, from a
+    slice that starts at an odd row (for d = 47 in bf16 not even 4-byte
+    aligned). f32 within 1e-5 of the summed magnitudes (another order of
+    the same f32 sum); bf16 within one flipped rounding."""
+    x2, mask, w = _grouped_case(15, p + 1, f, d, float_mask)
+    dt = TORCH_DT[dtype]
+    x = torch.from_numpy(x2).to(cuda, dt)[f:]         # rows f .. (p+1)*f
+    mt = torch.from_numpy(mask).to(cuda)[1:]
+    assert x.is_contiguous() and x.shape[0] == p * f
+    n0 = grouped_masked_sum.launches
+    xg = x.clone().requires_grad_(True)
+    out = grouped_masked_sum(x, mt, f)
+    outg = grouped_masked_sum(xg[:], mt, f)
+    assert grouped_masked_sum.launches == n0 + 2
+    assert torch.equal(out, outg)
+    want = grouped_masked_sum_plain(x, mt, f)
+    if dtype == "float32":
+        mag = grouped_masked_sum_plain(x.abs(), mt.abs() if float_mask
+                                       else mt, f)
+        assert bool(((out - want).abs() <= 1e-5 * mag + 1e-30).all())
+    else:
+        _bf16_close(out, want)
+    wt = torch.from_numpy(w).to(cuda)[1:]
+    (outg.float() * wt).sum().backward()
+    xp = x.clone().requires_grad_(True)
+    (grouped_masked_sum_plain(xp, mt, f).float() * wt).sum().backward()
+    torch.testing.assert_close(xg.grad.float(), xp.grad.float(), rtol=8e-3,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="device"):
+        grouped_masked_sum(x, mt.cpu(), f)

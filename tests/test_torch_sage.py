@@ -95,12 +95,6 @@ def test_params_from_flax_layout():
     assert model.layers[0].fc_neigh.bias is None
 
 
-@pytest.mark.parametrize("arch", ["gcn", "lp_sage"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(arch, 16, 8, 3, 2, 0.0)
-
-
 def test_init_is_seeded_lecun_normal():
     a = build_model("sage", 128, 256, 47, 2, 0.5,
                     generator=torch.Generator().manual_seed(0))

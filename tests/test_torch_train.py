@@ -199,8 +199,7 @@ def test_cap_overflow_metric_fires(small_graph):
     assert int(m["cap_overflow"]) > 0
 
 
-@pytest.mark.parametrize("what", ["checkpoint_dir", "profile_dir",
-                                  "num_shards"])
+@pytest.mark.parametrize("what", ["profile_dir", "num_shards"])
 def test_trainer_rejects_unported_settings(small_graph, what):
     cfg = _cfg(small_graph.num_classes)
     kw = {}
