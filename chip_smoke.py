@@ -18,8 +18,11 @@ non-zero:
    against its plain PyTorch version on the tensors that batch's step
    gives it, with the error against a stated tolerance and the median
    time of both (CUDA events, 20 reps after warm-up): the sampling kernel
-   bitwise at the batch's two hop shapes, K3, K1 (also with GCN's
-   "sqrt" norm), K2 forward and backward (also with GCN's "sum" norm)
+   bitwise at the batch's two hop shapes (beside its byte bound, the
+   distinct 32-byte sectors its reads touch and their time at the memory
+   peak), K3, K1 (also with GCN's "sqrt" norm), K2 forward and backward
+   with every norm at SAGE's layer-1 shape in bf16 and at GCN float32's
+   (the backward's zero fill, scatter kernel and cast pass timed apart)
    and K5 (``grouped_masked_sum``: float32 value and gradient on the
    batch's identity block, a bf16 case, and width 47 with a float mask);
    K3 and K5 are also timed beside the one PyTorch call that computes
@@ -61,8 +64,10 @@ non-zero:
    ms/step is the steady state. Its losses must be finite, its hit rate
    inside (0, 1), its host bytes > 0 in both epochs, its sampled frontier
    must hold ids >= 2^24, the sampling kernel, K2 forward and backward
-   and K3 must have launched, and the sampling kernel must be bitwise its
-   plain version on the path's hop-1 and hop-2 inputs.
+   and K3 must have launched, the sampling kernel must be bitwise its
+   plain version on the path's hop-1 and hop-2 inputs, and K2 forward and
+   backward must agree with their plain versions, for every norm, on that
+   batch's layer-1 block at the path's width (172 columns, bf16).
 
 Then it prints the card's name and power limit as nvidia-smi reports
 them, a JSON line with every kernel's numbers, and, last,
@@ -207,7 +212,9 @@ def toolchain():
 
 def check_sampling_kernel(graph, frontiers, fanouts, seed):
     """The sampling kernel bitwise against its plain version on each hop's
-    (frontier, uniforms), and both timed. Returns per-hop records."""
+    (frontier, uniforms), and both timed. Returns per-hop records, each
+    with ``bound_ms`` (the useful bytes) and ``sector_ms`` (the distinct
+    32-byte sectors those reads touch) at the memory peak."""
     import torch
 
     from legion_tpu_torch.ops.sample import (sample_neighbors,
@@ -226,8 +233,27 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
         # node and one index per valid slot; ~3 operations per slot
         nbytes = (4 * fr.numel() + 8 * slots + 8 * int((fr >= 0).sum())
                   + 4 * valid)
+        # The same reads in the 32-byte sectors device memory moves: the
+        # distinct sectors of indptr (two entries a valid node) and of
+        # indices (the drawn entry of each valid slot; eight int32 to a
+        # sector), beside the coalesced frontier, uniforms and output.
+        ids = fr[fr >= 0].long()
+        start = graph.indptr[ids]
+        deg = (graph.indptr[ids + 1] - start)[:, None]
+        draw = torch.minimum((u[fr >= 0] * deg.float()).to(torch.int32),
+                             (deg - 1).clamp(min=0))
+        slot = torch.arange(f, dtype=torch.int32, device=fr.device)
+        addr = (start[:, None].long() + draw)[(slot[None, :] < deg)
+                                              & (deg > 0)]
+        require(addr.numel() == valid, "one drawn entry per valid slot")
+        sectors = (int(torch.unique(addr // 8).numel())
+                   + int(torch.unique(torch.cat([ids, ids + 1]) // 8).numel()))
+        sector_bytes = 32 * sectors + 4 * fr.numel() + 8 * slots
+        del ids, start, deg, draw, addr
         out.append({"shape": list(u.shape), "valid_slots": valid,
                     **bound(nbytes, 3 * slots), "library_ms": None,
+                    "sector_bytes": sector_bytes,
+                    "sector_ms": 1e3 * sector_bytes / PEAK_BYTES_PER_S,
                     "max_abs_err": float((k - p).abs().max()),
                     "ms": time_ms(lambda: sample_neighbors(*args)),
                     "plain_ms": time_ms(
@@ -248,6 +274,90 @@ def hop_frontiers(batch, caps):
         idx = torch.arange(caps[k + 1], device=head.device)
         fr.append(torch.where(idx < blk.num_src, head, -1))
     return fr
+
+
+NORMS = ("mean", "sqrt", "sum")
+
+
+def check_k2(h_t, pos, mask, g, norm):
+    """K2 forward and backward against their plain versions on one block:
+    h_t (S, D), pos and mask (P, f), upstream gradient g (P, D) in h_t's
+    type; every norm is checked, ``norm`` is timed. Forward in bf16
+    within 1 bf16 ulp relative (8e-3) plus 1e-3 (two f32 sums in different
+    orders can flip one rounding), in float32 within 1e-5 of the summed
+    magnitudes. Backward in float32 within 1e-5 of the summed magnitudes
+    of the terms scattered into each element (atomics add in any order),
+    and in bf16, as the step runs it, within 8e-3 of them (both sides
+    round an f32 sum once). Returns the forward's and the backward's
+    record; the backward's holds ``parts_ms``: the zero fill, the scatter
+    kernel and the cast pass timed apart."""
+    import torch
+
+    from legion_tpu_torch.ops.identity_agg import (
+        gathered_masked_mean, gathered_masked_mean_backward,
+        gathered_masked_mean_backward_plain, gathered_masked_mean_plain,
+        narrow_rows, scatter_masked_rows, staging_width)
+    (p, f), (s, d) = mask.shape, h_t.shape
+    es, low = h_t.element_size(), h_t.dtype == torch.bfloat16
+    what = f"K2 at {[p, f, s, d]} {h_t.dtype}"
+    fwd_err, bwd_err = {}, {}
+    for nm in NORMS:
+        k = gathered_masked_mean(h_t, pos, mask, nm).float()
+        pl = gathered_masked_mean_plain(h_t, pos, mask, nm).float()
+        if low:
+            tol = 8e-3 * pl.abs() + 1e-3
+        else:
+            tol = 1e-5 * gathered_masked_mean_plain(h_t.abs(), pos, mask, nm)
+        require(bool(((k - pl).abs() <= tol).all()),
+                f"{what}: forward, norm {nm}, within tolerance")
+        fwd_err[nm] = float((k - pl).abs().max())
+        g32 = g.float()
+        kb = gathered_masked_mean_backward(g32, pos, mask, s, nm,
+                                           torch.float32)
+        pb = gathered_masked_mean_backward_plain(g32, pos, mask, s, nm,
+                                                 torch.float32)
+        mag = gathered_masked_mean_backward_plain(g32.abs(), pos, mask, s, nm,
+                                                  torch.float32)
+        require(bool(((kb - pb).abs() <= 1e-5 * mag).all()),
+                f"{what}: backward, norm {nm}, within 1e-5 in f32")
+        bwd_err[nm] = float((kb - pb).abs().max())
+        if low:
+            kl = gathered_masked_mean_backward(g, pos, mask, s, nm).float()
+            require(bool(((kl - gathered_masked_mean_backward_plain(
+                g, pos, mask, s, nm).float()).abs() <= 8e-3 * mag).all()),
+                f"{what}: backward, norm {nm}, within 8e-3 in bf16")
+        del k, pl, tol, g32, kb, pb, mag
+    slots = int(mask.sum())
+    rows = int(torch.unique(pos[mask]).numel())
+    shape = {"shape": [p, f, s, d], "dtype": str(h_t.dtype).split(".")[-1],
+             "norm": norm, "valid_slots": slots, "library_ms": None}
+    # the distinct rows the valid slots name read once, positions and mask
+    # read, the dst rows written; one add per gathered element
+    fwd = {**shape,
+           **bound(rows * d * es + 5 * mask.numel() + p * d * es, slots * d),
+           "max_abs_err": fwd_err[norm], "max_abs_err_by_norm": fwd_err,
+           "ms": time_ms(lambda: gathered_masked_mean(h_t, pos, mask, norm)),
+           "plain_ms": time_ms(
+               lambda: gathered_masked_mean_plain(h_t, pos, mask, norm))}
+    ld = staging_width(d, h_t.dtype)    # float32: d itself, no cast pass
+    staging = torch.zeros((s, ld), dtype=torch.float32, device=h_t.device)
+    # the upstream gradient, positions and mask read, every src row of the
+    # gradient written; one add per scattered element
+    bwd = {**shape,
+           **bound(g.numel() * es + 5 * mask.numel() + s * d * es, slots * d),
+           "max_abs_err": bwd_err[norm], "max_abs_err_by_norm": bwd_err,
+           "ms": time_ms(
+               lambda: gathered_masked_mean_backward(g, pos, mask, s, norm)),
+           "plain_ms": time_ms(lambda: gathered_masked_mean_backward_plain(
+               g, pos, mask, s, norm)),
+           "staging_row_floats": ld,
+           "parts_ms": {
+               "fill": time_ms(lambda: torch.zeros(
+                   (s, ld), dtype=torch.float32, device=h_t.device)),
+               "scatter": time_ms(lambda: scatter_masked_rows(
+                   g, pos, mask, staging, norm)),
+               "cast": time_ms(lambda: narrow_rows(staging, d, h_t.dtype))}}
+    return fwd, bwd
 
 
 def k2_fill_case():
@@ -665,6 +775,18 @@ def cached_path(kernels, results):
     hops = check_sampling_kernel(graph, hop_frontiers(batch, caps),
                                  cfg.sampler.fanouts, seed=4)
     results["sample_neighbors"]["cached_path_hops"] = hops
+    # K2 on that batch's layer-1 block at the path's width (172 classes,
+    # bf16): transformed activations and an upstream gradient from a seed
+    blk1 = batch.blocks[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h_t = torch.randn((caps[1], pa_cell.CLASSES), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    gd = torch.randn((blk1.nbr_mask.shape[0], pa_cell.CLASSES), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    fwd, bwd = check_k2(h_t, blk1.nbr_pos, blk1.nbr_mask, gd, "mean")
+    results["gathered_masked_mean"]["shapes"]["cached_pa_bf16"] = fwd
+    results["gathered_masked_mean_backward"]["shapes"]["cached_pa_bf16"] = bwd
+    del h_t, gd
     emit({"phase": "cached_path",
           "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
                     "features": data.feature_dim,
@@ -686,7 +808,9 @@ def cached_path(kernels, results):
           "steady_edges_per_s": h["edges_per_s"], "launches": launches,
           "frontier_ids_past_2_24": big,
           "num_frontier": int(batch.num_frontier),
-          "sample_neighbors_hops": hops, "peak_mem_gb": peak,
+          "sample_neighbors_hops": hops, "k2": {"forward": fwd,
+                                                "backward": bwd},
+          "peak_mem_gb": peak,
           "cost_model": cost})
 
 
@@ -704,9 +828,8 @@ def main():
                                                  random_power_law_graph)
     from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from legion_tpu_torch.ops.identity_agg import (
-        gathered_masked_mean, gathered_masked_mean_backward,
-        gathered_masked_mean_backward_plain, gathered_masked_mean_plain,
-        identity_masked_mean, identity_masked_mean_plain)
+        gathered_masked_mean_plain, identity_masked_mean,
+        identity_masked_mean_plain)
     from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.train.cached_driver import run_cached_training
     from legion_tpu_torch.train.loop import Trainer, masked_softmax_ce
@@ -811,66 +934,21 @@ def main():
     with torch.no_grad():
         h = torch.relu(layer0(blk0, x))
         h_t = layer1._dense(layer1.fc_neigh, h)
-    d0, slots0, es = h_t.shape[1], int(m0.sum()), h_t.element_size()
-    rows0 = int(torch.unique(pos[m0]).numel())
-    # the distinct rows the valid slots name read once, positions and mask
-    # read, the dst rows written; one add per gathered element
-    results["gathered_masked_mean"].update(
-        bound(rows0 * d0 * es + 5 * m0.numel() + m0.shape[0] * d0 * es,
-              slots0 * d0),
-        library_ms=None,
-        sum_max_abs_err=bf16_err(        # GCN's norm
-            gathered_masked_mean(h_t, pos, m0, "sum"),
-            gathered_masked_mean_plain(h_t, pos, m0, "sum"),
-            "gathered_masked_mean with norm sum"),
-        max_abs_err=bf16_err(gathered_masked_mean(h_t, pos, m0),
-                             gathered_masked_mean_plain(h_t, pos, m0),
-                             "gathered_masked_mean"),
-        ms=time_ms(lambda: gathered_masked_mean(h_t, pos, m0)),
-        plain_ms=time_ms(lambda: gathered_masked_mean_plain(h_t, pos, m0)))
-
     agg = gathered_masked_mean_plain(h_t.requires_grad_(True), pos, m0)
     logits = layer1._dense(layer1.fc_self, h[: blk1.dst_cap]).detach() + agg
     loss = masked_softmax_ce(logits[: batch.seed_cap], batch.labels,
                              batch.seed_mask())
     (gd,) = torch.autograd.grad(loss, agg)     # bf16, as the step's backward
-    gd, s = gd.contiguous(), h_t.shape[0]
-    # f32: within 1e-5 of the sum of the magnitudes of the terms scattered
-    # into each element (atomics add in any order)
-    kb = gathered_masked_mean_backward(gd.float(), pos, m0, s, "mean",
-                                       torch.float32)
-    pb = gathered_masked_mean_backward_plain(gd.float(), pos, m0, s, "mean",
-                                             torch.float32)
-    mag = gathered_masked_mean_backward_plain(gd.float().abs(), pos, m0, s,
-                                              "mean", torch.float32)
-    require(bool(((kb - pb).abs() <= 1e-5 * mag).all()),
-            "gathered_masked_mean_backward within 1e-5 relative in f32")
-    # bf16 out, as the step runs it: both sides round an f32 sum once, so
-    # they differ by at most 2 bf16 half-ulps of that magnitude
-    require(bool(((gathered_masked_mean_backward(gd, pos, m0, s).float()
-                   - gathered_masked_mean_backward_plain(gd, pos, m0, s)
-                   .float()).abs() <= 8e-3 * mag).all()),
-            "gathered_masked_mean_backward within 8e-3 relative in bf16")
-    ks = gathered_masked_mean_backward(gd.float(), pos, m0, s, "sum",
-                                       torch.float32)
-    ps = gathered_masked_mean_backward_plain(gd.float(), pos, m0, s, "sum",
-                                             torch.float32)
-    mags = gathered_masked_mean_backward_plain(gd.float().abs(), pos, m0, s,
-                                               "sum", torch.float32)
-    require(bool(((ks - ps).abs() <= 1e-5 * mags).all()),
-            "gathered_masked_mean_backward with norm sum within 1e-5")
-    # the upstream gradient, positions and mask read, every src row of the
-    # gradient written; one add per scattered element
+    gd, h_t = gd.contiguous(), h_t.detach()
+    # K2 at the shapes the full-width paths give it: SAGE's layer 1 in bf16
+    # (norm "mean"; GCN bf16 runs the same tensors with "sum", checked
+    # here too), and GCN float32's layer 1 (the same block in float32)
+    fwd, bwd = check_k2(h_t, pos, m0, gd, "mean")
+    fwd32, bwd32 = check_k2(h_t.float(), pos, m0, gd.float(), "sum")
+    results["gathered_masked_mean"].update(
+        fwd, shapes={"sage_main_bf16": fwd, "gcn_main_f32": fwd32})
     results["gathered_masked_mean_backward"].update(
-        bound(gd.numel() * gd.element_size() + 5 * m0.numel()
-              + s * d0 * gd.element_size(), slots0 * d0),
-        library_ms=None,
-        sum_max_abs_err=float((ks - ps).abs().max()),
-        max_abs_err=float((kb - pb).abs().max()),
-        ms=time_ms(lambda: gathered_masked_mean_backward(gd, pos, m0, s)),
-        plain_ms=time_ms(
-            lambda: gathered_masked_mean_backward_plain(gd, pos, m0, s)))
-    del ks, ps, mags
+        bwd, shapes={"sage_main_bf16": bwd, "gcn_main_f32": bwd32})
     results["grouped_masked_sum"].update(check_grouped_masked_sum(x, m1, off))
     fill = k2_fill_case()
     emit({"phase": "kernels", "caps": list(tr.caps),
@@ -879,7 +957,7 @@ def main():
                      "gathered": [*m0.shape, *h_t.shape]},
           "k2_fill": fill, "results": results})
     del (batch, blk0, blk1, x, k3, m1, h, h_t, pos, m0, agg, logits, loss,
-         gd, kb, pb, mag)
+         gd)
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full width ------------------------------------

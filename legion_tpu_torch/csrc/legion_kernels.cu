@@ -3,12 +3,23 @@
 // Each kernel replaces a Pallas TPU kernel of legion_tpu/ops/ and computes
 // what that kernel computes, redesigned for the H100 rather than copied
 // block by block. All are gathers, reductions or scatters with no matrix
-// product: at the main-path shapes they do < 1 FLOP per byte moved,
-// far below the ~295 FLOP/byte at which the H100's bf16 tensor cores would
-// bound them, so device-memory bytes bound every one of them. The design
-// answer is the same for all: read each byte once, in coalesced 16-byte
-// loads where the row width allows, keep sums in registers, and write each
-// output once.
+// product: at the main-path shapes they do < 1 FLOP per byte moved, far
+// below the ~295 FLOP/byte at which the H100's bf16 tensor cores would bound
+// them, so no kernel here is bound by operations. Two designs follow from
+// what does bound them:
+//
+//  * K1, K3 and K5 stream hundreds of megabytes from device memory, and
+//    bytes bound them: one thread per 16-byte word of an output row, each
+//    byte read once in coalesced loads, sums in registers, each output
+//    written once.
+//  * K2 (forward and backward) and the sampling kernel move little, out of
+//    the L2 or in scattered 4-byte reads. K2 forward is bound by the
+//    operations a warp executes per 94-byte row and K2 backward by the
+//    L2's rate of float adds; the sampling kernel by its dependent loads. K2
+//    runs one warp per dst row: the row's index data is loaded once by the
+//    lanes, only the valid slots are walked (ballot, then a compacted table
+//    or shuffles), and the backward adds 16 bytes per atomic into a padded
+//    f32 staging buffer. The sampling kernel keeps one thread per slot.
 //
 // Built by legion_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -83,25 +94,16 @@ __device__ __forceinline__ float apply_norm(float v, int cnt, int norm) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 and K2 forward: masked norm-reduce over f slots per dst row.
+// K1: masked norm-reduce over the f contiguous slot rows of each dst row.
 //
-//   out[r, c] = norm( sum_{j < f, mask[r, j]} x[row(r, j), c] )
-//   row(r, j) = pos ? pos[r*f + j] : offset + r*f + j
+//   out[r, c] = norm( sum_{j < f, mask[r, j]} x[offset + r*f + j, c] )
 //
-// A valid slot whose row lies outside the n rows of x (a position past the
-// frontier, which exists only after a cap overflow) is not read: it makes
-// the whole output row NaN, as JAX's fill-mode take makes its row NaN.
-//
-// K1 (pos == nullptr) replaces identity_masked_mean_pallas
+// Replaces identity_masked_mean_pallas
 // (legion_tpu/ops/identity_agg_pallas.py:137): the f slots of dst r are the
 // contiguous rows offset + r*f .. offset + r*f + f - 1 of the gathered
-// features. K2 (pos given) replaces the forward of gathered_masked_mean
-// (identity_agg_pallas.py:261), which on the TPU gathered h_t[nbr_pos] into
-// a (P*f, D) array padded to 128 columns and then ran the K1 kernel on it;
-// here the gather happens inside the kernel, at the true width D, so the
-// (P*f, D) rows never reach device memory.
+// features.
 //
-// Bound: bytes. K1 at the main-path shapes reads 1.2M rows of 512 B (about
+// Bound: bytes. At the main-path shapes it reads 1.2M rows of 512 B (about
 // 626 MB plus the 1.2 MB mask) and writes 31 MB of bf16. Design: one thread
 // per (dst row, VEC-column group); the threads of a warp cover consecutive
 // columns of a row, so each slot's row is read by 16-byte coalesced loads
@@ -109,14 +111,16 @@ __device__ __forceinline__ float apply_norm(float v, int cnt, int norm) {
 // multiplied by zero, so their rows are never read. The sum stays in f32
 // registers; the norm and the cast to the output type happen before the one
 // store. No shared memory, no cross-thread reduction, no assumption on P
-// (a ragged last block is masked by the bounds check).
+// (a ragged last block is masked by the bounds check). The slot rows follow
+// each other in memory, so a thread's f loads are independent and the
+// hardware keeps them in flight; K2, whose rows are named by an index array,
+// has a kernel of its own below.
 // ---------------------------------------------------------------------------
 template <typename Tin, typename Tout, int VEC>
 __global__ void __launch_bounds__(kThreads)
-masked_agg_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ pos,
-                  const uint8_t* __restrict__ mask, Tout* __restrict__ out,
-                  int64_t n, int64_t p, int f, int d, int64_t offset,
-                  int norm) {
+masked_agg_kernel(const Tin* __restrict__ x, const uint8_t* __restrict__ mask,
+                  Tout* __restrict__ out, int64_t n, int64_t p, int f, int d,
+                  int64_t offset, int norm) {
   const int groups = d / VEC;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -132,8 +136,7 @@ masked_agg_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ pos,
   for (int j = 0; j < f; ++j) {
     if (!m[j]) continue;
     ++cnt;
-    const int64_t row = pos ? static_cast<int64_t>(pos[r * f + j])
-                            : offset + r * f + j;
+    const int64_t row = offset + r * f + j;
     if (row < 0 || row >= n) {
       filled = true;
       continue;
@@ -150,47 +153,349 @@ masked_agg_kernel(const Tin* __restrict__ x, const int32_t* __restrict__ pos,
 }
 
 // ---------------------------------------------------------------------------
-// K2 backward: replaces the custom VJP of gathered_masked_mean
-// (_masked_agg_rows_bwd with _bwd_scale, identity_agg_pallas.py:225-248,
-// whose scatter-add transpose of the row gather stayed in XLA on the TPU):
+// K2, forward and backward: the same reduce over rows named by an index
+// array, and its transpose.
 //
-//   dx[pos[r, j], c] += mask[r, j] * g[r, c] * scale(cnt_r)
+//   forward   out[r, c] = norm( sum_{j < f, mask[r, j]} h[pos[r, j], c] )
+//   backward  dx[pos[r, j], c] += mask[r, j] * norm(g[r, c])
 //
-// A slot whose position lies outside the n rows of dx is dropped, as the
-// transpose of a fill-mode take drops it; it still counts in cnt_r, since
-// the forward's mean counted it.
+// The forward replaces gathered_masked_mean
+// (legion_tpu/ops/identity_agg_pallas.py:261), which on the TPU gathered
+// h[pos] into a (P*f, D) array padded to 128 columns and ran the K1 kernel
+// on it; here the gather happens inside the kernel at the true width D, so
+// the (P*f, D) rows never reach device memory. The backward replaces its
+// custom VJP (_masked_agg_rows_bwd with _bwd_scale,
+// identity_agg_pallas.py:225-248, whose scatter-add transpose of the row
+// gather stayed in XLA on the TPU).
 //
-// Bound: bytes and atomics. It reads g (P x D) once and issues one f32
-// atomicAdd per valid (edge, column): 8320 x 25 x 47 at the main path,
-// into a 122240 x 47 f32 buffer (23 MB) that stays resident in the 50 MB
-// L2, so the atomics resolve in L2. Design: one thread per (dst row,
-// column); consecutive threads add to consecutive columns of one src row,
-// so a warp's atomics fall on one or two 128-byte lines. Sums accumulate
-// in f32 (bf16 atomics would lose the sum at hub rows); the wrapper casts
-// the f32 buffer to h_t's type once at the end.
+// A valid slot whose position lies outside the n rows (a position past the
+// frontier, which exists only after a cap overflow; a negative one counts as
+// outside too) is never dereferenced. Forward it makes the whole output row
+// NaN, as JAX's fill-mode take makes its row NaN; backward it is dropped, as
+// the transpose of that take drops it, but it still counts in the row's
+// denominator, since the forward's mean counted it.
+//
+// Bound: neither bytes nor float operations. At the main path h is 121,856
+// rows of 47 bf16 (11.5 MB) and dx's f32 staging buffer 23 MB: both live in
+// the 50 MB L2, and the ~200k valid slots each name one 94-byte row. What
+// the forward pays for is the operations a warp executes per slot (an index,
+// an address, one small load, the conversion and the add: a thread per
+// (row, column) spends them on 2 bytes and rereads the mask and position D
+// times), and what the backward pays for is the L2's rate of float adds,
+// about 0.5 T elements a second on this card whatever the width of the
+// atomic. Design, shared by both kernels:
+//
+//  * One warp per dst row. Lane j loads pos[r, j] and mask[r, j] once (in
+//    chunks of 32 slots for f > 32); __ballot_sync gives the row's valid
+//    slots and __popc its count, and no thread loops over a masked slot.
+//  * Forward, the valid in-range slots are compacted into a table in shared
+//    memory, one entry a slot: the byte offset of the first word to load,
+//    computed once by the slot's lane. The loop over the table then spends
+//    one broadcast read, one address add, one load, the unpacking and the
+//    adds on each slot, with 4 slot rows loaded before the first add.
+//  * Lanes cover a row's columns in words of W elements. W = 4 (8-byte bf16
+//    or 16-byte f32 loads, two words a lane for D > 128) where D, the row
+//    stride and the pointers are multiples of 4 elements (D = 172). Else
+//    W = 2: rows of an odd width start on an even element only every other
+//    row (D = 47 bf16: 94-byte rows), so a lane loads the aligned pair that
+//    holds its first element, one element early on an odd row, and takes its
+//    second element from the next lane's pair (one __shfl_down_sync and one
+//    funnel shift of the raw words). Every load is an aligned word that
+//    holds at least one element of the row, so none leaves the tensor's
+//    allocation, whatever the base pointer's alignment. The row stride
+//    ld >= D is an argument, so a caller may hand in padded rows.
+//  * Backward, the warp walks the set bits of the ballot, broadcasting each
+//    slot's position by __shfl_sync, and a lane adds its W columns of the
+//    scaled gradient row to the slot's src row with one vector reduction:
+//    sm_90 has a native 16-byte float add (atomicAdd(float4*),
+//    red.global.add.v4.f32). Where the result is not float32 the wrapper
+//    gives the f32 staging buffer a row stride that is a multiple of 4 floats
+//    (48 for D = 47), so a slot's row takes 12 vector atomics where a thread
+//    per (row, column) made 47 scalar ones; an 8-byte or a scalar add
+//    takes over where the stride or the pointer rules 16 bytes out (a
+//    float32 result is scattered straight into its own rows). The padding
+//    columns receive nothing. Sums accumulate in f32 (bf16 atomics would
+//    lose the sum at hub rows), in an order that changes from run to run.
+//  * narrow_rows_kernel then reads the staging buffer once and writes dx in
+//    the caller's type at the true width (one pass for the cast and the
+//    un-padding together).
+//
+// The zero fill of the staging buffer and this last pass move 23 + 35 MB at
+// the main path, about 0.017 ms at 3.35 TB/s: that is the floor of a staged
+// scatter, and the adds themselves take as long again. Only a gather-side
+// design (each src row summing its own edges, which needs the edges grouped
+// by src row) would reach the byte bound of one dx write.
 // ---------------------------------------------------------------------------
-template <typename Tg>
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = kThreads / kWarp;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Up to 32 slots of dst row r, one per lane, starting at slot j0.
+struct SlotChunk {
+  int32_t row;      // this lane's position
+  unsigned valid;   // lanes whose slot is unmasked
+  unsigned inside;  // valid lanes whose position is one of the n rows
+};
+
+__device__ __forceinline__ SlotChunk load_slots(
+    const int32_t* __restrict__ pos, const uint8_t* __restrict__ mask,
+    int64_t r, int f, int j0, int64_t n, int lane) {
+  const int j = j0 + lane;
+  SlotChunk s;
+  s.row = j < f ? pos[r * f + j] : -1;
+  const bool valid = j < f && mask[r * f + j];
+  s.valid = __ballot_sync(kFullMask, valid);
+  s.inside = __ballot_sync(kFullMask, valid && s.row >= 0 && s.row < n);
+  return s;
+}
+
+// One aligned word of W elements as it is loaded (Raw), and its W f32
+// values. W == 2 realigns: on a row that starts on an odd element the lane
+// loaded the pair one element early, (c - 1, c), so its columns (c, c + 1)
+// are the upper half of its own pair and the lower half of the next lane's.
+template <typename T, int W> struct Words;
+
+template <> struct Words<__nv_bfloat16, 2> {
+  using Raw = uint32_t;
+  static __device__ __forceinline__ Raw zero() { return 0u; }
+  static __device__ __forceinline__ void unpack(Raw w, int odd,
+                                                float (&v)[2]) {
+    const Raw next = __shfl_down_sync(kFullMask, w, 1);
+    const Raw pair = __funnelshift_r(w, next, odd << 4);
+    v[0] = __uint_as_float(pair << 16);
+    v[1] = __uint_as_float(pair & 0xffff0000u);
+  }
+};
+
+template <> struct Words<float, 2> {
+  using Raw = float2;
+  static __device__ __forceinline__ Raw zero() { return make_float2(0, 0); }
+  static __device__ __forceinline__ void unpack(Raw w, int odd,
+                                                float (&v)[2]) {
+    const float next = __shfl_down_sync(kFullMask, w.x, 1);
+    v[0] = odd ? w.y : w.x;
+    v[1] = odd ? next : w.y;
+  }
+};
+
+template <> struct Words<__nv_bfloat16, 4> {
+  using Raw = uint2;
+  static __device__ __forceinline__ Raw zero() { return make_uint2(0, 0); }
+  static __device__ __forceinline__ void unpack(Raw w, int, float (&v)[4]) {
+    v[0] = __uint_as_float(w.x << 16);
+    v[1] = __uint_as_float(w.x & 0xffff0000u);
+    v[2] = __uint_as_float(w.y << 16);
+    v[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+};
+
+template <> struct Words<float, 4> {
+  using Raw = float4;
+  static __device__ __forceinline__ Raw zero() {
+    return make_float4(0, 0, 0, 0);
+  }
+  static __device__ __forceinline__ void unpack(Raw w, int, float (&v)[4]) {
+    v[0] = w.x;
+    v[1] = w.y;
+    v[2] = w.z;
+    v[3] = w.w;
+  }
+};
+
+// W == 4: d, ld and both pointers are multiples of 4 elements, a lane owns
+// CH words 32 words apart and a pass covers 128 CH columns. W == 2: CH == 1,
+// lane 31 only feeds lane 30 its second element on odd rows and owns no
+// column, so a pass covers 62 columns.
+template <typename T, int W, int CH>
 __global__ void __launch_bounds__(kThreads)
-masked_agg_bwd_kernel(const Tg* __restrict__ g,
-                      const int32_t* __restrict__ pos,
-                      const uint8_t* __restrict__ mask,
-                      float* __restrict__ dx, int64_t n, int64_t p, int f,
-                      int d, int norm) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= p * d) return;
-  const int64_t r = t / d;
-  const int c = static_cast<int>(t - r * d);
-  const uint8_t* m = mask + r * f;
+gathered_agg_kernel(const T* __restrict__ h, const int32_t* __restrict__ pos,
+                    const uint8_t* __restrict__ mask, T* __restrict__ out,
+                    int64_t n, int64_t p, int f, int d, int64_t ld,
+                    int norm) {
+  using Raw = typename Words<T, W>::Raw;
+  constexpr int kInFlight = 4;        // slot rows loaded before the first add
+  constexpr int kOwners = W == 2 ? kWarp - 1 : kWarp;
+  constexpr int kChunkBytes = kWarp * W * static_cast<int>(sizeof(T));
+  // per warp, the valid in-range slots of the current chunk, compacted:
+  // the byte offset in h of the first word to load, its lowest bit set
+  // where the row starts on an odd element
+  __shared__ int64_t slot_table[kRowsPerBlock][kWarp];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + warp;
+  if (r >= p) return;                 // the whole warp leaves together
+  int64_t* table = slot_table[warp];
+  // h's first element counted in elements: the parity of a row's start
+  const int64_t h0 = static_cast<int64_t>(
+      reinterpret_cast<uintptr_t>(h) / sizeof(T));
   int cnt = 0;
-  for (int j = 0; j < f; ++j) cnt += m[j] ? 1 : 0;
+  bool filled = false;
+  // Fills the table from the chunk of slots at j0; returns its length.
+  auto fill_table = [&](int j0) {
+    const SlotChunk s = load_slots(pos, mask, r, f, j0, n, lane);
+    __syncwarp();                     // the table's readers are done
+    if ((s.inside >> lane) & 1u) {
+      const int64_t at = static_cast<int64_t>(s.row) * ld;
+      const int64_t odd = W == 2 ? (h0 + at) & 1 : 0;
+      table[__popc(s.inside & ((1u << lane) - 1u))] =
+          (at - odd) * static_cast<int64_t>(sizeof(T)) | odd;
+    }
+    __syncwarp();
+    cnt += __popc(s.valid);
+    filled = filled || s.valid != s.inside;
+    return __popc(s.inside);
+  };
+  const bool one_chunk = f <= kWarp;  // then the index data is read once
+  int rows = one_chunk ? fill_table(0) : 0;
+  for (int c0 = 0; c0 < d; c0 += kOwners * W * CH) {
+    const int c = c0 + lane * W;      // the lane's first column
+    const char* lane_base = reinterpret_cast<const char*>(h) +
+                            static_cast<int64_t>(c) * sizeof(T);
+    float acc[CH][W];
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[ch][i] = 0.0f;
+    if (!one_chunk) {
+      cnt = 0;
+      filled = false;
+    }
+    for (int j0 = 0; j0 < f; j0 += kWarp) {
+      if (!one_chunk) rows = fill_table(j0);
+      // every condition in this loop is the same across the warp
+      for (int k = 0; k < rows; k += kInFlight) {
+        Raw raw[kInFlight][CH];
+        int odd[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          odd[u] = 0;
+#pragma unroll
+          for (int ch = 0; ch < CH; ++ch) raw[u][ch] = Words<T, W>::zero();
+          if (k + u >= rows) continue;
+          const int64_t entry = table[k + u];
+          odd[u] = static_cast<int>(entry & 1);
+          const char* word = lane_base + (entry - odd[u]);
+#pragma unroll
+          for (int ch = 0; ch < CH; ++ch)
+            if (c + ch * kWarp * W - odd[u] < d)
+              raw[u][ch] = *reinterpret_cast<const Raw*>(
+                  word + ch * kChunkBytes);
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+#pragma unroll
+          for (int ch = 0; ch < CH; ++ch) {
+            float v[W];
+            Words<T, W>::unpack(raw[u][ch], odd[u], v);
+#pragma unroll
+            for (int i = 0; i < W; ++i) acc[ch][i] += v[i];
+          }
+      }
+    }
+    if (lane >= kOwners) continue;
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch) {
+      const int cc = c + ch * kWarp * W;
+      if (cc >= d) continue;
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        acc[ch][i] = filled ? nan_f32() : apply_norm(acc[ch][i], cnt, norm);
+      if (W == 4) {                    // d % 4 == 0 and out is aligned
+        store_vec<W>(out + r * d + cc, acc[ch]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i)
+          if (cc + i < d) out[r * d + cc + i] = from_f32<T>(acc[ch][i]);
+      }
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void add_vec(float* p, const float (&v)[W]);
+template <>
+__device__ __forceinline__ void add_vec<4>(float* p, const float (&v)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+template <>
+__device__ __forceinline__ void add_vec<2>(float* p, const float (&v)[2]) {
+  atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+}
+template <>
+__device__ __forceinline__ void add_vec<1>(float* p, const float (&v)[1]) {
+  atomicAdd(p, v[0]);
+}
+
+// dx: (n, ld) f32, zeroed by the caller, ld % W == 0 and dx aligned to W
+// floats; columns d .. ld - 1 are padding.
+template <typename Tg, int W>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(const Tg* __restrict__ g, const int32_t* __restrict__ pos,
+                    const uint8_t* __restrict__ mask, float* __restrict__ dx,
+                    int64_t n, int64_t p, int f, int d, int64_t ld,
+                    int norm) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / kWarp;
+  if (r >= p) return;
+  const SlotChunk first = load_slots(pos, mask, r, f, 0, n, lane);
+  int cnt = __popc(first.valid);
+  for (int j0 = kWarp; j0 < f; j0 += kWarp) {
+    const int j = j0 + lane;
+    cnt += __popc(__ballot_sync(kFullMask, j < f && mask[r * f + j]));
+  }
   if (cnt == 0) return;
-  const float s = apply_norm(to_f32(g[t]), cnt, norm);
-  for (int j = 0; j < f; ++j) {
-    if (!m[j]) continue;
-    const int64_t row = pos[r * f + j];
-    if (row < 0 || row >= n) continue;
-    atomicAdd(dx + row * d + c, s);
+  for (int c0 = 0; c0 < d; c0 += kWarp * W) {
+    const int c = c0 + lane * W;
+    float s[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      s[i] = c + i < d ? apply_norm(to_f32(g[r * d + c + i]), cnt, norm)
+                       : 0.0f;
+    for (int j0 = 0; j0 < f; j0 += kWarp) {
+      const SlotChunk ch =
+          j0 == 0 ? first : load_slots(pos, mask, r, f, j0, n, lane);
+      unsigned todo = ch.inside;
+      while (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int64_t row = __shfl_sync(kFullMask, ch.row, j);
+        if (c < d) add_vec<W>(dx + row * ld + c, s);
+      }
+    }
+  }
+}
+
+// out (n, d) contiguous in Tout <- the first d columns of in (n, ld) f32.
+// One thread per 4 consecutive output elements, stored as one word.
+template <typename Tout>
+__global__ void __launch_bounds__(kThreads)
+narrow_rows_kernel(const float* __restrict__ in, Tout* __restrict__ out,
+                   int64_t total, int d, int64_t ld) {
+  const int64_t i0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x) * 4;
+  if (i0 >= total) return;
+  int64_t row = i0 / d;
+  int col = static_cast<int>(i0 - row * d);
+  const int k = total - i0 < 4 ? static_cast<int>(total - i0) : 4;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = 0.0f;
+    if (i < k) {
+      v[i] = in[row * ld + col];
+      if (++col == d) {
+        col = 0;
+        ++row;
+      }
+    }
+  }
+  if (k == 4) {
+    store_vec<4>(out + i0, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < k) out[i0 + i] = from_f32<Tout>(v[i]);
   }
 }
 
@@ -341,41 +646,82 @@ inline bool aligned(const void* p, int bytes) {
 }
 
 template <typename Tin, typename Tout>
-void launch_agg(const void* x, const int32_t* pos, const uint8_t* mask,
-                void* out, int64_t n, int64_t p, int f, int d, int64_t offset,
-                int norm, cudaStream_t stream) {
+void launch_agg(const void* x, const uint8_t* mask, void* out, int64_t n,
+                int64_t p, int f, int d, int64_t offset, int norm,
+                cudaStream_t stream) {
   const Tin* xi = static_cast<const Tin*>(x);
   Tout* o = static_cast<Tout*>(out);
   const bool vec4 = d % 4 == 0 && aligned(x, 4 * sizeof(Tin)) &&
                     aligned(out, 4 * sizeof(Tout));
   if (vec4) {
     masked_agg_kernel<Tin, Tout, 4><<<blocks_for(p * (d / 4)), kThreads, 0,
-                                      stream>>>(xi, pos, mask, o, n, p, f,
-                                                d, offset, norm);
+                                      stream>>>(xi, mask, o, n, p, f, d,
+                                                offset, norm);
   } else {
     masked_agg_kernel<Tin, Tout, 1><<<blocks_for(p * d), kThreads, 0,
-                                      stream>>>(xi, pos, mask, o, n, p, f,
-                                                d, offset, norm);
+                                      stream>>>(xi, mask, o, n, p, f, d,
+                                                offset, norm);
   }
 }
 
-int agg_dispatch(const void* x, int x_dtype, const int32_t* pos,
-                 const uint8_t* mask, void* out, int out_dtype, int64_t n,
-                 int64_t p, int f, int d, int64_t offset, int norm,
-                 cudaStream_t stream) {
+inline unsigned warp_row_blocks(int64_t rows) {
+  return static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+template <typename T>
+void launch_gathered(const void* h, const int32_t* pos, const uint8_t* mask,
+                     void* out, int64_t n, int64_t p, int f, int d,
+                     int64_t ld, int norm, cudaStream_t stream) {
+  const T* hi = static_cast<const T*>(h);
+  T* o = static_cast<T*>(out);
+  const bool vec4 = d % 4 == 0 && ld % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
+                    aligned(out, 4 * sizeof(T));
+  const unsigned blocks = warp_row_blocks(p);
+  if (vec4 && d > 4 * kWarp) {
+    gathered_agg_kernel<T, 4, 2><<<blocks, kThreads, 0, stream>>>(
+        hi, pos, mask, o, n, p, f, d, ld, norm);
+  } else if (vec4) {
+    gathered_agg_kernel<T, 4, 1><<<blocks, kThreads, 0, stream>>>(
+        hi, pos, mask, o, n, p, f, d, ld, norm);
+  } else {
+    gathered_agg_kernel<T, 2, 1><<<blocks, kThreads, 0, stream>>>(
+        hi, pos, mask, o, n, p, f, d, ld, norm);
+  }
+}
+
+template <typename Tg>
+void launch_scatter(const void* g, const int32_t* pos, const uint8_t* mask,
+                    float* dx, int64_t n, int64_t p, int f, int d, int64_t ld,
+                    int norm, cudaStream_t stream) {
+  const Tg* gi = static_cast<const Tg*>(g);
+  const unsigned blocks = warp_row_blocks(p);
+  if (ld % 4 == 0 && aligned(dx, 16)) {
+    scatter_rows_kernel<Tg, 4><<<blocks, kThreads, 0, stream>>>(
+        gi, pos, mask, dx, n, p, f, d, ld, norm);
+  } else if (ld % 2 == 0 && aligned(dx, 8)) {
+    scatter_rows_kernel<Tg, 2><<<blocks, kThreads, 0, stream>>>(
+        gi, pos, mask, dx, n, p, f, d, ld, norm);
+  } else {
+    scatter_rows_kernel<Tg, 1><<<blocks, kThreads, 0, stream>>>(
+        gi, pos, mask, dx, n, p, f, d, ld, norm);
+  }
+}
+
+int agg_dispatch(const void* x, int x_dtype, const uint8_t* mask, void* out,
+                 int out_dtype, int64_t n, int64_t p, int f, int d,
+                 int64_t offset, int norm, cudaStream_t stream) {
   if (p * d == 0) return cudaSuccess;
   if (x_dtype == kF32 && out_dtype == kF32) {
-    launch_agg<float, float>(x, pos, mask, out, n, p, f, d, offset, norm,
-                             stream);
+    launch_agg<float, float>(x, mask, out, n, p, f, d, offset, norm, stream);
   } else if (x_dtype == kF32 && out_dtype == kBF16) {
-    launch_agg<float, __nv_bfloat16>(x, pos, mask, out, n, p, f, d, offset,
-                                     norm, stream);
+    launch_agg<float, __nv_bfloat16>(x, mask, out, n, p, f, d, offset, norm,
+                                     stream);
   } else if (x_dtype == kBF16 && out_dtype == kF32) {
-    launch_agg<__nv_bfloat16, float>(x, pos, mask, out, n, p, f, d, offset,
-                                     norm, stream);
+    launch_agg<__nv_bfloat16, float>(x, mask, out, n, p, f, d, offset, norm,
+                                     stream);
   } else if (x_dtype == kBF16 && out_dtype == kBF16) {
-    launch_agg<__nv_bfloat16, __nv_bfloat16>(x, pos, mask, out, n, p, f, d,
-                                             offset, norm, stream);
+    launch_agg<__nv_bfloat16, __nv_bfloat16>(x, mask, out, n, p, f, d, offset,
+                                             norm, stream);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -416,36 +762,70 @@ int legion_identity_masked_mean(const void* x, int x_dtype, const void* mask,
                                 void* out, int out_dtype, int64_t n, int64_t p,
                                 int f, int d, int64_t offset, int norm,
                                 void* stream) {
-  return agg_dispatch(x, x_dtype, nullptr,
-                      static_cast<const uint8_t*>(mask), out, out_dtype, n, p,
-                      f, d, offset, norm, static_cast<cudaStream_t>(stream));
+  return agg_dispatch(x, x_dtype, static_cast<const uint8_t*>(mask), out,
+                      out_dtype, n, p, f, d, offset, norm,
+                      static_cast<cudaStream_t>(stream));
 }
 
+// h: n rows of d elements, ld elements apart (ld >= d); out: (p, d)
+// contiguous in h's type.
 int legion_gathered_masked_mean(const void* h, int dtype, const void* pos,
                                 const void* mask, void* out, int64_t n,
-                                int64_t p, int f, int d, int norm,
+                                int64_t p, int f, int d, int64_t ld, int norm,
                                 void* stream) {
-  return agg_dispatch(h, dtype, static_cast<const int32_t*>(pos),
-                      static_cast<const uint8_t*>(mask), out, dtype, n, p, f,
-                      d, 0, norm, static_cast<cudaStream_t>(stream));
+  if (p * d == 0) return cudaSuccess;
+  if (ld < d) return cudaErrorInvalidValue;
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  const uint8_t* ms = static_cast<const uint8_t*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    launch_gathered<float>(h, ps, ms, out, n, p, f, d, ld, norm, s);
+  } else if (dtype == kBF16) {
+    launch_gathered<__nv_bfloat16>(h, ps, ms, out, n, p, f, d, ld, norm, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
+// dx: the zeroed (n, ld) f32 staging buffer, ld >= d; g: (p, d) contiguous.
 int legion_gathered_masked_mean_bwd(const void* g, int g_dtype,
                                     const void* pos, const void* mask,
                                     void* dx, int64_t n, int64_t p, int f,
-                                    int d, int norm, void* stream) {
+                                    int d, int64_t ld, int norm,
+                                    void* stream) {
   if (p * d == 0) return cudaSuccess;
+  if (ld < d) return cudaErrorInvalidValue;
   const int32_t* ps = static_cast<const int32_t*>(pos);
   const uint8_t* ms = static_cast<const uint8_t*>(mask);
   float* o = static_cast<float*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g_dtype == kF32) {
-    masked_agg_bwd_kernel<float><<<blocks_for(p * d), kThreads, 0, s>>>(
-        static_cast<const float*>(g), ps, ms, o, n, p, f, d, norm);
+    launch_scatter<float>(g, ps, ms, o, n, p, f, d, ld, norm, s);
   } else if (g_dtype == kBF16) {
-    masked_agg_bwd_kernel<__nv_bfloat16><<<blocks_for(p * d), kThreads, 0,
-                                           s>>>(
-        static_cast<const __nv_bfloat16*>(g), ps, ms, o, n, p, f, d, norm);
+    launch_scatter<__nv_bfloat16>(g, ps, ms, o, n, p, f, d, ld, norm, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// out (n, d) contiguous in out_dtype, 16-byte aligned <- the first d columns
+// of the (n, ld) f32 staging buffer.
+int legion_narrow_rows(const void* in, void* out, int out_dtype, int64_t n,
+                       int d, int64_t ld, void* stream) {
+  const int64_t total = n * d;
+  if (total == 0) return cudaSuccess;
+  if (ld < d || !aligned(out, 16)) return cudaErrorInvalidValue;
+  const float* src = static_cast<const float*>(in);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = blocks_for((total + 3) / 4);
+  if (out_dtype == kF32) {
+    narrow_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
+        src, static_cast<float*>(out), total, d, ld);
+  } else if (out_dtype == kBF16) {
+    narrow_rows_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        src, static_cast<__nv_bfloat16*>(out), total, d, ld);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -38,12 +38,15 @@ _SIGNATURES = {
     # x, x_dtype, mask, out, out_dtype, n, p, f, d, offset, norm, stream
     "legion_identity_masked_mean": (_P, _I, _P, _P, _I, _L, _L, _I, _I, _L,
                                     _I, _P),
-    # h, dtype, pos, mask, out, n, p, f, d, norm, stream
-    "legion_gathered_masked_mean": (_P, _I, _P, _P, _P, _L, _L, _I, _I, _I,
-                                    _P),
-    # g, g_dtype, pos, mask, dx (f32), n, p, f, d, norm, stream
+    # h, dtype, pos, mask, out, n, p, f, d, ld (h's row stride), norm, stream
+    "legion_gathered_masked_mean": (_P, _I, _P, _P, _P, _L, _L, _I, _I, _L,
+                                    _I, _P),
+    # g, g_dtype, pos, mask, dx (f32 staging), n, p, f, d, ld (dx's row
+    # stride), norm, stream
     "legion_gathered_masked_mean_bwd": (_P, _I, _P, _P, _P, _L, _L, _I, _I,
-                                        _I, _P),
+                                        _L, _I, _P),
+    # in (f32 staging), out, out_dtype, n, d, ld, stream
+    "legion_narrow_rows": (_P, _P, _I, _L, _I, _L, _P),
     # table, ids, out, m, n, row_bytes, stream
     "legion_gather_rows": (_P, _P, _P, _L, _L, _L, _P),
     # indptr, indices, frontier, u, out, p, f, stream

@@ -16,10 +16,11 @@ dst with no valid slot gives a zero row. K2 gathers with the fill
 semantics of JAX's ``jnp.take``: a valid slot whose position is past
 h_t's rows (after a cap overflow) makes its dst row NaN, and the
 backward drops it. The kernels live in
-``csrc/legion_kernels.cu`` (``masked_agg_kernel``,
-``masked_agg_bwd_kernel``), with their source notes. A CPU tensor takes
-the plain PyTorch version beside each kernel; a CUDA tensor takes the
-kernel or raises.
+``csrc/legion_kernels.cu`` (K1 ``masked_agg_kernel``; K2
+``gathered_agg_kernel``, ``scatter_rows_kernel`` and
+``narrow_rows_kernel``, one warp per dst row), with their source notes.
+A CPU tensor takes the plain PyTorch version beside each kernel; a CUDA
+tensor takes the kernel or raises.
 """
 
 from __future__ import annotations
@@ -150,13 +151,74 @@ def gathered_masked_mean_backward_plain(g, nbr_pos, nbr_mask, num_src,
     return d.to(out_dtype or g.dtype)
 
 
+def staging_width(d: int, out_dtype: torch.dtype) -> int:
+    """Row stride, in floats, of K2 backward's f32 staging buffer. A
+    float32 result is scattered straight into its own rows (stride d,
+    with the widest atomics d allows, and no cast pass). For any other
+    type d is rounded up to a multiple of 4, so that every row starts
+    16-byte aligned and takes the kernel's 16-byte vector atomics; the
+    cast pass drops the padding."""
+    return d if out_dtype == torch.float32 else -(-d // 4) * 4
+
+
+def scatter_masked_rows(g: torch.Tensor, nbr_pos: torch.Tensor,
+                        nbr_mask: torch.Tensor, staging: torch.Tensor,
+                        norm: str = "mean") -> None:
+    """K2 backward's scatter kernel: adds ``m[d, j] * scale[d]`` into row
+    ``nbr_pos[d, j]`` of ``staging``, a (num_src, ld >= D) f32 buffer that
+    the caller has zeroed; its columns from D on are padding and receive
+    nothing. 16-byte atomics where ld is a multiple of 4 floats and the
+    buffer 16-byte aligned, else 8-byte or scalar ones."""
+    _build.require_cuda(g, nbr_pos, nbr_mask, staging)
+    if (staging.dtype != torch.float32 or staging.dim() != 2
+            or staging.shape[1] < g.shape[1]):
+        raise ValueError("staging must be (num_src, >= D) float32")
+    p, f = nbr_mask.shape
+    if g.numel() == 0 or staging.numel() == 0:
+        return
+    lib = _build.load_library()
+    _build.check(lib.legion_gathered_masked_mean_bwd(
+        g.data_ptr(), _build.DTYPE_CODES[g.dtype], nbr_pos.data_ptr(),
+        nbr_mask.view(torch.uint8).data_ptr(), staging.data_ptr(),
+        staging.shape[0], p, f, g.shape[1], staging.shape[1],
+        _build.NORM_CODES[norm], _build.stream_of(g)),
+        "gathered_masked_mean_backward")
+    gathered_masked_mean_backward.launches += 1
+
+
+def narrow_rows(staging: torch.Tensor, d: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The first d columns of the (num_src, ld) f32 staging buffer as a
+    contiguous (num_src, d) tensor in out_dtype: one kernel pass for the
+    cast and the un-padding. A float32 result at ld == d is the buffer
+    itself."""
+    if out_dtype == torch.float32 and staging.shape[1] == d:
+        return staging
+    _build.require_cuda(staging)
+    out = torch.empty((staging.shape[0], d), dtype=out_dtype,
+                      device=staging.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    _build.check(lib.legion_narrow_rows(
+        staging.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[out_dtype],
+        staging.shape[0], d, staging.shape[1], _build.stream_of(staging)),
+        "narrow_rows")
+    return out
+
+
 def gathered_masked_mean_backward(g: torch.Tensor, nbr_pos: torch.Tensor,
                                   nbr_mask: torch.Tensor, num_src: int,
                                   norm: str = "mean",
                                   out_dtype: torch.dtype | None = None
                                   ) -> torch.Tensor:
     """K2 backward: (P, D) upstream gradient -> (num_src, D) gradient of
-    h_t, accumulated by f32 atomics and cast to out_dtype (default g's)."""
+    h_t in out_dtype (default g's). On the card it is three passes: the
+    zero fill of an f32 staging buffer with padded rows
+    (``staging_width``), the scatter kernel's vector atomics into it
+    (``scatter_masked_rows``), and one kernel that casts and un-pads
+    (``narrow_rows``); a float32 result is the staging buffer itself, at
+    the true width, and takes no third pass."""
     out_dtype = out_dtype or g.dtype
     _check_args(g, nbr_mask, norm, out_dtype)
     if nbr_pos.shape != nbr_mask.shape or nbr_pos.dtype != torch.int32:
@@ -164,36 +226,36 @@ def gathered_masked_mean_backward(g: torch.Tensor, nbr_pos: torch.Tensor,
     if g.device.type == "cpu":
         return gathered_masked_mean_backward_plain(g, nbr_pos, nbr_mask,
                                                    num_src, norm, out_dtype)
-    _build.require_cuda(g, nbr_pos, nbr_mask)
-    p, f = nbr_mask.shape
-    d = torch.zeros((num_src, g.shape[1]), dtype=torch.float32,
-                    device=g.device)
-    if g.numel() == 0:
-        return d.to(out_dtype)
-    lib = _build.load_library()
-    _build.check(lib.legion_gathered_masked_mean_bwd(
-        g.data_ptr(), _build.DTYPE_CODES[g.dtype], nbr_pos.data_ptr(),
-        nbr_mask.view(torch.uint8).data_ptr(), d.data_ptr(), num_src, p, f,
-        g.shape[1], _build.NORM_CODES[norm], _build.stream_of(g)),
-        "gathered_masked_mean_backward")
-    gathered_masked_mean_backward.launches += 1
-    return d.to(out_dtype)
+    d = g.shape[1]
+    staging = torch.zeros((num_src, staging_width(d, out_dtype)),
+                          dtype=torch.float32, device=g.device)
+    scatter_masked_rows(g, nbr_pos, nbr_mask, staging, norm)
+    return narrow_rows(staging, d, out_dtype)
 
 
 gathered_masked_mean_backward.launches = 0
 
 
 def _gathered_forward_cuda(h_t, nbr_pos, nbr_mask, norm):
-    _build.require_cuda(h_t, nbr_pos, nbr_mask)
+    _build.require_cuda(nbr_pos, nbr_mask)
     p, f = nbr_mask.shape
-    out = torch.empty((p, h_t.shape[1]), dtype=h_t.dtype, device=h_t.device)
+    d = h_t.shape[1]
+    # rows may lie apart (a column slice of a wider buffer); within a row
+    # the elements follow each other
+    if (h_t.device != nbr_pos.device or (d > 1 and h_t.stride(1) != 1)
+            or (h_t.shape[0] > 1 and h_t.stride(0) < d)):
+        raise ValueError("h_t must lie on nbr_pos's device with unit column "
+                         "stride and a row stride >= its width; got strides "
+                         f"{h_t.stride()} on {h_t.device}")
+    out = torch.empty((p, d), dtype=h_t.dtype, device=h_t.device)
     if out.numel() == 0:
         return out
+    ld = h_t.stride(0) if h_t.shape[0] > 1 else d
     lib = _build.load_library()
     _build.check(lib.legion_gathered_masked_mean(
         h_t.data_ptr(), _build.DTYPE_CODES[h_t.dtype], nbr_pos.data_ptr(),
         nbr_mask.view(torch.uint8).data_ptr(), out.data_ptr(), h_t.shape[0],
-        p, f, h_t.shape[1], _build.NORM_CODES[norm], _build.stream_of(h_t)),
+        p, f, d, ld, _build.NORM_CODES[norm], _build.stream_of(h_t)),
         "gathered_masked_mean")
     gathered_masked_mean.launches += 1
     return out
@@ -220,7 +282,8 @@ def gathered_masked_mean(h_t: torch.Tensor, nbr_pos: torch.Tensor,
                          nbr_mask: torch.Tensor,
                          norm: str = "mean") -> torch.Tensor:
     """out[d] = norm-reduce over valid slots j of h_t[nbr_pos[d, j]];
-    h_t: (S, D) f32 or bf16 at its true width D; nbr_pos: (P, f) int32;
+    h_t: (S, D) f32 or bf16 at its true width D (on the card its rows may
+    lie apart: a column slice of a wider buffer); nbr_pos: (P, f) int32;
     nbr_mask: (P, f) bool. out: (P, D) in h_t's dtype, summed in f32.
     Differentiable in h_t."""
     _check_args(h_t, nbr_mask, norm)

@@ -37,6 +37,7 @@ import legion_tpu_torch.train.loop
 import legion_tpu_torch.config
 import legion_tpu_torch.data.synthetic
 import legion_tpu_torch.tools.ab_trainer
+import legion_tpu_torch.tools.k2_bench
 import legion_tpu_torch.tools.pa_cell
 import legion_tpu_torch.tools.profile_cached
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
