@@ -6,11 +6,11 @@ Run from the repository root, on a machine with one card:
     python3 chip_smoke.py
 
 It imports only torch and legion_tpu_torch. It builds the port's CUDA
-kernels from csrc/ with nvcc, then runs these phases, printing one JSON
-line for each but the set-up; any failure raises and the script exits
-non-zero:
+kernels from csrc/ with nvcc and its host runtime (csrc/gnnio.cpp) with
+g++, then runs these phases, printing one JSON line for each but the
+set-up; any failure raises and the script exits non-zero:
 
-1. toolchain: torch and CUDA versions, the card, nvcc, the kernel build;
+1. toolchain: torch and CUDA versions, the card, nvcc, both builds;
 2. set-up: the full-size products-scale synthetic graph and a
    ``Trainer`` with bench.py's configuration (SAGE-256, bf16, fanout
    [25,10], batch 8000), which probes its frontier caps;
@@ -53,6 +53,11 @@ non-zero:
    (a ``Trainer`` saves after one epoch, a fresh one on the directory
    resumes at epoch 1 with equal parameters and generator state, and
    its next epoch's losses match the first trainer's own next epoch);
+   and the hybrid driver (``"hybrid_learn"``: host CSR, hot sub-CSR on
+   the card, a budget of a quarter of the feature rows plus a quarter of
+   the adjacency bytes for the cost model to split, SAGE-256 float32, 2
+   epochs) must reach > 0.15 with both caches fed and both sampling legs
+   used;
 6. cached path at papers100M class (``legion_tpu_torch.tools.pa_cell``):
    ``run_cached_training`` with tools/smoke_pa_scale.py's configuration
    (SAGE-256 bf16, fanout [25,10], batch 8000, host-resident features, 6
@@ -67,7 +72,24 @@ non-zero:
    and K3 must have launched, the sampling kernel must be bitwise its
    plain version on the path's hop-1 and hop-2 inputs, and K2 forward and
    backward must agree with their plain versions, for every norm, on that
-   batch's layer-1 block at the path's width (172 columns, bf16).
+   batch's layer-1 block at the path's width (172 columns, bf16);
+7. the two dedups (``"dedup"``): ``grow_frontier`` (stable sort and a
+   ``cummax`` scan) against ``grow_frontier_scatter`` (position map; the
+   O(N) scratch fill it does every hop counted) on the same tensors: hop
+   1 of the main-path batch and both hops of a cached-path batch. Both
+   must give the same frontier as a set and blocks that decode to the
+   sampled neighbor ids, and the scatter dedup the same numbering twice;
+8. the host-topology path at uk-union class (``"hybrid_path"``;
+   ``legion_tpu_torch.tools.hybrid_cell``): ``run_hybrid_training`` with
+   tools/smoke_uk_scale.py's configuration on phase 6's graph, whose CSR
+   stays in host memory (an mmap): host presample, the cost model
+   splitting 273 MiB between the feature cache and the hot sub-CSR, two
+   epochs of 10 steps with eval. Finite losses, both caches fed, hit and
+   hot fractions inside (0, 1), exactly 2 reads a step plus one an epoch,
+   no cap overflow, ids >= 2^24 in a sampled frontier, and exact launch
+   counts: the sampling kernel twice a step plus once an epoch (on the
+   sub-CSR), K2 forward once a step, backward once a train step, K3
+   twice a step, K1 and K5 never.
 
 Then it prints the card's name and power limit as nvidia-smi reports
 them, a JSON line with every kernel's numbers, and, last,
@@ -189,6 +211,7 @@ def toolchain():
     nvidia-smi line (name, power limit)."""
     import torch
 
+    from legion_tpu_torch import runtime
     from legion_tpu_torch.ops import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -200,12 +223,17 @@ def toolchain():
     prebuilt = _build.library_path().exists()
     t0 = time.perf_counter()
     _build.load_library()
+    kernel_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runtime.load_library()
     emit({"phase": "toolchain", "torch": torch.__version__,
           "torch_cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "nvcc": nvcc, "kernel_build_s": time.perf_counter() - t0,
+          "nvcc": nvcc, "kernel_build_s": kernel_build_s,
+          "host_runtime_build_s": time.perf_counter() - t0,
+          "host_runtime_threads": runtime.max_threads(),
           "library_was_prebuilt": prebuilt})
     return smi
 
@@ -259,6 +287,33 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
                     "plain_ms": time_ms(
                         lambda: sample_neighbors_plain(*args))})
     return out
+
+
+def check_gather_rows(table, ids):
+    """K3 bitwise against its plain version on (table, ids), both timed,
+    beside ``torch.index_select`` (which zeroes no -1 row, so it is timed
+    on the clamped ids). Returns (the kernel's rows, the record)."""
+    import torch
+
+    from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
+    k, p = gather_rows(table, ids), gather_rows_plain(table, ids)
+    require(torch.equal(k, p), f"gather_rows at {[*table.shape]} by "
+            f"{ids.shape[0]} ids is bitwise its plain version")
+    # each distinct valid row read once (ids may repeat), every output
+    # row written once
+    row_bytes = table.shape[1] * table.element_size()
+    distinct = int(torch.unique(ids[ids >= 0]).numel())
+    idx = ids.clamp(min=0).long()
+    return k, {"shape": [*table.shape, ids.shape[0]],
+               "dtype": str(table.dtype).split(".")[-1],
+               "valid_ids": int((ids >= 0).sum()),
+               **bound(4 * ids.numel() + (distinct + ids.numel()) * row_bytes,
+                       0),
+               "max_abs_err": float((k.float() - p.float()).abs().max()),
+               "ms": time_ms(lambda: gather_rows(table, ids)),
+               "plain_ms": time_ms(lambda: gather_rows_plain(table, ids)),
+               "library_ms": time_ms(
+                   lambda: torch.index_select(table, 0, idx))}
 
 
 def hop_frontiers(batch, caps):
@@ -715,7 +770,7 @@ def checkpoint_resume(data):
             "resumed_last_loss": got[-1], "uninterrupted_last_loss": want[-1]}
 
 
-def cached_path(kernels, results):
+def cached_path(kernels, results, dedups):
     """Phase 6: the cached host-feature path at papers100M class."""
     import torch
 
@@ -787,6 +842,9 @@ def cached_path(kernels, results):
     results["gathered_masked_mean"]["shapes"]["cached_pa_bf16"] = fwd
     results["gathered_masked_mean_backward"]["shapes"]["cached_pa_bf16"] = bwd
     del h_t, gd
+    dedups += dedup_cases("cached", graph, hop_frontiers(batch, caps),
+                          [batch.num_seeds, batch.blocks[0].num_src],
+                          cfg.sampler.fanouts, caps, seed=8)
     emit({"phase": "cached_path",
           "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
                     "features": data.feature_dim,
@@ -812,6 +870,319 @@ def cached_path(kernels, results):
                                                 "backward": bwd},
           "peak_mem_gb": peak,
           "cost_model": cost})
+    return launches
+
+
+def dedup_case(name, num_nodes, frontier_prev, num_prev, nbrs, cap_new):
+    """One hop's dedup both ways on the same tensors: ``grow_frontier``
+    (stable sort, ``cummax`` scan) and ``grow_frontier_scatter`` (position
+    map). The scatter call is timed as a batch makes it: a new stamp
+    value, the previous frontier entered into the map, then the hop with
+    its O(N) scratch fill; entering the frontier and the fill are also
+    timed alone. Both must number the same set of ids, decode every valid
+    slot to the neighbor id sampled there, and the scatter dedup must
+    give the same numbering twice (its winner election is a min, so the
+    atomics' order cannot show)."""
+    import torch
+
+    from legion_tpu_torch.sampling.sampler import (grow_frontier,
+                                                   grow_frontier_scatter,
+                                                   stamp_frontier)
+    dev = nbrs.device
+    pos_map = torch.zeros(num_nodes, dtype=torch.int32, device=dev)
+    stamp = torch.zeros(num_nodes, dtype=torch.int32, device=dev)
+    stamp_val = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def scatter():
+        stamp_val.add_(1)
+        stamp_frontier(frontier_prev, pos_map, stamp, stamp_val)
+        return grow_frontier_scatter(frontier_prev, num_prev, nbrs, cap_new,
+                                     pos_map, stamp, stamp_val)[:3]
+
+    def enter_only():
+        stamp_val.add_(1)
+        stamp_frontier(frontier_prev, pos_map, stamp, stamp_val)
+
+    mask = nbrs >= 0
+    # neither dedup may make the host wait for the device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fs, ns, bs = grow_frontier(frontier_prev, num_prev, nbrs, cap_new)
+        fc, nc, bc = scatter()
+        fc2, _, bc2 = scatter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(int(ns) == int(nc) and int(ns) <= cap_new,
+            f"dedup {name}: both count {int(ns)} ids within the cap")
+    require(torch.equal(torch.sort(fs).values, torch.sort(fc).values),
+            f"dedup {name}: the same frontier as a set")
+    for what, f, b in (("sort", fs, bs), ("scatter", fc, bc)):
+        require(torch.equal(f[b.nbr_pos.long()][mask], nbrs[mask]),
+                f"dedup {name}: the {what} block decodes to the sampled ids")
+    require(torch.equal(fc, fc2) and torch.equal(bc.nbr_pos, bc2.nbr_pos),
+            f"dedup {name}: the scatter dedup numbers alike twice")
+    del fs, bs, fc, bc, fc2, bc2
+    return {"case": name, "num_nodes": num_nodes,
+            "shape": [*nbrs.shape], "prev_cap": frontier_prev.shape[0],
+            "cap_new": cap_new, "valid_slots": int(mask.sum()),
+            "num_prev": int(num_prev), "num_new": int(ns),
+            "sort_ms": time_ms(lambda: grow_frontier(
+                frontier_prev, num_prev, nbrs, cap_new)),
+            "scatter_ms": time_ms(scatter),
+            "scatter_enter_prev_ms": time_ms(enter_only),
+            "scatter_fill_ms": time_ms(lambda: torch.full(
+                (num_nodes + 1,), 2 ** 31 - 1, dtype=torch.int32,
+                device=dev))}
+
+
+def dedup_cases(prefix, graph, frontiers, nums, fanouts, caps, seed):
+    """``dedup_case`` for each hop of a batch: the hop's frontier and valid
+    count as the sort dedup left them, and neighbors sampled from it."""
+    import torch
+
+    from legion_tpu_torch.sampling.sampler import sample_neighbors
+    gen = torch.Generator(device=graph.indptr.device).manual_seed(seed)
+    out = []
+    for k, (fr, num) in enumerate(zip(frontiers, nums)):
+        u = torch.rand((fr.shape[0], fanouts[k]), generator=gen,
+                       device=fr.device, dtype=torch.float32)
+        out.append(dedup_case(f"{prefix}_hop{k + 1}", graph.num_nodes, fr,
+                              num, sample_neighbors(graph, fr, u),
+                              caps[k + 1]))
+    return out
+
+
+def hybrid_learns(data):
+    """The hybrid driver (host CSR, hot sub-CSR on the card, host features)
+    on the planted-label graph: SAGE-256 float32, batch 1024, 2 epochs, a
+    budget of a quarter of the feature rows plus a quarter of the
+    adjacency, which the cost model splits."""
+    from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
+                                         ModelConfig, SamplerConfig,
+                                         TrainConfig)
+    from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
+    budget = (data.num_nodes // 4 * (data.feature_dim * 4 + 8)
+              + data.num_edges)                     # 4 B an edge, a quarter
+    cfg = Config(dataset=DatasetConfig(num_classes=CLASSES,
+                                       feature_placement="host",
+                                       topology_placement="host"),
+                 sampler=SamplerConfig(fanouts=(25, 10), batch_size=1024,
+                                       dedup_last=True),
+                 model=ModelConfig(arch="sage", hidden_dim=256,
+                                   num_layers=2),
+                 train=TrainConfig(epochs=2),
+                 cache=CacheConfig(enabled=True, budget_bytes=budget))
+    res = run_hybrid_training(cfg, data, "cuda", log=stderr_log)
+    hist, cost = res["history"], res["cost"]
+    h = hist[-1]
+    require(h["valid"] > 0.15, f"hybrid validation accuracy {h['valid']} "
+            "> 0.15")
+    require(0.0 < cost.alpha < 1.0 and cost.feat_capacity > 0
+            and cost.topo_capacity > 0, "the cost model feeds both caches")
+    for r in hist:
+        require(0.0 < r["topo_hot_fraction"] < 1.0
+                and 0.0 < r["feat_hit_rate"] < 1.0,
+                "hot fraction and hit rate inside (0, 1)")
+        require(r["fetches"] == 2 * r["steps"] + 1,
+                "two reads a step plus one an epoch")
+    return {"budget_bytes": budget, "alpha": cost.alpha,
+            "feat_capacity": cost.feat_capacity,
+            "topo_capacity": cost.topo_capacity,
+            "valid_acc": [r["valid"] for r in hist],
+            "test_acc": res["test_acc"],
+            "mean_loss": [sum(r["losses"]) / len(r["losses"]) for r in hist],
+            "feat_hit_rate": [r["feat_hit_rate"] for r in hist],
+            "topo_hot_fraction": [r["topo_hot_fraction"] for r in hist],
+            "staging_overflow": [r["staging_overflow"] for r in hist],
+            "caps": h["caps"], "miss_cap": h["miss_cap"]}
+
+
+def hybrid_path(kernels, results):
+    """Phase 8: the host-topology path at uk-union class. Returns the
+    launch counts of the driver's whole run. After the run every kernel
+    of the path is held against its plain version on one more batch's
+    tensors: the sampling kernel on the sub-CSR with each hop's
+    ``where(hit, row, -1)`` frontier, K2 on the layer-1 block, K3 on the
+    cache merge's two gathers."""
+    import collections
+
+    import torch
+
+    from legion_tpu_torch.tools import hybrid_cell, pa_cell
+    from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
+    lines = []
+
+    def log(s):
+        lines.append(s)
+        print(s, file=sys.stderr, flush=True)
+
+    data, gen_s, load_s = hybrid_cell.dataset(REPO, log)
+    cfg = hybrid_cell.config(epochs=2)
+    hops = len(cfg.sampler.fanouts)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = run_hybrid_training(cfg, data, "cuda", log=log)
+    run_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist, cost, tr = res["history"], res["cost"], res["trainer"]
+    require(len(hist) == 2, "two epochs")
+    require(0.0 < cost.alpha < 1.0 and cost.feat_capacity > 0
+            and cost.topo_capacity > 0,
+            f"the cost model feeds both caches (alpha {cost.alpha}, "
+            f"{cost.feat_capacity} feature rows, {cost.topo_capacity} "
+            "adjacency rows)")
+    for h in hist:
+        e = h["epoch"]
+        require(h["steps"] == pa_cell.STEPS,
+                f"{pa_cell.STEPS} training steps in epoch {e}")
+        require(all(math.isfinite(v) for v in h["losses"]),
+                f"finite losses in epoch {e}")
+        require(0.0 < h["topo_hot_fraction"] < 1.0,
+                f"hot fraction inside (0, 1) in epoch {e}")
+        require(0.0 < h["feat_hit_rate"] < 1.0,
+                f"hit rate inside (0, 1) in epoch {e}")
+        require(h["fetches"] == hops * h["steps"] + 1,
+                f"{hops} reads a step plus one in epoch {e}, got "
+                f"{h['fetches']}")
+        require(h["cap_overflow"] == 0, f"no cap overflow in epoch {e}")
+        require(h["host_topo_gb"] > 0 and h["host_feat_gb"] > 0,
+                f"both host legs moved bytes in epoch {e}")
+    # Exact launch counts. Training: hops sampling launches a step (hops
+    # 1.. of this batch, hop 0 of the next) plus the epoch's prologue, K2
+    # forward and backward once a step, K3 for the cached and for the
+    # staged rows. The three eval passes (valid after each epoch, test)
+    # take 2 steps of 8000 seeds each and launch no backward.
+    train_steps = sum(h["steps"] for h in hist)
+    eval_steps = [(len(ids) - 1) // pa_cell.BATCH + 1 for ids in (
+        data.valid_ids, data.valid_ids, data.test_ids)]
+    steps = train_steps + sum(eval_steps)
+    want = {"sample_neighbors": hops * steps + len(hist) + len(eval_steps),
+            "gathered_masked_mean": steps,
+            "gathered_masked_mean_backward": train_steps,
+            "gather_rows": 2 * steps,
+            "identity_masked_mean": 0, "grouped_masked_sum": 0}
+    for name, n in want.items():
+        require(launches[name] == n,
+                f"the hybrid path launched {name} {n} times in "
+                f"{train_steps} train and {sum(eval_steps)} eval steps, "
+                f"got {launches[name]}")
+    # one more batch through the per-hop sampler: ids past 2^24
+    dev = torch.device("cuda")
+    seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
+    batch = res["sampler"].sample_batch(
+        seeds, pa_cell.BATCH, torch.zeros_like(seeds),
+        generator=torch.Generator(device=dev).manual_seed(3))
+    big = int((batch.frontier >= 1 << 24).sum())
+    require(big > 0, "the sampled frontier holds ids >= 2^24")
+    h = hist[-1]
+    caps, topo, fcache = tuple(h["caps"]), tr.topo, tr.fcache
+    # the sampling kernel as ``TopoCache.sample_hot`` launches it: the
+    # sub-CSR, and each hop's frontier as sub-rows with -1 for a miss
+    sub_frontiers, hot_share = [], []
+    for fr in hop_frontiers(batch, caps):
+        hit, row = topo.lookup(fr)
+        sub_frontiers.append(torch.where(hit, row, -1))
+        hot_share.append(int(hit.sum()) / max(int((fr >= 0).sum()), 1))
+    require(all(0.0 < x < 1.0 for x in hot_share),
+            f"each hop's frontier holds hot and cold ids ({hot_share})")
+    SubCsr = collections.namedtuple("SubCsr", "indptr indices")
+    sub_hops = check_sampling_kernel(
+        SubCsr(topo.sub_indptr, topo.sub_indices), sub_frontiers,
+        cfg.sampler.fanouts, seed=9)
+    for rec, share in zip(sub_hops, hot_share):
+        rec["hot_share"] = share
+    results["sample_neighbors"]["hybrid_path_hops"] = sub_hops
+    # K2 on that batch's layer-1 block at the path's width (172 classes,
+    # bf16): transformed activations and an upstream gradient from a seed
+    blk1 = batch.blocks[0]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    h_t = torch.randn((caps[1], pa_cell.CLASSES), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    gd = torch.randn((blk1.nbr_mask.shape[0], pa_cell.CLASSES), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    k2_fwd, k2_bwd = check_k2(h_t, blk1.nbr_pos, blk1.nbr_mask, gd, "mean")
+    results["gathered_masked_mean"]["shapes"]["hybrid_uk_bf16"] = k2_fwd
+    results["gathered_masked_mean_backward"]["shapes"]["hybrid_uk_bf16"] = (
+        k2_bwd)
+    del h_t, gd
+    # K3 on the cache merge's inputs (``FeatureCache.combine_rows``): the
+    # cached rows by slot and the staged miss rows by miss rank, -1 for
+    # the rest; the merged matrix then equals the host rows, with zeros
+    # for padding and for the misses past the staging capacity
+    plan = fcache.plan(batch.frontier)
+    n_miss = min(int(plan.num_miss), fcache.miss_cap)
+    staged = fcache.stage_to(dev, plan.miss_ids[:n_miss].cpu().numpy())
+    staged[n_miss:] = 0                 # rows no plan reads; set for the timing
+    miss = (batch.frontier >= 0) & ~plan.hit
+    k3_cached, rec_cached = check_gather_rows(
+        fcache.rows, torch.where(plan.hit, plan.slot, -1))
+    k3_missed, rec_staged = check_gather_rows(
+        staged, torch.where(miss & (plan.miss_idx < staged.shape[0]),
+                            plan.miss_idx, -1))
+    merged = fcache.combine(plan, staged, batch.frontier)
+    require(torch.equal(merged, torch.where(plan.hit[:, None], k3_cached,
+                                            k3_missed)),
+            "the cache merge is the two gathers joined by the hit mask")
+    seen = plan.hit | (miss & (plan.miss_idx < fcache.miss_cap))
+    want = torch.zeros_like(merged)
+    want[seen] = fcache.stage(
+        batch.frontier[seen].cpu().numpy()).to(dev)
+    require(torch.equal(merged, want),
+            "the merged rows are the host's feature rows")
+    results["gather_rows"]["hybrid_merge"] = {"cached": rec_cached,
+                                              "staged": rec_staged}
+    del merged, want, k3_cached, k3_missed, staged
+    emit({"phase": "hybrid_path",
+          "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
+                    "features": data.feature_dim,
+                    "num_nodes_cut": f"{pa_cell.NODES} of "
+                                     f"{hybrid_cell.FULL_NODES}",
+                    "gen_s": gen_s, "load_s": load_s},
+          "budget_bytes": hybrid_cell.BUDGET, "driver_log": lines,
+          "run_s": run_s, "presample_s": h["presample_s"],
+          "cost_model": {"alpha": cost.alpha,
+                         "feat_capacity": cost.feat_capacity,
+                         "topo_capacity": cost.topo_capacity,
+                         "saved_feat_bytes": cost.saved_feat_bytes,
+                         "saved_topo_bytes": cost.saved_topo_bytes},
+          "sub_csr_bytes": tr.topo.device_bytes(),
+          "sub_csr_edges": int(tr.topo.sub_indptr[-1]),
+          "feature_cache_bytes": tr.fcache.rows.numel()
+          * tr.fcache.rows.element_size(),
+          "caps": h["caps"], "miss_cap": h["miss_cap"],
+          # epoch 0 carries the warm-up; epoch 1 is the steady state
+          "epochs": [{"epoch": r["epoch"], "losses": r["losses"],
+                      "ms_per_step": 1e3 * r["seconds"] / r["steps"],
+                      "edges_per_s": r["edges_per_s"],
+                      "feat_hit_rate": r["feat_hit_rate"],
+                      "topo_hot_fraction": r["topo_hot_fraction"],
+                      "host_feat_gb": r["host_feat_gb"],
+                      "host_topo_gb": r["host_topo_gb"],
+                      "host_topo_copied_gb": r["host_topo_copied_gb"],
+                      "fetches": r["fetches"],
+                      "staging_overflow": r["staging_overflow"],
+                      "cap_overflow": r["cap_overflow"],
+                      "stage_s": r["stage_s"],
+                      "host_sample_s": r["host_sample_s"],
+                      "fetch_s": r["fetch_s"], "valid_acc": r["valid"]}
+                     for r in hist],
+          "steady_ms_per_step": 1e3 * h["seconds"] / h["steps"],
+          "steady_edges_per_s": h["edges_per_s"],
+          "test_acc": res["test_acc"], "launches": launches,
+          "frontier_ids_past_2_24": big,
+          "num_frontier": int(batch.num_frontier),
+          "sampler_hot_fraction": res["sampler"].hot_fraction(),
+          "kernel_checks": {
+              "sample_neighbors_hops": sub_hops,
+              "k2": {"forward": k2_fwd, "backward": k2_bwd},
+              "gather_rows": {"cached": rec_cached, "staged": rec_staged,
+                              "staged_rows": n_miss,
+                              "overflowed": int(plan.overflow())}},
+          "peak_mem_gb": peak, "mem_before_gb": mem0 / 2 ** 30})
+    return launches
 
 
 def main():
@@ -826,7 +1197,6 @@ def main():
                                          TrainConfig)
     from legion_tpu_torch.data.synthetic import (bench_graph,
                                                  random_power_law_graph)
-    from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
     from legion_tpu_torch.ops.identity_agg import (
         gathered_masked_mean_plain, identity_masked_mean,
         identity_masked_mean_plain)
@@ -885,21 +1255,9 @@ def main():
     blk0, blk1 = reversed(batch.blocks)        # model order
     require(blk0.identity_offset is not None, "layer 0's block is identity")
     table, ids = tr.features, batch.frontier
-    k3 = gather_rows(table, ids)
-    p3 = gather_rows_plain(table, ids)
-    require(torch.equal(k3, p3), "gather_rows is bitwise its plain version")
-    # each distinct valid row read once (the identity-appended frontier
-    # repeats ids), every output row written once
-    row_bytes = table.shape[1] * table.element_size()
-    distinct = int(torch.unique(ids[ids >= 0]).numel())
-    idx = ids.clamp(min=0).long()       # index_select zeroes no -1 row
-    results["gather_rows"].update(
-        bound(4 * ids.numel() + (distinct + ids.numel()) * row_bytes, 0),
-        max_abs_err=float((k3 - p3).abs().max()),
-        ms=time_ms(lambda: gather_rows(table, ids)),
-        plain_ms=time_ms(lambda: gather_rows_plain(table, ids)),
-        library_ms=time_ms(lambda: torch.index_select(table, 0, idx)))
-    del p3, idx
+    # the identity-appended frontier repeats ids
+    k3, rec = check_gather_rows(table, ids)
+    results["gather_rows"].update(rec)
 
     def bf16_err(k, p, what):
         """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: kernel
@@ -951,6 +1309,10 @@ def main():
         bwd, shapes={"sage_main_bf16": bwd, "gcn_main_f32": bwd32})
     results["grouped_masked_sum"].update(check_grouped_masked_sum(x, m1, off))
     fill = k2_fill_case()
+    # hop 1 is the hop this path dedups (its last hop is identity-appended)
+    dedups = dedup_cases("main", tr.graph, hop_frontiers(batch, tr.caps)[:1],
+                         [batch.num_seeds], cfg.sampler.fanouts, tr.caps,
+                         seed=2)
     emit({"phase": "kernels", "caps": list(tr.caps),
           "shapes": {"table": list(table.shape), "ids": ids.shape[0],
                      "identity": [*m1.shape, x.shape[1], off],
@@ -1046,16 +1408,25 @@ def main():
     emit({"phase": "gcn_learn", **gcn_learns(data)})
     emit({"phase": "lp_sage", **lp_sage_path(data)})
     emit({"phase": "checkpoint_resume", **checkpoint_resume(data)})
+    emit({"phase": "hybrid_learn", **hybrid_learns(data)})
     del data
     torch.cuda.empty_cache()
 
     # -- 6. the cached path at papers100M class -----------------------------
-    cached_path(kernels, results)
+    by_path["cached_path"] = cached_path(kernels, results, dedups)
+    torch.cuda.empty_cache()
+
+    # -- 7. the two dedups on the same tensors ------------------------------
+    emit({"phase": "dedup", "nvidia_smi": smi, "cases": dedups})
+
+    # -- 8. the host-topology path at uk-union class ------------------------
+    by_path["hybrid_path"] = hybrid_path(kernels, results)
 
     print(smi, flush=True)
     # launches: the count on the SAGE main path (phase 4), and for K5, which
     # SAGE does not reach, on the float32 GCN path; launches_by_path holds
-    # every full-width path's count
+    # every full-width path's count, each taken with the counts set to 0
+    # just before the path ran and read just after
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": tpu,
          "launches": by_path["gcn_float32" if name == "grouped_masked_sum"

@@ -64,8 +64,8 @@ class FeatureCache:
 
     @classmethod
     def build(cls, host_features: np.ndarray, hot_order: np.ndarray,
-              capacity: int, miss_cap: int, dtype=torch.float32,
-              device: torch.device | str = "cpu") -> "FeatureCache":
+              capacity: int, miss_cap: int, dtype=torch.float32, *,
+              device: torch.device | str) -> "FeatureCache":
         """Cache the first ``capacity`` ids of ``hot_order`` (the cost
         model's hotness-descending feat_order; the reference's FillUp,
         src/GPUCache.cu:769-826) in ``dtype`` on ``device``."""
@@ -141,3 +141,22 @@ class FeatureCache:
         if bool(invalid.any()):
             out[invalid] = 0
         return out
+
+    def stage_to(self, device: torch.device,
+                 miss_ids: np.ndarray) -> torch.Tensor:
+        """Gather the rows of ``miss_ids`` on the host and start their copy
+        to ``device``: (miss_cap, D) staged rows, of which the first
+        len(miss_ids) are written (a plan reads no other). On CUDA the
+        rows are gathered into pinned memory and copied without blocking,
+        so exactly the misses' bytes cross."""
+        shape = (self.miss_cap, self.rows.shape[1])
+        dtype = self.rows.dtype
+        n = len(miss_ids)
+        on_cuda = device.type == "cuda"
+        host = torch.empty(shape, dtype=dtype, pin_memory=on_cuda)
+        self.stage(miss_ids, out=host[:n])
+        if not on_cuda:
+            return host
+        staged = torch.empty(shape, dtype=dtype, device=device)
+        staged[:n].copy_(host[:n], non_blocking=True)
+        return staged

@@ -120,20 +120,9 @@ class CachedTrainer:
         return batch, plan, _Packed(packed)
 
     def stage(self, miss_ids: np.ndarray) -> torch.Tensor:
-        """Gather the rows of ``miss_ids`` on the host and start their copy
-        to the device: (miss_cap, D) staged rows, of which the first
-        len(miss_ids) are written (the plan reads no other)."""
-        shape = (self.cache.miss_cap, self.cache.rows.shape[1])
-        dtype = self.cache.rows.dtype
-        n = len(miss_ids)
-        on_cuda = self.device.type == "cuda"
-        host = torch.empty(shape, dtype=dtype, pin_memory=on_cuda)
-        self.cache.stage(miss_ids, out=host[:n])
-        if not on_cuda:
-            return host
-        staged = torch.empty(shape, dtype=dtype, device=self.device)
-        staged[:n].copy_(host[:n], non_blocking=True)
-        return staged
+        """The staged rows of ``miss_ids`` on their way to the device
+        (``FeatureCache.stage_to``)."""
+        return self.cache.stage_to(self.device, miss_ids)
 
     def _pipeline(self, steps, dispatch, consume):
         """Run ``dispatch(i)`` ``train.pipeline_depth`` steps ahead of

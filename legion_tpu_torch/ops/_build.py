@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
@@ -69,30 +70,46 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+def hashed_library(source: Path, stem: str) -> Path:
+    """``_build/<stem>_<hash of the source>.so``: an edited source gets a
+    new name, so it rebuilds."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{stem}_{digest}.so"
+
+
+def compile_shared(compiler: Sequence[str], source: Path, so: Path) -> Path:
+    """Run ``compiler ... -o so source``. The compiler's output is kept
+    beside the library as ``<name>.log``; a failure raises, and ``so``
+    appears whole or not at all."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [*compiler, "-o", tmp, str(source)]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cmd[0]} failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
+    os.replace(tmp, so)          # atomic: a reader never sees half a file
+    return so
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"legion_kernels_{digest}.so"
+    return hashed_library(SOURCE, "legion_kernels")
 
 
 def build() -> Path:
     """Compile the kernels unless a build of this exact source exists.
-    The compiler's output (register and spill counts from ``-Xptxas -v``)
-    is kept beside the library as ``<name>.log``."""
+    The log holds the register and spill counts from ``-Xptxas -v``."""
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                           f"\n{res.stderr[-4000:]}")
-    os.replace(tmp, so)          # atomic: a reader never sees half a file
-    return so
+    return compile_shared([find_nvcc(), *NVCC_FLAGS], SOURCE, so)
 
 
 @functools.lru_cache(maxsize=None)

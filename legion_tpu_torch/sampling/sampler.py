@@ -16,6 +16,9 @@ What is carried over, and what is not:
 * ``grow_frontier`` reproduces the reference's stable sort-based dedup,
   so the numbering ``[seeds | hop1-new | hop2-new]`` (new ids appended in
   ascending id order) is the reference's exactly.
+* ``grow_frontier_scatter`` / ``sample_batch_scatter`` are the
+  position-map dedup (new ids appended in edge order). No driver uses it,
+  in either package; it stands beside the sort dedup to be measured.
 
 Randomness comes either from a ``torch.Generator`` or, for parity tests,
 from explicit per-hop uniforms of shape ``(caps[k], fanouts[k])``.
@@ -137,6 +140,104 @@ def grow_frontier(frontier_prev: torch.Tensor, num_prev: torch.Tensor,
     return frontier_new, num_new, block
 
 
+def _scatter_drop(dest: torch.Tensor, index: torch.Tensor,
+                  value: torch.Tensor, keep: torch.Tensor) -> None:
+    """``dest[index[j]] = value[j]`` where ``keep[j]``, in place, the rest
+    dropped (JAX's ``.at[].set(mode="drop")``), without a host sync. The
+    kept indices must be distinct. A dropped entry rewrites slot 0 with
+    the value that slot ends up with anyway, so whichever write lands
+    last, the result is the same."""
+    at0 = keep & (index == 0)
+    # (a 0-d tensor used as an index would be read back by the host)
+    v0 = torch.where(at0.any(),
+                     value.gather(0, at0.to(torch.uint8).argmax().reshape(1)),
+                     dest[:1])
+    dest.scatter_(0, torch.where(keep, index, 0),
+                  torch.where(keep, value, v0))
+
+
+def stamp_frontier(frontier: torch.Tensor, pos_map: torch.Tensor,
+                   stamp: torch.Tensor, stamp_val: torch.Tensor) -> None:
+    """Enter a frontier of distinct ids (-1 padded) into the position map,
+    in place: ``frontier[j]`` sits at position j under ``stamp_val``."""
+    valid = frontier >= 0
+    idx = torch.where(valid, frontier, 0).long()
+    m = frontier.shape[0]
+    _scatter_drop(pos_map, idx, torch.arange(m, dtype=torch.int32,
+                                             device=frontier.device), valid)
+    _scatter_drop(stamp, idx, stamp_val.to(torch.int32).expand(m), valid)
+
+
+def grow_frontier_scatter(frontier_prev: torch.Tensor, num_prev: torch.Tensor,
+                          neighbors: torch.Tensor, cap_new: int,
+                          pos_map: torch.Tensor, stamp: torch.Tensor,
+                          stamp_val: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, Block,
+                                     torch.Tensor, torch.Tensor]:
+    """Sort-free dedup through a dense position map, the reference's own
+    structure (``position_map[N]``, ``src/Server.cu:222``,
+    ``src/Kernels.cu:434-438``): an id is already in the frontier iff
+    ``stamp[id] == stamp_val`` (so nothing is cleared between batches) and
+    then sits at ``pos_map[id]``; among the edges that bring a new id the
+    lowest edge index wins (a scatter-min into a scratch of N + 1, whose
+    last slot takes the dropped entries) and new ids are appended in edge
+    order, not in ascending id order. Otherwise ``grow_frontier``'s
+    contract.
+
+    ``pos_map`` and ``stamp`` are (N,) int32 carried across hops and
+    batches and updated in place; before hop 1 the seeds must be stamped
+    (``sample_batch_scatter`` does). Past ``cap_new`` the frontier's last
+    slot holds the last overflowed id in edge order.
+
+    Returns (frontier_new, num_new, block, pos_map, stamp)."""
+    p, fanout = neighbors.shape
+    n = pos_map.shape[0]
+    e = p * fanout
+    prev_cap = frontier_prev.shape[0]
+    dev = neighbors.device
+    ids = neighbors.reshape(-1)
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+
+    is_old = valid & (stamp[safe] == stamp_val)
+    cand = valid & ~is_old
+
+    # winner election: the lowest edge index of each new id
+    eidx = torch.arange(e, dtype=torch.int32, device=dev)
+    scratch = torch.full((n + 1,), SENTINEL, dtype=torch.int32, device=dev)
+    scratch.scatter_reduce_(0, torch.where(cand, safe, n), eidx, "amin")
+    winner = cand & (scratch[safe] == eidx)
+
+    new_rank = torch.cumsum(winner, 0, dtype=torch.int32) - 1
+    newpos = (num_prev + new_rank).to(torch.int32)
+    num_new = (num_prev + winner.sum(dtype=torch.int32)).to(torch.int32)
+
+    _scatter_drop(pos_map, safe, newpos, winner)
+    _scatter_drop(stamp, safe, stamp_val.to(torch.int32).expand(e), winner)
+
+    # winners below the last slot land on distinct targets; the last slot
+    # takes the last winner at or past it (duplicate writes there would
+    # land in any order), everything else goes to a sink slot
+    frontier_new = torch.full((cap_new + 1,), -1, dtype=torch.int32,
+                              device=dev)
+    frontier_new[:prev_cap] = frontier_prev
+    frontier_new.scatter_(
+        0, torch.where(winner & (newpos < cap_new - 1), newpos,
+                       cap_new).long(), ids)
+    tail = torch.where(winner & (newpos >= cap_new - 1), eidx, -1).max()
+    frontier_new = frontier_new[:cap_new]
+    frontier_new[cap_new - 1:] = torch.where(
+        tail >= 0, ids.gather(0, tail.clamp(min=0).long().reshape(1)),
+        frontier_new[cap_new - 1:])
+
+    nbr_pos = pos_map[safe].reshape(p, fanout)
+    nbr_mask = neighbors >= 0
+    block = Block(nbr_pos=torch.where(nbr_mask, nbr_pos, 0),
+                  nbr_mask=nbr_mask, num_src=num_new,
+                  num_dst=num_prev.to(torch.int32))
+    return frontier_new, num_new, block, pos_map, stamp
+
+
 def append_frontier(frontier_prev: torch.Tensor, num_prev: torch.Tensor,
                     neighbors: torch.Tensor, cap_new: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, Block]:
@@ -205,6 +306,46 @@ def sample_batch(graph: DeviceGraph, seeds: torch.Tensor,
                         num_seeds=num_seeds.to(torch.int32),
                         frontier=frontier, num_frontier=num,
                         blocks=tuple(blocks))
+
+
+def sample_batch_scatter(graph: DeviceGraph, seeds: torch.Tensor,
+                         num_seeds: torch.Tensor, labels: torch.Tensor,
+                         fanouts: Sequence[int], caps: Sequence[int],
+                         pos_map: torch.Tensor, stamp: torch.Tensor,
+                         stamp_val: torch.Tensor,
+                         generator: Optional[torch.Generator] = None,
+                         uniforms: Optional[Sequence[torch.Tensor]] = None):
+    """``sample_batch`` with the position-map dedup
+    (``grow_frontier_scatter``) on every hop. ``pos_map`` and ``stamp`` are
+    (num_nodes,) int32, carried across batches and updated in place;
+    ``stamp_val`` (a 0-d int32 tensor) must be new for every batch (e.g.
+    step + 1; 0 is the value of a fresh ``stamp``). Randomness as in
+    ``sample_batch``.
+
+    Returns (SampledBatch, pos_map, stamp)."""
+    caps = tuple(caps)
+    if (uniforms is None) == (generator is None):
+        raise ValueError("pass exactly one of generator and uniforms")
+    dev = seeds.device
+    stamp_frontier(seeds, pos_map, stamp, stamp_val)
+
+    frontier = torch.full((caps[0],), -1, dtype=torch.int32, device=dev)
+    frontier[: seeds.shape[0]] = seeds
+    num = num_seeds.to(torch.int32)
+    blocks = []
+    for k, fanout in enumerate(fanouts):
+        u = (uniforms[k] if uniforms is not None else
+             torch.rand((caps[k], fanout), generator=generator, device=dev,
+                        dtype=torch.float32))
+        nbrs = sample_neighbors(graph, frontier, u)
+        frontier, num, blk, pos_map, stamp = grow_frontier_scatter(
+            frontier, num, nbrs, caps[k + 1], pos_map, stamp, stamp_val)
+        blocks.append(blk)
+    batch = SampledBatch(seeds=seeds, labels=labels,
+                         num_seeds=num_seeds.to(torch.int32),
+                         frontier=frontier, num_frontier=num,
+                         blocks=tuple(blocks))
+    return batch, pos_map, stamp
 
 
 def gather_features(features: torch.Tensor,

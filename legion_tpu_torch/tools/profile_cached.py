@@ -1,14 +1,17 @@
-"""Where the time of the cached path at papers100M class goes.
+"""Where the time of the cached path at papers100M class goes, or of the
+hybrid (host-topology) path at uk-union class.
 
-    python -m legion_tpu_torch.tools.profile_cached
+    python -m legion_tpu_torch.tools.profile_cached [hybrid]
 
 from the repository root, on a machine with the card. It runs
-``run_cached_training`` on ``pa_cell``'s configuration and dataset
-(generated into ``.bench_cache/`` on first use) for three epochs and
-traces epoch 1 (epoch 0 warms up) under ``torch.profiler``. It prints
-one JSON line: every epoch's ms/step, staging seconds, hit rate, host GB
-and edges/s; for the profiled epoch the wall time, the device-busy time
-(the self device times of the CUDA kernels and copies, summed: one
+``run_cached_training`` on ``pa_cell``'s configuration (with ``hybrid``:
+``run_hybrid_training`` on ``hybrid_cell``'s) and dataset (generated into
+``.bench_cache/`` on first use) for three epochs and traces epoch 1
+(epoch 0 warms up) under ``torch.profiler``. It prints one JSON line:
+every epoch's ms/step, staging seconds, hit rate, host GB and edges/s (for
+the hybrid path also the hot fraction and the host sampler's and the
+packed reads' seconds); for the profiled epoch the wall time, the
+device-busy time (the self device times of the CUDA kernels and copies, summed: one
 stream, so nothing overlaps), the idle share ``1 - busy / wall``, the
 largest device rows and the largest host rows. Ranges that the profiler
 mirrors onto the device timeline (``Optimizer.step#Adam.step``) are not
@@ -25,13 +28,26 @@ from unittest import mock
 
 import torch
 
+from legion_tpu_torch.cache.hybrid import HybridTrainer
 from legion_tpu_torch.cache.pipeline import CachedTrainer
-from legion_tpu_torch.tools import pa_cell
+from legion_tpu_torch.tools import hybrid_cell, pa_cell
 from legion_tpu_torch.train.cached_driver import run_cached_training
+from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
 
 EPOCHS, PROFILED_EPOCH = 3, 1
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# path -> (trainer whose run_epoch is traced, driver, configuration, the
+# epoch figures printed)
+PATHS = {
+    "cached": (CachedTrainer, run_cached_training, pa_cell.config,
+               ("stage_s", "cache_hit_rate", "host_gb", "edges_per_s",
+                "staging_overflow")),
+    "hybrid": (HybridTrainer, run_hybrid_training, hybrid_cell.config,
+               ("stage_s", "host_sample_s", "fetch_s", "feat_hit_rate",
+                "topo_hot_fraction", "host_feat_gb", "host_topo_gb",
+                "edges_per_s", "staging_overflow", "fetches")),
+}
 
 
 def _rows(events, key, n):
@@ -39,23 +55,24 @@ def _rows(events, key, n):
     return [[e.key, e.count, getattr(e, key) / 1e3] for e in top]
 
 
-def main() -> None:
+def main(path: str = "cached") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cached needs a CUDA device")
+    trainer, driver, config, figures = PATHS[path]
     log = lambda s: print(s, file=sys.stderr, flush=True)   # noqa: E731
     data, gen_s, load_s = pa_cell.dataset(ROOT, log)
-    run_epoch = CachedTrainer.run_epoch
+    run_epoch = trainer.run_epoch
     calls, profiled = [], {}
 
-    def traced(self, state, seeds, labels):
+    def traced(self, *args):
         calls.append(None)
         if len(calls) != PROFILED_EPOCH + 1:
-            return run_epoch(self, state, seeds, labels)
+            return run_epoch(self, *args)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            r = run_epoch(self, state, seeds, labels)
+            r = run_epoch(self, *args)
             torch.cuda.synchronize()
         ev = prof.key_averages()
         # device rows named as a host row are ranges the profiler mirrors
@@ -76,21 +93,18 @@ def main() -> None:
             host_top=_rows(ev, "self_cpu_time_total", 15))
         return r
 
-    with mock.patch.object(CachedTrainer, "run_epoch", traced):
-        res = run_cached_training(pa_cell.config(EPOCHS), data, "cuda",
-                                  log=log)
+    with mock.patch.object(trainer, "run_epoch", traced):
+        res = driver(config(EPOCHS), data, "cuda", log=log)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "device": smi, "gen_s": gen_s, "load_s": load_s,
+        "path": path, "device": smi, "gen_s": gen_s, "load_s": load_s,
         "epochs": [{"ms_per_step": 1e3 * h["seconds"] / h["steps"],
-                    **{k: h[k] for k in ("stage_s", "cache_hit_rate",
-                                         "host_gb", "edges_per_s",
-                                         "staging_overflow")}}
+                    **{k: h[k] for k in figures}}
                    for h in res["history"]],
         "profiled": profiled}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

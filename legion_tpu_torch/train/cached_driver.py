@@ -64,6 +64,12 @@ def run_cached_training(cfg: Config, data: GraphData,
             f"{cfg.cache.enabled} and feature_placement="
             f"{cfg.dataset.feature_placement!r} (train.loop.Trainer runs "
             "features in device memory)")
+    if cfg.dataset.topology_placement != "hbm":
+        raise ValueError(
+            "run_cached_training keeps the topology whole in device memory; "
+            f"topology_placement={cfg.dataset.topology_placement!r} runs "
+            "through "
+            "legion_tpu_torch.train.hybrid_driver.run_hybrid_training")
     device = torch.device(device)
     graph = DeviceGraph.from_host(data.indptr, data.indices, device)
     num_classes = cfg.dataset.num_classes or data.num_classes

@@ -187,6 +187,12 @@ class Trainer:
                 raise NotImplementedError(
                     f"{what} is not ported to legion_tpu_torch yet "
                     "(queued in ROADMAP.md)")
+        if cfg.dataset.topology_placement != "hbm":
+            raise ValueError(
+                f"Trainer keeps the topology in device memory; "
+                f"topology_placement={cfg.dataset.topology_placement!r} runs "
+                "through "
+                "legion_tpu_torch.train.hybrid_driver.run_hybrid_training")
         if cfg.dataset.feature_placement != "hbm" or cfg.cache.enabled:
             raise ValueError(
                 f"Trainer keeps the features in device memory; "

@@ -177,7 +177,8 @@ def test_feature_cache_matches_jax(small_graph, capacity, miss_cap,
         jcache.rows, jplan, jnp.asarray(jstaged), frontier)).astype(
             np.float32)
 
-    cache = FeatureCache.build(feats, order, capacity, miss_cap, dt)
+    cache = FeatureCache.build(feats, order, capacity, miss_cap, dt,
+                               device="cpu")
     assert cache.rows.dtype == dt
     np.testing.assert_array_equal(cache.hot_ids.numpy(),
                                   np.asarray(jcache.hot_ids))
@@ -203,7 +204,7 @@ def test_empty_cache_stages_every_row(small_graph):
     an empty cache): every valid row is a miss and comes from staging."""
     feats = np.asarray(small_graph.features, np.float32)
     cache = FeatureCache.build(feats, _hot_order(small_graph.num_nodes), 0,
-                               CAPS[-1])
+                               CAPS[-1], device="cpu")
     fr = torch.from_numpy(np.array(_jax_batch(small_graph).frontier))
     plan = cache.plan(fr)
     assert int(plan.num_hit) == 0 and int(plan.num_miss) == int(
@@ -217,7 +218,7 @@ def test_empty_cache_stages_every_row(small_graph):
 def test_stage_writes_into_a_given_buffer(small_graph):
     feats = np.asarray(small_graph.features, np.float32)
     cache = FeatureCache.build(feats, _hot_order(small_graph.num_nodes), 10,
-                               64, torch.bfloat16)
+                               64, torch.bfloat16, device="cpu")
     out = torch.full((64, feats.shape[1]), 7.0, dtype=torch.bfloat16)
     ids = np.array([5, 1999, 0], np.int32)
     got = cache.stage(ids, out=out[:3])
@@ -292,7 +293,7 @@ def _trainer(g, capacity=700, miss_cap=None, depth=2):
         cfg.train, pipeline_depth=depth))
     feats = np.asarray(g.features, np.float32)
     cache = FeatureCache.build(feats, _hot_order(g.num_nodes), capacity,
-                               miss_cap or CAPS[-1])
+                               miss_cap or CAPS[-1], device="cpu")
     model = build_model("sage", feats.shape[1], 32, g.num_classes, 2, 0.0,
                         generator=torch.Generator().manual_seed(0))
     tr = CachedTrainer(cfg, model, CAPS,

@@ -51,7 +51,8 @@ def test_config_holds_the_ported_fields():
     got = {f.name: sorted(_defaults(type(getattr(cfg, f.name))))
            for f in dataclasses.fields(cfg)}
     assert got == {
-        "dataset": ["feature_pad_align", "feature_placement", "num_classes"],
+        "dataset": ["feature_pad_align", "feature_placement", "num_classes",
+                    "topology_placement"],
         "sampler": sorted(_defaults(jax_config.SamplerConfig)),
         "model": sorted(_defaults(jax_config.ModelConfig)),
         "train": ["checkpoint_dir", "checkpoint_every_steps", "epochs",
@@ -60,8 +61,14 @@ def test_config_holds_the_ported_fields():
                         - {"group_size", "cost_model_granularity"})}
     with pytest.raises(TypeError):
         port_config.TrainConfig(scan_unroll=2)
+    # the host-topology placement is a field now, with the reference's
+    # default and values
+    assert (port_config.DatasetConfig().topology_placement
+            == jax_config.DatasetConfig().topology_placement == "hbm")
+    assert port_config.DatasetConfig(
+        topology_placement="host").topology_placement == "host"
     with pytest.raises(TypeError):
-        port_config.DatasetConfig(topology_placement="host")
+        port_config.DatasetConfig(name="ogbn-products")
     with pytest.raises(TypeError):
         port_config.CacheConfig(cost_model_granularity=0.1)
 
@@ -73,6 +80,8 @@ def test_config_rejects_unported_values():
         port_config.DatasetConfig(feature_placement="hbm_sharded")
     with pytest.raises(ValueError, match="feature_placement"):
         port_config.DatasetConfig(feature_placement="disk")
+    with pytest.raises(ValueError, match="topology_placement"):
+        port_config.DatasetConfig(topology_placement="disk")
     # a striped cache (group_size > 1) has no field to set
     with pytest.raises(TypeError, match="group_size"):
         port_config.CacheConfig(group_size=2)
@@ -194,7 +203,8 @@ def test_loaded_arrays_reach_torch_without_a_host_copy(tmp_path, mmap):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         graph = DeviceGraph.from_host(got.indptr, got.indices, "cpu")
-        cache = FeatureCache.build(got.features, np.arange(10), 10, 16)
+        cache = FeatureCache.build(got.features, np.arange(10), 10, 16,
+                                   device="cpu")
         staged = cache.stage(np.array([3, -1, 299], np.int32))
     assert graph.indices.data_ptr() == got.indices.ctypes.data
     assert cache._host.data_ptr() == got.features.ctypes.data

@@ -18,6 +18,11 @@ import legion_tpu_torch
 import legion_tpu_torch.cache.cost_model
 import legion_tpu_torch.cache.feature_cache
 import legion_tpu_torch.cache.hotness
+import legion_tpu_torch.cache.hybrid
+import legion_tpu_torch.cache.topo_cache
+import legion_tpu_torch.runtime
+import legion_tpu_torch.train.hybrid_driver
+import legion_tpu_torch.tools.hybrid_cell
 import legion_tpu_torch.cache.pipeline
 import legion_tpu_torch.data.format
 import legion_tpu_torch.models
