@@ -91,6 +91,22 @@ set-up; any failure raises and the script exits non-zero:
    sub-CSR), K2 forward once a step, backward once a train step, K3
    twice a step, K1 and K5 never.
 
+9. data-parallel training (``"mesh_dp"``, run after phase 4 on its graph):
+   ``MeshTrainer`` at world size 1 through NCCL with the main path's
+   configuration at the reference's loose caps (no probe), one epoch and a
+   validation pass, its first 5 losses against a ``Trainer`` with
+   ``probe_caps=False`` within 1e-3 relative, one all-reduce of the
+   parameter bytes a step through the counting wrapper, exact launch
+   counts, and ms/step beside the Trainer's; then every kernel of the
+   path against its plain version on one batch at those loose caps (the
+   sampling kernel on both hops, K3 on the whole frontier, K1 on the
+   identity block, K2 forward and backward on layer 1's block);
+10. the command line (``"cli"``): ``python -m legion_tpu_torch.train`` as
+   a subprocess on the card: the verify recipe (50k nodes, 2 epochs,
+   batch 1024) above 0.15 with the test line, ``--topology host`` with no
+   budget (warns, both caches empty), and ``--devices 2`` on one card
+   (exits non-zero naming the card count).
+
 Then it prints the card's name and power limit as nvidia-smi reports
 them, a JSON line with every kernel's numbers, and, last,
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -413,6 +429,65 @@ def check_k2(h_t, pos, mask, g, norm):
                    g, pos, mask, staging, norm)),
                "cast": time_ms(lambda: narrow_rows(staging, d, h_t.dtype))}}
     return fwd, bwd
+
+
+def bf16_err(k, p, what):
+    """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: kernel and
+    plain version sum in f32 in different orders, which can flip one bf16
+    rounding. Returns the largest absolute difference."""
+    k, p = k.float(), p.float()
+    excess = ((k - p).abs() - (8e-3 * p.abs() + 1e-3)).max()
+    require(float(excess) <= 0, f"{what} within bf16 tolerance")
+    return float((k - p).abs().max())
+
+
+def check_identity_mean(x, m1, off):
+    """K1 (norm "mean", bf16 out, as SAGE's layer 0 runs it) against its
+    plain version on the gathered features x and the identity block's
+    mask, both timed."""
+    import torch
+
+    from legion_tpu_torch.ops.identity_agg import (identity_masked_mean,
+                                                   identity_masked_mean_plain)
+    d1, slots1 = x.shape[1], int(m1.sum())
+    # masked slots are skipped: the valid slots' rows and the mask are
+    # read, the bf16 rows written; one add per element read
+    return {"shape": [*m1.shape, *x.shape, off],
+            **bound(slots1 * d1 * x.element_size() + m1.numel()
+                    + m1.shape[0] * d1 * 2, slots1 * d1),
+            "library_ms": None,
+            "max_abs_err": bf16_err(
+                identity_masked_mean(x, m1, off, "mean", torch.bfloat16),
+                identity_masked_mean_plain(x, m1, off, "mean",
+                                           torch.bfloat16),
+                f"identity_masked_mean at {[*m1.shape, *x.shape]}"),
+            "ms": time_ms(lambda: identity_masked_mean(x, m1, off)),
+            "plain_ms": time_ms(
+                lambda: identity_masked_mean_plain(x, m1, off))}
+
+
+def layer1_inputs(tr, batch, x):
+    """What a step of ``tr`` on ``batch`` (features x gathered) hands K2
+    at layer 1: the transformed activations h_t, the block's positions and
+    mask, and the gradient of the step's loss at layer 1's aggregate
+    (bf16, as the step's backward gives it). Dropout is off, so that the
+    gradient is a function of the inputs."""
+    import torch
+
+    from legion_tpu_torch.ops.identity_agg import gathered_masked_mean_plain
+    from legion_tpu_torch.train.loop import masked_softmax_ce
+    blk0, blk1 = reversed(batch.blocks)        # model order
+    layer0, layer1 = tr.model.layers
+    pos, mask = blk1.nbr_pos, blk1.nbr_mask
+    with torch.no_grad():
+        h = torch.relu(layer0(blk0, x))
+        h_t = layer1._dense(layer1.fc_neigh, h)
+    agg = gathered_masked_mean_plain(h_t.requires_grad_(True), pos, mask)
+    logits = layer1._dense(layer1.fc_self, h[: blk1.dst_cap]).detach() + agg
+    loss = masked_softmax_ce(logits[: batch.seed_cap], batch.labels,
+                             batch.seed_mask())
+    (gd,) = torch.autograd.grad(loss, agg)
+    return h_t.detach(), pos, mask, gd.contiguous()
 
 
 def k2_fill_case():
@@ -768,6 +843,214 @@ def checkpoint_resume(data):
     return {"checkpoint": os.path.basename(saved), "steps": steps,
             "losses_equal": got == want, "worst_rel_diff": worst,
             "resumed_last_loss": got[-1], "uninterrupted_last_loss": want[-1]}
+
+
+def mesh_dp(kernels, results, data, smi):
+    """Phase "mesh_dp": data-parallel training at world size 1 through
+    NCCL on the main path's configuration and graph. A ``Trainer`` with
+    ``probe_caps=False`` (MeshTrainer's loose caps) trains two epochs;
+    then this process joins a one-rank NCCL group and a ``MeshTrainer``
+    trains one epoch and a validation pass (then a second epoch, whose
+    ms/step is the steady state printed beside the Trainer's second
+    epoch). Its first 5 losses must match
+    the Trainer's within 1e-3 relative (the same weights, stream and caps;
+    K2 backward's float atomics make two runs equal only to rounding),
+    the counting wrapper must show one all-reduce of the parameter bytes
+    a step plus one of the epoch's metrics (and a step counted alone one
+    all-reduce of exactly the parameter bytes), and the launch counts
+    must be exact: per train step the sampling kernel 2, K1, K2 forward,
+    K2 backward and K3 once each, K5 never; per eval step the same but
+    K2 backward. After the run every kernel of the path is held against
+    its plain version on one batch of the MeshTrainer sampled at its loose
+    caps (``kernel_checks``): the sampling kernel on both hops, K3 on the
+    whole frontier (-1 padding included), K1 on the identity block and K2
+    forward and backward on layer 1's block, each with the tolerance of
+    the main path's check."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         ParallelConfig, SamplerConfig,
+                                         TrainConfig)
+    from legion_tpu_torch.parallel import mesh
+    from legion_tpu_torch.parallel.trainer import MeshTrainer
+    from legion_tpu_torch.sampling.sampler import sample_batch
+    from legion_tpu_torch.train.loop import Trainer
+    from legion_tpu_torch.utils import comm
+    cfg = Config(
+        dataset=DatasetConfig(num_classes=CLASSES),
+        sampler=SamplerConfig(fanouts=(25, 10), batch_size=8000,
+                              observed_cap_slack=1.03, probe_caps=False),
+        model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
+                          dropout=0.5, dtype="bfloat16"),
+        train=TrainConfig(learning_rate=0.003),
+        parallel=ParallelConfig(num_devices=1))
+    ref = Trainer(cfg, data, device="cuda")
+    want = ref.train_one_epoch(0)
+    want_steady = ref.train_one_epoch(1)
+    ref_caps = ref.caps
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_process(0, 1, os.path.join(tmp, "init"), "cuda")
+        try:
+            backend = dist.get_backend()
+            require(backend == "nccl", f"the one-rank group runs NCCL, not "
+                    f"{backend}")
+            t0 = time.perf_counter()
+            tr = MeshTrainer(cfg, data, device="cuda")
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            reset_launches(kernels)
+            comm.reset_counts()
+            rec = tr.train_one_epoch(0)
+            train_launches = read_launches(kernels)
+            epoch_counts, epoch_calls = comm.read_counts(), comm.read_calls()
+            reset_launches(kernels)
+            valid_acc = tr.evaluate("valid")
+            eval_launches = read_launches(kernels)
+            pb = comm.param_bytes(tr.model)
+            # one more step counted alone, and the all-reduce of a buffer
+            # of the parameters' size timed by itself
+            comm.reset_counts()
+            ids = tr.shards_train[0][:8000]
+            tr.fns.train_step(tr.state, tr.graph, tr.features,
+                              torch.from_numpy(ids.copy()).cuda(),
+                              torch.tensor(8000, dtype=torch.int32,
+                                           device="cuda"),
+                              torch.from_numpy(data.labels[ids]).cuda())
+            torch.cuda.synchronize()
+            step_counts, step_calls = comm.read_counts(), comm.read_calls()
+            buf = torch.zeros(pb // 4, dtype=torch.float32, device="cuda")
+            allreduce_ms = time_ms(lambda: dist.all_reduce(buf))
+            steady = tr.train_one_epoch(1)
+        finally:
+            dist.destroy_process_group()
+    t, e = rec["steps"], tr.plan.valid_steps
+    require(tr.caps == ref_caps == (8000, 208000, 2288000),
+            f"MeshTrainer and the unprobed Trainer at the loose caps, got "
+            f"{tr.caps} and {ref_caps}")
+    require(all(math.isfinite(v) for v in rec["losses"]),
+            "finite MeshTrainer losses")
+    require(rec["cap_overflow"] == 0, "no cap overflow at the loose caps")
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(rec["losses"][:5], want["losses"][:5]))
+    require(t == want["steps"] and worst <= 1e-3,
+            f"MeshTrainer's first 5 losses match the Trainer's (worst "
+            f"relative difference {worst})")
+    require(step_calls == {"all_reduce": 1} and step_counts["all_reduce"] == pb,
+            f"one all-reduce of {pb} parameter bytes in a step, got "
+            f"{step_calls} / {step_counts}")
+    require(epoch_calls == {"all_reduce": t + 1}
+            and epoch_counts["all_reduce"] == t * pb + t * 4 * 8,
+            f"an epoch of {t} steps: one parameter-sized all-reduce a step "
+            f"and one of the metrics, got {epoch_calls} / {epoch_counts}")
+    want_train = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
+                  "gathered_masked_mean": t,
+                  "gathered_masked_mean_backward": t, "gather_rows": t,
+                  "grouped_masked_sum": 0}
+    want_eval = dict(want_train, sample_neighbors=2 * e,
+                     identity_masked_mean=e, gathered_masked_mean=e,
+                     gathered_masked_mean_backward=0, gather_rows=e)
+    require(train_launches == want_train and eval_launches == want_eval,
+            f"exact launches: train {train_launches} (want {want_train}), "
+            f"eval {eval_launches} (want {want_eval})")
+    # every kernel at the loose caps' shapes, against its plain version
+    dev = torch.device("cuda")
+    ids = tr.shards_train[0][:8000].copy()
+    batch = sample_batch(
+        tr.graph, torch.from_numpy(ids).to(dev),
+        torch.tensor(len(ids), dtype=torch.int32, device=dev),
+        torch.from_numpy(data.labels[ids]).to(dev), cfg.sampler.fanouts,
+        tr.caps, dedup_last=cfg.sampler.dedup_last,
+        generator=torch.Generator(device=dev).manual_seed(6))
+    hops = check_sampling_kernel(tr.graph, hop_frontiers(batch, tr.caps),
+                                 cfg.sampler.fanouts, seed=7)
+    results["sample_neighbors"]["mesh_dp_hops"] = hops
+    x, k3 = check_gather_rows(tr.features, batch.frontier)
+    results["gather_rows"]["mesh_dp"] = k3
+    blk0 = batch.blocks[-1]
+    require(blk0.identity_offset is not None, "layer 0's block is identity")
+    k1 = check_identity_mean(x, blk0.nbr_mask, blk0.identity_offset)
+    results["identity_masked_mean"]["mesh_dp"] = k1
+    k2_fwd, k2_bwd = check_k2(*layer1_inputs(tr, batch, x), "mean")
+    results["gathered_masked_mean"]["shapes"]["mesh_dp_bf16"] = k2_fwd
+    results["gathered_masked_mean_backward"]["shapes"]["mesh_dp_bf16"] = (
+        k2_bwd)
+    del batch, x, blk0
+    emit({"phase": "mesh_dp", "nvidia_smi": smi, "backend": backend,
+          "world": 1, "mesh": tr.mesh.shape, "caps": list(tr.caps),
+          "init_s": init_s, "steps": t, "eval_steps": e,
+          "losses": rec["losses"], "trainer_losses": want["losses"],
+          "first5_worst_rel_diff": worst,
+          "epoch0_ms_per_step": 1e3 * rec["epoch_s"] / t,
+          "trainer_epoch0_ms_per_step": 1e3 * want["epoch_s"] / t,
+          "ms_per_step": 1e3 * steady["epoch_s"] / t,
+          "trainer_ms_per_step": 1e3 * want_steady["epoch_s"] / t,
+          "edges_per_s": steady["edges_per_s"], "valid_acc": valid_acc,
+          "param_bytes": pb, "allreduce_ms": allreduce_ms,
+          "step_counts": step_counts, "epoch_counts": epoch_counts,
+          "train_launches": train_launches, "eval_launches": eval_launches,
+          "kernel_checks": {"sample_neighbors_hops": hops, "gather_rows": k3,
+                            "identity_masked_mean": k1,
+                            "k2": {"forward": k2_fwd, "backward": k2_bwd}},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return {k: train_launches[k] + eval_launches[k] for k in kernels}
+
+
+def cli_runs(smi):
+    """Phase "cli": ``python -m legion_tpu_torch.train`` as a user runs it
+    on the card, three times: the reference's verify recipe (50k-node
+    planted-label graph, 2 epochs, batch 1024) must reach validation
+    accuracy > 0.15 and print the test line; ``--topology host`` with no
+    budget (the repaired case) must warn, finish, and report both caches
+    empty; ``--devices 2`` on this one-card machine must exit non-zero
+    naming the card count."""
+    import re
+
+    import torch
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def run(*flags, timeout=300):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "legion_tpu_torch.train",
+                            *flags], capture_output=True, text=True,
+                           timeout=timeout, cwd=REPO, env=env)
+        return r, time.perf_counter() - t0
+
+    out = {}
+    r, secs = run("--synthetic", "50000", "--epochs", "2", "--batch-size",
+                  "1024")
+    require(r.returncode == 0, f"the verify recipe exits 0: {r.stderr[-2000:]}")
+    accs = [float(a) for a in re.findall(r"Val Acc: ([0-9.]+)", r.stdout)]
+    require(len(accs) == 2 and accs[-1] > 0.15,
+            f"the verify recipe reaches Val Acc > 0.15, got {accs}")
+    require("Accuracy on test data" in r.stdout,
+            "the verify recipe prints the test line")
+    out["verify"] = {"valid_acc": accs, "seconds": secs,
+                     "test_line": r.stdout.strip().splitlines()[-1]}
+    r, secs = run("--synthetic", "20000", "--topology", "host", "--epochs",
+                  "1", "--batch-size", "1024")
+    require(r.returncode == 0,
+            f"--topology host with no budget exits 0: {r.stderr[-2000:]}")
+    require("zero hot cache, every hop/feature is host-served" in r.stderr,
+            "--topology host with no budget warns")
+    require("feat_cap=0 topo_cap=0" in r.stdout
+            and "feat_hit:0.000, topo_hot:0.000" in r.stdout,
+            "both caches empty")
+    out["host_topology_no_budget"] = {
+        "seconds": secs, "lines": [s for s in r.stdout.splitlines()
+                                   if s.startswith(("cost model", "Epoch",
+                                                    "Accuracy"))]}
+    r, secs = run("--devices", "2", "--synthetic", "2000", "--epochs", "1")
+    n = torch.cuda.device_count()
+    msg = f"2 ranks need 2 CUDA devices; this process sees {n}"
+    require(n < 2 and r.returncode != 0 and msg in r.stderr,
+            f"--devices 2 on {n} card(s) exits non-zero naming the count: "
+            f"rc {r.returncode}, {r.stderr[-500:]}")
+    out["devices_2"] = {"returncode": r.returncode, "message": msg,
+                        "seconds": secs}
+    emit({"phase": "cli", "nvidia_smi": smi, **out})
 
 
 def cached_path(kernels, results, dedups):
@@ -1197,12 +1480,11 @@ def main():
                                          TrainConfig)
     from legion_tpu_torch.data.synthetic import (bench_graph,
                                                  random_power_law_graph)
-    from legion_tpu_torch.ops.identity_agg import (
-        gathered_masked_mean_plain, identity_masked_mean,
-        identity_masked_mean_plain)
+    from legion_tpu_torch.ops.identity_agg import (identity_masked_mean,
+                                                   identity_masked_mean_plain)
     from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.train.cached_driver import run_cached_training
-    from legion_tpu_torch.train.loop import Trainer, masked_softmax_ce
+    from legion_tpu_torch.train.loop import Trainer
 
     # float32 products in full float32, as the CPU reference computes them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1259,45 +1541,14 @@ def main():
     k3, rec = check_gather_rows(table, ids)
     results["gather_rows"].update(rec)
 
-    def bf16_err(k, p, what):
-        """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: kernel
-        and plain version sum in f32 in different orders, which can flip
-        one bf16 rounding."""
-        k, p = k.float(), p.float()
-        excess = ((k - p).abs() - (8e-3 * p.abs() + 1e-3)).max()
-        require(float(excess) <= 0, f"{what} within bf16 tolerance")
-        return float((k - p).abs().max())
-
     x, m1, off = k3, blk0.nbr_mask, blk0.identity_offset
-    d1, slots1 = x.shape[1], int(m1.sum())
-    # masked slots are skipped: the valid slots' rows and the mask are
-    # read, the bf16 rows written; one add per element read
     results["identity_masked_mean"].update(
-        bound(slots1 * d1 * x.element_size() + m1.numel()
-              + m1.shape[0] * d1 * 2, slots1 * d1),
-        library_ms=None,
+        check_identity_mean(x, m1, off),
         sqrt_max_abs_err=bf16_err(       # GCN's norm
             identity_masked_mean(x, m1, off, "sqrt", torch.bfloat16),
             identity_masked_mean_plain(x, m1, off, "sqrt", torch.bfloat16),
-            "identity_masked_mean with norm sqrt"),
-        max_abs_err=bf16_err(
-            identity_masked_mean(x, m1, off, "mean", torch.bfloat16),
-            identity_masked_mean_plain(x, m1, off, "mean", torch.bfloat16),
-            "identity_masked_mean"),
-        ms=time_ms(lambda: identity_masked_mean(x, m1, off)),
-        plain_ms=time_ms(lambda: identity_masked_mean_plain(x, m1, off)))
-
-    layer0, layer1 = tr.model.layers
-    pos, m0 = blk1.nbr_pos, blk1.nbr_mask
-    with torch.no_grad():
-        h = torch.relu(layer0(blk0, x))
-        h_t = layer1._dense(layer1.fc_neigh, h)
-    agg = gathered_masked_mean_plain(h_t.requires_grad_(True), pos, m0)
-    logits = layer1._dense(layer1.fc_self, h[: blk1.dst_cap]).detach() + agg
-    loss = masked_softmax_ce(logits[: batch.seed_cap], batch.labels,
-                             batch.seed_mask())
-    (gd,) = torch.autograd.grad(loss, agg)     # bf16, as the step's backward
-    gd, h_t = gd.contiguous(), h_t.detach()
+            "identity_masked_mean with norm sqrt"))
+    h_t, pos, m0, gd = layer1_inputs(tr, batch, x)
     # K2 at the shapes the full-width paths give it: SAGE's layer 1 in bf16
     # (norm "mean"; GCN bf16 runs the same tensors with "sum", checked
     # here too), and GCN float32's layer 1 (the same block in float32)
@@ -1318,8 +1569,7 @@ def main():
                      "identity": [*m1.shape, x.shape[1], off],
                      "gathered": [*m0.shape, *h_t.shape]},
           "k2_fill": fill, "results": results})
-    del (batch, blk0, blk1, x, k3, m1, h, h_t, pos, m0, agg, logits, loss,
-         gd)
+    del batch, blk0, blk1, x, k3, m1, h_t, pos, m0, gd
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full width ------------------------------------
@@ -1358,6 +1608,9 @@ def main():
     for dtype in ("bfloat16", "float32"):
         by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)
         torch.cuda.empty_cache()
+    # MeshTrainer at world size 1 through NCCL on the same graph
+    by_path["mesh_dp"] = mesh_dp(kernels, results, data, smi)
+    torch.cuda.empty_cache()
     del data
 
     # -- 5. it learns, and agrees with the plain versions on a small input --
@@ -1421,6 +1674,9 @@ def main():
 
     # -- 8. the host-topology path at uk-union class ------------------------
     by_path["hybrid_path"] = hybrid_path(kernels, results)
+
+    # -- 10. the command line, as a user runs it ----------------------------
+    cli_runs(smi)
 
     print(smi, flush=True)
     # launches: the count on the SAGE main path (phase 4), and for K5, which

@@ -8,8 +8,9 @@ JAX. ``tests/test_torch_cache.py`` holds the two equal.
 
 * candidate orders are hotness-descending (``:578-659``);
 * topology bytes per cached node are 8 + 4*degree;
-* the budget is one card's (the reference's cache group of one; striped
-  groups are not ported);
+* the budget is one card's, times ``group_size`` cards of a cache group
+  (the reference's single-device drivers plan for the group's whole
+  budget as well);
 * the budget split is swept in ``granularity`` steps; the saved traffic
   of a prefix is the total traffic x the prefix's hotness share; the
   split maximizing feature + topology savings wins (``:744-761``).
@@ -35,7 +36,8 @@ class CachePlanResult:
 
 def solve_cost_model(node_hot: np.ndarray, edge_hot: np.ndarray,
                      degrees: np.ndarray, budget_bytes: int,
-                     feat_row_bytes: int, granularity: float = 0.01,
+                     feat_row_bytes: int, group_size: int = 1,
+                     granularity: float = 0.01,
                      feat_cacheable: bool = True,
                      topo_cacheable: bool = True) -> CachePlanResult:
     """``feat_cacheable`` / ``topo_cacheable`` encode placement: a cache
@@ -45,7 +47,7 @@ def solve_cost_model(node_hot: np.ndarray, edge_hot: np.ndarray,
     node_hot = np.asarray(node_hot, np.int64)
     edge_hot = np.asarray(edge_hot, np.int64)
     n = node_hot.shape[0]
-    total = int(budget_bytes)
+    total = int(budget_bytes) * group_size
 
     # hotness-descending candidate orders (stable so ties are by id)
     feat_order = np.argsort(-node_hot, kind="stable").astype(np.int32)

@@ -1,0 +1,122 @@
+"""Data-parallel trainer: the full lifecycle (epochs, validation, test,
+checkpoint and resume) over ranks of ``torch.distributed``, each with the
+CSR and the whole feature table in its device's memory (counterpart of
+``legion_tpu/parallel/trainer.py``; the reference's per-GPU runners and
+DDP clients, ``src/Server.cu:116-133``, ``legion_graphsage.py:149-181``).
+
+Run one ``MeshTrainer`` in every rank of an initialized process group
+(``parallel.mesh.spawn`` starts them; ``fit_rank`` is the rank body the
+command line uses). Each rank draws its own batch of
+``cfg.sampler.batch_size`` seeds from its shard (``id % world``) in the
+lockstep seed plan, trains it, and ``dp.GradMean`` averages the gradients
+in one all-reduce a step. The caps are the loose ``frontier_caps``, as in
+the reference (no probe). Rank r's generator draws its own stream
+(``train.loop.rank_seed``: rank 0's is the ``Trainer``'s). The step's
+metrics stay on the device; one small all-reduce an epoch sums them over
+the ranks (the loss is then divided by the world size), and one more an
+evaluation sums the eval counts.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from legion_tpu_torch.config import Config
+from legion_tpu_torch.data.format import GraphData
+from legion_tpu_torch.parallel.dp import GradMean
+from legion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from legion_tpu_torch.sampling.seeds import epoch_train_seeds
+from legion_tpu_torch.train.loop import Trainer, rank_seed
+from legion_tpu_torch.train.train_state import save_checkpoint
+from legion_tpu_torch.utils import comm
+
+
+class MeshTrainer(Trainer):
+    """Data-parallel trainer over the (data x cache) ranks of the process
+    group, one rank per device; the global batch is world x
+    ``cfg.sampler.batch_size``. ``feature_placement`` "hbm" (or any other
+    value) puts the whole table on every device; "hbm_sharded" stripes it
+    over the cache axis in the reference, which is not ported yet: on a
+    cache axis of one it is the whole table, and it runs."""
+
+    def __init__(self, cfg: Config, data: GraphData,
+                 device: torch.device | str, mesh: Optional[Mesh] = None):
+        mesh = mesh if mesh is not None else make_mesh(cfg.cache.group_size)
+        if cfg.parallel.num_devices not in (0, mesh.world):
+            raise ValueError(
+                f"ParallelConfig(num_devices={cfg.parallel.num_devices}) "
+                f"but the process group has {mesh.world} ranks")
+        if cfg.dataset.feature_placement == "hbm_sharded" and mesh.cache > 1:
+            raise NotImplementedError(
+                "feature_placement='hbm_sharded' striped over a cache axis of "
+                f"{mesh.cache} ranks is not ported to legion_tpu_torch yet "
+                "(ROADMAP.md queue 1 item 4)")
+        self.mesh = mesh
+        self.rank = mesh.rank
+        self.log_suffix = f" [mesh {mesh.shape}]"
+        self._setup(cfg, data, device, mesh.world, probe=False,
+                    rank=mesh.rank, world=mesh.world, make_reducer=GradMean)
+
+    def train_one_epoch(self, epoch: int,
+                        uniforms: Optional[Callable] = None) -> Dict:
+        """One epoch of this rank's shard in lockstep with the others;
+        the record holds the figures of all ranks (mean loss per step,
+        summed edges and overflow)."""
+        rng = np.random.default_rng(self.cfg.train.seed * 100003 + epoch)
+        seeds, _ = epoch_train_seeds(rng, self.shards_train, self.plan)
+        t0 = time.perf_counter()
+        metrics = comm.all_reduce(
+            self._train_steps(seeds[self.rank], uniforms)).cpu()
+        metrics[:, 0] /= self.mesh.world
+        return self._epoch_record(epoch, metrics, time.perf_counter() - t0)
+
+    def evaluate(self, which: str = "valid",
+                 uniforms: Optional[Callable] = None) -> float:
+        """Accuracy (``lp_sage``: the mean LP loss per pair) over every
+        rank's share of the valid or test seeds; ranks whose shard ran
+        short evaluate -1 padding. Each rank's eval generator draws its
+        own stream."""
+        c, n = self.eval_counts(which, uniforms)
+        return c / max(n, 1.0)
+
+    def eval_counts(self, which: str = "valid",
+                    uniforms: Optional[Callable] = None):
+        """(correct, valid) counts of the valid or test set summed over
+        the ranks (``lp_sage``: LP loss sum and valid pairs)."""
+        seeds, counts = self._eval_seeds(which)
+        pair = self._eval_counts(seeds[self.rank], counts[self.rank],
+                                 rank_seed(12345, self.rank), uniforms)
+        c, n = comm.all_reduce(pair.to(torch.float64)).tolist()
+        return c, n
+
+    def save_checkpoint(self) -> None:
+        """Rank 0 writes the shared model and optimizer with every rank's
+        generator state."""
+        generators = comm.all_gather_object(self.state.generator.get_state())
+        if self.rank == 0:
+            save_checkpoint(self.cfg.train.checkpoint_dir, self.state,
+                            generators=generators)
+
+    def fit(self, epochs: Optional[int] = None,
+            log: Callable[[str], None] = print) -> Dict:
+        """``Trainer.fit`` in every rank; rank 0 logs."""
+        res = super().fit(epochs, log if self.rank == 0 else _quiet)
+        return {**res, "mesh": self.mesh.shape}
+
+
+def _quiet(_: str) -> None:
+    pass
+
+
+def fit_rank(device: torch.device, cfg_json: str, load: Callable,
+             load_kwargs: Dict) -> None:
+    """A rank's whole run, as ``parallel.mesh.spawn`` calls it: load the
+    dataset here (``load(**load_kwargs)``: a packed directory by mmap, or
+    a synthetic graph regenerated from its seed; nothing large crosses the
+    spawn) and fit a ``MeshTrainer`` on it."""
+    MeshTrainer(Config.from_json(cfg_json), load(**load_kwargs),
+                device).fit()

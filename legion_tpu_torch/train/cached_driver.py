@@ -51,19 +51,14 @@ def run_cached_training(cfg: Config, data: GraphData,
     ``lp_sage``), the caps, the staging capacity and the presample's
     seconds. With ``train.checkpoint_dir`` set it resumes from that
     directory's latest checkpoint, saves after every epoch and, with
-    ``train.checkpoint_every_steps``, within an epoch."""
-    if cfg.train.profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported to legion_tpu_torch yet "
-            "(queued in ROADMAP.md)")
-    if not (cfg.cache.enabled and cfg.dataset.feature_placement == "host"):
+    ``train.checkpoint_every_steps``, within an epoch. As the reference's
+    driver, it reads neither ``feature_placement`` (the features always
+    stay in host memory here) nor ``train.profile_dir``."""
+    if not cfg.cache.enabled:
         raise ValueError(
-            "run_cached_training keeps the features in host memory behind "
-            "the cache: it needs CacheConfig(enabled=True) and "
-            "feature_placement='host', got enabled="
-            f"{cfg.cache.enabled} and feature_placement="
-            f"{cfg.dataset.feature_placement!r} (train.loop.Trainer runs "
-            "features in device memory)")
+            "run_cached_training keeps the features behind the cache: it "
+            "needs CacheConfig(enabled=True), got enabled=False "
+            "(train.loop.Trainer runs features in device memory)")
     if cfg.dataset.topology_placement != "hbm":
         raise ValueError(
             "run_cached_training keeps the topology whole in device memory; "
@@ -107,7 +102,8 @@ def run_cached_training(cfg: Config, data: GraphData,
     cost = solve_cost_model(
         node_hot, hot.edge_hot.cpu().numpy(), data.degrees(),
         cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
-        topo_cacheable=False)
+        group_size=cfg.cache.group_size,
+        granularity=cfg.cache.cost_model_granularity, topo_cacheable=False)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"topo_cap={cost.topo_capacity}")
 

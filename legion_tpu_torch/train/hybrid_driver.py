@@ -80,24 +80,12 @@ def run_hybrid_training(cfg: Config, data: GraphData,
     (accuracy, or the LP loss for ``lp_sage``), the caps, the staging
     capacity and the presample's seconds. With ``train.checkpoint_dir``
     set it resumes from that directory's latest checkpoint, saves after
-    every epoch and, with ``train.checkpoint_every_steps``, within one."""
-    if cfg.train.profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported to legion_tpu_torch yet "
-            "(queued in ROADMAP.md)")
-    if not (cfg.dataset.topology_placement == "host"
-            and cfg.dataset.feature_placement == "host"
-            and cfg.cache.enabled):
-        raise ValueError(
-            "run_hybrid_training keeps the topology and the features in "
-            "host memory behind the two caches: it needs "
-            "topology_placement='host', feature_placement='host' and "
-            "CacheConfig(enabled=True), got topology_placement="
-            f"{cfg.dataset.topology_placement!r}, feature_placement="
-            f"{cfg.dataset.feature_placement!r} and enabled="
-            f"{cfg.cache.enabled} (train.loop.Trainer and "
-            "train.cached_driver.run_cached_training keep the topology in "
-            "device memory)")
+    every epoch and, with ``train.checkpoint_every_steps``, within one.
+    As the reference's driver, it reads neither placement, nor
+    ``CacheConfig.enabled``, nor ``train.profile_dir``: the topology and
+    the features stay in host memory here, and a zero budget gives two
+    empty caches (every hop and every feature row is served from the
+    host)."""
     device = torch.device(device)
     # int64 offsets and int32 ids as they are loaded: nothing is copied,
     # and the CSR never goes to the device whole
@@ -127,7 +115,9 @@ def run_hybrid_training(cfg: Config, data: GraphData,
     cache_dtype, row_bytes = cache_dtype_for(cfg.model.dtype,
                                              data.feature_dim)
     cost = solve_cost_model(node_hot, edge_hot, data.degrees(),
-                            cfg.cache.budget_bytes, feat_row_bytes=row_bytes)
+                            cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
+                            group_size=cfg.cache.group_size,
+                            granularity=cfg.cache.cost_model_granularity)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"topo_cap={cost.topo_capacity}")
     caps = observed_caps(max_per_hop, cfg.sampler.observed_cap_slack)

@@ -7,10 +7,15 @@ device value on the host: the loss, edge count and cap overflow of every
 step stay on the device and are fetched once per epoch, so the host runs
 ahead of the device and a later change can capture the step as a CUDA
 graph.
+
+With ``train.profile_dir`` set, epoch 0 runs under ``torch.profiler`` and
+its trace is written into that directory.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -36,8 +41,9 @@ from legion_tpu_torch.utils.logging import eval_labels, log_metrics
 
 
 def sum_edge_counts(per_step: torch.Tensor) -> int:
-    """Exact epoch edge total from per-step int32 counts, reduced on the
-    host in int64 (an int32 sum wraps past 2^31)."""
+    """Exact epoch edge total from per-step counts (int32, or float64
+    summed over ranks), reduced on the host in int64 (an int32 sum wraps
+    past 2^31)."""
     return int(per_step.cpu().to(torch.int64).sum())
 
 
@@ -106,13 +112,16 @@ class StepFns(NamedTuple):
     eval_step: Callable
 
 
-def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
+def make_step_fns(cfg: Config, caps: Sequence[int],
+                  reducer: Optional[Callable] = None) -> StepFns:
     """Build (train_step, eval_step) for static frontier caps.
 
     Randomness comes from ``state.generator`` (train) or the given
     ``generator`` (eval); parity tests pass per-hop ``uniforms`` instead
     (see sampler.sample_batch), and dropout still draws from the
-    generator."""
+    generator. ``reducer(model)``, when given, runs between the backward
+    pass and the optimizer step: the data-parallel gradient mean
+    (``parallel/dp.py``; the reference's ``shard_axes``)."""
     fanouts = tuple(cfg.sampler.fanouts)
     dedup_last = cfg.sampler.dedup_last
     caps = tuple(caps)
@@ -138,6 +147,8 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
         loss = loss_of(out, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if reducer is not None:
+            reducer(state.model)
         state.optimizer.step()
         state.step += 1
         edges = torch.stack([b.num_edges() for b in batch.blocks]).sum(
@@ -165,40 +176,60 @@ def make_step_fns(cfg: Config, caps: Sequence[int]) -> StepFns:
     return StepFns(train_step=train_step, eval_step=eval_step)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The generator seed of data-parallel rank ``rank``: ``seed`` itself
+    on rank 0 (so that rank 0 draws the single-device stream), a stream
+    of its own on every other rank."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
 class Trainer:
-    """Single-device trainer with the topology and features in device
-    memory. ``device`` is required: the trainer never picks one itself.
-    Host-resident features behind the cache (``feature_placement="host"``,
-    ``CacheConfig(enabled=True)``) go through
-    ``train.cached_driver.run_cached_training`` instead; the trainer
-    raises on either.
+    """Single-device trainer with the topology and the whole feature table
+    in device memory, whatever ``feature_placement`` says (as the
+    reference's ``Trainer`` does). ``device`` is required: the trainer
+    never picks one itself. It raises on ``topology_placement="host"``
+    (``train.hybrid_driver.run_hybrid_training``) and on
+    ``CacheConfig(enabled=True)`` (``train.cached_driver``).
+
+    ``num_shards > 1`` splits the seeds as the data-parallel drivers do;
+    ``train_one_epoch`` and ``evaluate`` then run one shard's seeds on
+    this one device, with no collective (``parallel.trainer.MeshTrainer``
+    runs every shard at once).
 
     With ``train.checkpoint_dir`` set, the trainer restores the latest
     checkpoint of that directory when it is built, ``fit`` saves one after
     every epoch, and a fresh trainer on the same directory goes on from
-    the saved epoch. Not ported yet (each raises when set):
-    ``train.profile_dir`` and ``num_shards > 1``."""
+    the saved epoch."""
+
+    log_suffix = ""                 # appended to each epoch's log line
 
     def __init__(self, cfg: Config, data: GraphData,
                  device: torch.device | str, num_shards: int = 1):
-        for unsupported, what in ((num_shards != 1, "num_shards > 1"),
-                                  (cfg.train.profile_dir, "profile_dir")):
-            if unsupported:
-                raise NotImplementedError(
-                    f"{what} is not ported to legion_tpu_torch yet "
-                    "(queued in ROADMAP.md)")
         if cfg.dataset.topology_placement != "hbm":
             raise ValueError(
                 f"Trainer keeps the topology in device memory; "
                 f"topology_placement={cfg.dataset.topology_placement!r} runs "
                 "through "
                 "legion_tpu_torch.train.hybrid_driver.run_hybrid_training")
-        if cfg.dataset.feature_placement != "hbm" or cfg.cache.enabled:
+        if cfg.cache.enabled:
             raise ValueError(
-                f"Trainer keeps the features in device memory; "
-                f"feature_placement={cfg.dataset.feature_placement!r} with "
-                f"CacheConfig(enabled={cfg.cache.enabled}) runs through "
+                "Trainer keeps the whole feature table in device memory; "
+                "CacheConfig(enabled=True) runs through "
                 "legion_tpu_torch.train.cached_driver.run_cached_training")
+        self._setup(cfg, data, device, num_shards, probe=True)
+
+    def _setup(self, cfg: Config, data: GraphData, device, num_shards: int,
+               probe: bool, rank: int = 0, world: int = 1,
+               make_reducer: Optional[Callable] = None) -> None:
+        """Graph and whole feature table on ``device``, the shards and
+        their seed plan, the caps, the model, a state whose generator
+        draws rank ``rank``'s stream (restored from the checkpoint, which
+        ``world`` ranks wrote, when there is one) and the step functions,
+        whose train step runs ``make_reducer(model)`` before the optimizer
+        step when it is given."""
         self.cfg = cfg
         self.data = data
         self.device = torch.device(device)
@@ -222,7 +253,7 @@ class Trainer:
         self.caps = frontier_caps(cfg.sampler.batch_size, cfg.sampler.fanouts)
         self.eval_caps = frontier_caps(cfg.sampler.eval_batch_size,
                                        cfg.sampler.fanouts)
-        if (cfg.sampler.probe_caps
+        if (probe and cfg.sampler.probe_caps
                 and self.caps[-1] >= cfg.sampler.probe_caps_min_cap):
             self.caps = self._probe_caps()
 
@@ -233,10 +264,14 @@ class Trainer:
             num_classes, cfg.model.num_layers, cfg.model.dropout,
             dtype=cfg.model.dtype, generator=init_gen).to(self.device)
         self.state = create_train_state(self.model, cfg.train.learning_rate,
-                                        cfg.train.seed, self.device)
+                                        rank_seed(cfg.train.seed, rank),
+                                        self.device)
         if cfg.train.checkpoint_dir:
-            restore_checkpoint(cfg.train.checkpoint_dir, self.state)
-        self.fns = make_step_fns(cfg, self.caps)
+            restore_checkpoint(cfg.train.checkpoint_dir, self.state,
+                               rank=rank, world=world)
+        self.fns = make_step_fns(
+            cfg, self.caps,
+            reducer=make_reducer(self.model) if make_reducer else None)
         self.fns_eval = make_step_fns(cfg, self.eval_caps)
         self.history: list[Dict] = []
 
@@ -278,24 +313,34 @@ class Trainer:
 
     # -- epoch loops --------------------------------------------------------
 
-    def train_one_epoch(self, epoch: int) -> Dict:
-        rng = np.random.default_rng(self.cfg.train.seed * 100003 + epoch)
-        seeds, _ = epoch_train_seeds(rng, self.shards_train, self.plan)
-        labels = np.asarray(self.data.labels, np.int32)[seeds[0]]
+    def _train_steps(self, seeds: np.ndarray,
+                     uniforms: Optional[Callable]) -> torch.Tensor:
+        """Train on (steps, batch) seeds; returns the steps' (loss, edges,
+        frontier, cap_overflow) as a (steps, 4) float64 device tensor.
+        ``uniforms(step, hop)`` replaces the generator's sampling draws
+        (parity tests); ``step`` is the state's global step."""
+        labels = np.asarray(self.data.labels, np.int32)[seeds]
         dev = self.device
-        t0 = time.perf_counter()
-        seeds_d = torch.from_numpy(seeds[0]).to(dev)
+        seeds_d = torch.from_numpy(seeds).to(dev)
         labels_d = torch.from_numpy(labels).to(dev)
         nb = torch.tensor(self.plan.train_batch, dtype=torch.int32, device=dev)
-        per_step = [self.fns.train_step(self.state, self.graph, self.features,
-                                        seeds_d[i], nb, labels_d[i])
-                    for i in range(self.plan.train_steps)]
-        # the epoch's only device -> host reads
-        losses = torch.stack([m["loss"] for m in per_step]).cpu().numpy()
-        edges = torch.stack([m["edges"] for m in per_step]).cpu()
-        overflow = int(torch.stack([m["cap_overflow"] for m in per_step])
-                       .sum(dtype=torch.int64))
-        dt = time.perf_counter() - t0
+        hops = range(len(self.cfg.sampler.fanouts))
+        per_step = []
+        for i in range(self.plan.train_steps):
+            u = (None if uniforms is None
+                 else [uniforms(self.state.step, k) for k in hops])
+            per_step.append(self.fns.train_step(
+                self.state, self.graph, self.features, seeds_d[i], nb,
+                labels_d[i], uniforms=u))
+        return torch.stack([torch.stack([m[k] for m in per_step]).to(
+            torch.float64) for k in ("loss", "edges", "frontier",
+                                     "cap_overflow")], dim=1)
+
+    def _epoch_record(self, epoch: int, metrics: torch.Tensor,
+                      dt: float) -> Dict:
+        """The epoch's record from its (steps, 4) host metrics."""
+        losses = metrics[:, 0].to(torch.float32).numpy()
+        overflow = int(metrics[:, 3].sum())
         if overflow > 0:
             log_metrics({"event": "cap_overflow", "epoch": epoch,
                          "dropped_frontier_ids": overflow,
@@ -306,54 +351,106 @@ class Trainer:
         rec = {"epoch": epoch, "loss": float(losses[-1]),
                "mean_loss": float(losses.mean()), "losses": losses.tolist(),
                "steps": self.plan.train_steps, "epoch_s": dt,
-               "edges_per_s": sum_edge_counts(edges) / dt,
+               "edges_per_s": sum_edge_counts(metrics[:, 1]) / dt,
                "cap_overflow": overflow, "feature_gb": feat_bytes / 2 ** 30}
         self.history.append(rec)
         log_metrics({"event": "train_epoch", **rec})
         return rec
 
-    def evaluate(self, which: str = "valid") -> float:
-        """Accuracy over the valid or test seeds; for ``lp_sage`` the
-        mean LP loss per valid pair (lower is better)."""
+    def _profiler(self, epoch: int):
+        """torch.profiler around epoch 0 when ``train.profile_dir`` is set
+        (the reference's only reader of it), else nothing."""
+        if not (self.cfg.train.profile_dir and epoch == 0):
+            return contextlib.nullcontext()
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=acts)
+
+    def train_one_epoch(self, epoch: int, shard: int = 0,
+                        uniforms: Optional[Callable] = None) -> Dict:
+        rng = np.random.default_rng(self.cfg.train.seed * 100003 + epoch)
+        seeds, _ = epoch_train_seeds(rng, [self.shards_train[shard]],
+                                     self.plan)
+        t0 = time.perf_counter()
+        with self._profiler(epoch) as prof:
+            # the epoch's only device -> host read
+            metrics = self._train_steps(seeds[0], uniforms).cpu()
+        dt = time.perf_counter() - t0
+        if prof is not None:
+            os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self.cfg.train.profile_dir, "epoch_0.pt.trace.json"))
+        return self._epoch_record(epoch, metrics, dt)
+
+    def _eval_counts(self, seeds: np.ndarray, counts: np.ndarray, seed: int,
+                     uniforms: Optional[Callable]) -> torch.Tensor:
+        """(correct, valid) summed over (steps, cap) eval seeds, as a
+        float32 device pair; for ``lp_sage`` the (LP loss sum, pairs)."""
+        labels_all = np.asarray(self.data.labels)
+        lab = np.where(seeds >= 0, labels_all[np.clip(seeds, 0, None)],
+                       -1).astype(np.int32)
+        dev = self.device
+        seeds_d = torch.from_numpy(seeds).to(dev)
+        counts_d = torch.from_numpy(counts).to(dev)
+        lab_d = torch.from_numpy(lab).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        hops = range(len(self.cfg.sampler.fanouts))
+        correct = torch.zeros((), dtype=torch.float32, device=dev)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for t in range(seeds.shape[0]):
+            u = None if uniforms is None else [uniforms(t, k) for k in hops]
+            a, b = self.fns_eval.eval_step(self.model, self.graph,
+                                           self.features, seeds_d[t],
+                                           counts_d[t], lab_d[t],
+                                           generator=gen, uniforms=u)
+            correct += a
+            total += b
+        return torch.stack([correct, total])
+
+    def _eval_seeds(self, which: str):
+        """Every shard's (seeds, counts) of the valid or test set, in the
+        lockstep plan: (shards, steps, cap), short shards padded with -1."""
         shards = self.shards_valid if which == "valid" else self.shards_test
         steps = (self.plan.valid_steps if which == "valid"
                  else self.plan.test_steps)
         per = (self.plan.valid_batch if which == "valid"
                else self.plan.test_batch)
-        cap = self.cfg.sampler.eval_batch_size
-        seeds, counts = epoch_eval_seeds(shards, steps, per, cap)
-        labels_all = np.asarray(self.data.labels)
-        lab = np.where(seeds[0] >= 0, labels_all[np.clip(seeds[0], 0, None)],
-                       -1).astype(np.int32)
-        dev = self.device
-        seeds_d = torch.from_numpy(seeds[0]).to(dev)
-        counts_d = torch.from_numpy(counts[0]).to(dev)
-        lab_d = torch.from_numpy(lab).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(12345)
-        correct = torch.zeros((), dtype=torch.float32, device=dev)
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(steps):
-            a, b = self.fns_eval.eval_step(self.model, self.graph,
-                                           self.features, seeds_d[t],
-                                           counts_d[t], lab_d[t],
-                                           generator=gen)
-            correct += a
-            total += b
-        return float(correct) / max(float(total), 1.0)
+        return epoch_eval_seeds(shards, steps, per,
+                                self.cfg.sampler.eval_batch_size)
+
+    def evaluate(self, which: str = "valid", shard: int = 0,
+                 uniforms: Optional[Callable] = None) -> float:
+        """Accuracy over one shard's valid or test seeds; for ``lp_sage``
+        the mean LP loss per valid pair (lower is better)."""
+        seeds, counts = self._eval_seeds(which)
+        c, n = self._eval_counts(seeds[shard], counts[shard], 12345,
+                                 uniforms).tolist()
+        return c / max(n, 1.0)
+
+    def save_checkpoint(self) -> None:
+        """Write the state into ``train.checkpoint_dir``."""
+        save_checkpoint(self.cfg.train.checkpoint_dir, self.state)
 
     def fit(self, epochs: Optional[int] = None,
             log: Callable[[str], None] = print) -> Dict:
+        """Train to ``epochs`` with validation after each (a checkpoint
+        after each too, with ``train.checkpoint_dir``), then test."""
         epochs = epochs or self.cfg.train.epochs
+        start = self.state.epoch
+        if start > 0:
+            log(f"resumed from checkpoint at epoch {start}")
         vlab, tlab = eval_labels(self.cfg)
-        for epoch in range(self.state.epoch, epochs):
+        for epoch in range(start, epochs):
             rec = self.train_one_epoch(epoch)
             acc = self.evaluate("valid")
             self.state.epoch = epoch + 1
             log(f"Epoch:{epoch}, Cost:{rec['epoch_s']:.3f} s, "
                 f"Loss:{rec['loss']:.4f}, {vlab}: {acc:.4f}, "
-                f"edges/s: {rec['edges_per_s']:.3e}")
+                f"edges/s: {rec['edges_per_s']:.3e}{self.log_suffix}")
+            rec["valid"] = acc
             if self.cfg.train.checkpoint_dir:
-                save_checkpoint(self.cfg.train.checkpoint_dir, self.state)
+                self.save_checkpoint()
         test_acc = self.evaluate("test")
         log(f"{tlab}: {test_acc:.4f}")
         return {"test_acc": test_acc, "history": self.history}

@@ -7,7 +7,8 @@ device generator drives both sampling and dropout, as one PRNG key does
 in the reference. The whole state (parameters, Adam moments, step and
 epoch counters, the generator's state) round-trips through ``torch.save``
 into ``<dir>/step_<n>``, so a run killed after a save resumes exactly
-where the saved state stood.
+where the saved state stood. A data-parallel run saves every rank's
+generator state (``generators``), and each rank restores its own.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -40,15 +41,19 @@ def create_train_state(model: torch.nn.Module, learning_rate: float,
     return TrainState(model=model, optimizer=opt, generator=gen)
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    generators: Optional[List[torch.Tensor]] = None) -> str:
     """Write the state to ``<ckpt_dir>/step_<state.step>`` (replacing a
     file of that step) and return the path. The file appears whole or not
-    at all: it is written beside its place and renamed."""
+    at all: it is written beside its place and renamed. ``generators``:
+    every rank's generator state, in rank order, where ranks share the
+    model and the optimizer but each draws its own stream."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {"model": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": state.step, "epoch": state.epoch,
-               "generator": state.generator.get_state()}
+               "generators": (generators if generators is not None
+                              else [state.generator.get_state()])}
     path = os.path.join(ckpt_dir, f"step_{state.step}")
     tmp = f"{path}.tmp{os.getpid()}"
     try:
@@ -72,19 +77,25 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, f"step_{max(steps)}")
 
 
-def restore_checkpoint(ckpt_dir: str,
-                       state: TrainState) -> Optional[TrainState]:
+def restore_checkpoint(ckpt_dir: str, state: TrainState, rank: int = 0,
+                       world: int = 1) -> Optional[TrainState]:
     """Load the latest checkpoint of ckpt_dir into ``state`` (its model,
-    optimizer and generator, in place, on their devices) and return it;
-    None, with ``state`` untouched, when there is no checkpoint."""
+    optimizer and rank ``rank``'s generator, in place, on their devices)
+    and return it; None, with ``state`` untouched, when there is no
+    checkpoint. A checkpoint resumes at the world size that wrote it."""
     path = latest_checkpoint(ckpt_dir)
     if path is None:
         return None
     device = next(state.model.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
+    # a file written before data-parallel runs holds one "generator"
+    generators = payload.get("generators") or [payload["generator"]]
+    if len(generators) != world:
+        raise ValueError(f"{path} holds the generator states of "
+                         f"{len(generators)} rank(s); this run has {world}")
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    state.generator.set_state(payload["generator"].cpu())
+    state.generator.set_state(generators[rank].cpu())
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
     return state

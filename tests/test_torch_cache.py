@@ -142,6 +142,9 @@ def test_presample_hotness_from_a_generator(small_graph):
     dict(budget_bytes=50_000, feat_row_bytes=64, granularity=0.1,
          feat_cacheable=False),
     dict(budget_bytes=10 ** 9, feat_row_bytes=128),
+    dict(budget_bytes=20_000, feat_row_bytes=64, group_size=2),
+    dict(budget_bytes=20_000, feat_row_bytes=64, group_size=2,
+         granularity=0.05, topo_cacheable=False),
     dict(budget_bytes=5_000, feat_row_bytes=64, feat_cacheable=False,
          topo_cacheable=False)])
 def test_solve_cost_model_matches_jax(small_graph, kw):
@@ -393,23 +396,131 @@ def test_run_cached_training_end_to_end(small_graph):
     assert logs[-1].startswith("Accuracy on test data")
 
 
+@pytest.fixture(scope="module")
+def host_features_run(small_graph):
+    """The port's cached driver on its usual config (host features)."""
+    return run_cached_training(
+        _cfg(port_config, small_graph.num_classes, budget_bytes=64 * 1024),
+        small_graph, "cpu", log=lambda s: None)
+
+
+def _same_history(res, want):
+    assert [h["losses"] for h in res["history"]] == [
+        h["losses"] for h in want["history"]]
+    assert [h["valid"] for h in res["history"]] == [
+        h["valid"] for h in want["history"]]
+    assert res["test_acc"] == want["test_acc"]
+
+
+def _run_both_drivers(cfg_of, g, monkeypatch):
+    """The reference's ``run_cached_training`` on ``cfg_of(jax_config)``,
+    then the port's on ``cfg_of(port_config)`` from the reference's
+    initial weights, at the reference's caps, with every batch (train and
+    eval) drawn from the uniforms of the reference's key for that batch:
+    train step i of epoch e ``fold_in(fold_in(PRNGKey(seed), e), i)``,
+    eval step t ``fold_in(PRNGKey(4242), t)``. The cache's contents may
+    differ (each side presamples its own hotness), but with float32 rows
+    and no staging overflow the merged features are the host's rows
+    either way. Returns (port result, reference result)."""
+    from legion_tpu.train import cached_driver as jax_driver
+    from legion_tpu_torch.cache import pipeline as port_pipeline
+    from legion_tpu_torch.train import cached_driver as port_driver
+    seen = {}
+    jcaps, jstate = jax_driver.observed_caps, jax_driver.create_train_state
+
+    def caps_spy(*a, **k):
+        seen["caps"] = jcaps(*a, **k)
+        return seen["caps"]
+
+    def state_spy(params, *a, **k):
+        seen["params"] = jax.tree_util.tree_map(np.array, params)
+        return jstate(params, *a, **k)
+    monkeypatch.setattr(jax_driver, "observed_caps", caps_spy)
+    monkeypatch.setattr(jax_driver, "create_train_state", state_spy)
+    jcfg = cfg_of(jax_config)
+    jres = jax_run_cached_training(jcfg, g, log=lambda s: None)
+
+    build = port_driver.build_model
+
+    def build_from_ref(*a, **k):
+        m = build(*a, **k)
+        m.load_state_dict(params_from_flax(seen["params"]))
+        return m
+    monkeypatch.setattr(port_driver, "build_model", build_from_ref)
+    monkeypatch.setattr(port_driver, "observed_caps",
+                        lambda *a, **k: seen["caps"])
+    sched = {}
+    run_epoch, eval_epoch = CachedTrainer.run_epoch, CachedTrainer.eval_epoch
+
+    def run_epoch_keyed(self, state, *a, **k):
+        sched.update(key=jax.random.fold_in(
+            jax.random.PRNGKey(jcfg.train.seed), state.epoch), i=0)
+        return run_epoch(self, state, *a, **k)
+
+    def eval_epoch_keyed(self, *a, **k):
+        sched.update(key=jax.random.PRNGKey(4242), i=0)
+        return eval_epoch(self, *a, **k)
+    sample = port_pipeline.sample_batch
+
+    def sample_keyed(*a, generator, **k):
+        key = jax.random.fold_in(sched["key"], sched["i"])
+        sched["i"] += 1
+        return sample(*a, uniforms=torch_uniforms(key, a[5], a[4]), **k)
+    monkeypatch.setattr(CachedTrainer, "run_epoch", run_epoch_keyed)
+    monkeypatch.setattr(CachedTrainer, "eval_epoch", eval_epoch_keyed)
+    monkeypatch.setattr(port_pipeline, "sample_batch", sample_keyed)
+    return run_cached_training(cfg_of(port_config), g, "cpu",
+                               log=lambda s: None), jres
+
+
 @pytest.mark.parametrize("placement,enabled", [("host", False),
                                                ("hbm", True),
                                                ("hbm", False)])
 def test_run_cached_training_needs_host_features_and_the_cache(
-        small_graph, placement, enabled):
-    cfg = _cfg(port_config, 7)
-    cfg = dataclasses.replace(
-        cfg, dataset=port_config.DatasetConfig(feature_placement=placement),
-        cache=port_config.CacheConfig(enabled=enabled))
-    with pytest.raises(ValueError, match="enabled=True"):
-        run_cached_training(cfg, small_graph, "cpu")
+        small_graph, monkeypatch, placement, enabled):
+    """With the cache on, ``feature_placement`` is not read (the
+    reference's driver reads neither it nor ``enabled``; ``train.py``'s
+    dispatch sends a ``--config`` with "hbm" here): "hbm" trains as the
+    reference's driver does on the same config. From its initial weights,
+    at its caps, on its batches' uniforms and with dropout 0, each epoch's
+    last loss agrees within rtol 1e-4 / atol 1e-5 and the validation and
+    test accuracies within 1e-6; the cache plan is the same size and
+    neither side overflows its staging. The cache off stays refused: the
+    dispatch never sends it here."""
+    g = small_graph
+
+    def cfg_of(cm):
+        c = _cfg(cm, g.num_classes, budget_bytes=64 * 1024)
+        return dataclasses.replace(
+            c, dataset=dataclasses.replace(c.dataset,
+                                           feature_placement=placement),
+            cache=dataclasses.replace(c.cache, enabled=enabled))
+    if not enabled:
+        with pytest.raises(ValueError, match="enabled=True"):
+            run_cached_training(cfg_of(port_config), g, "cpu")
+        return
+    res, jres = _run_both_drivers(cfg_of, g, monkeypatch)
+    assert res["cost"].feat_capacity == jres["cost"].feat_capacity == 512
+    assert len(res["history"]) == len(jres["history"]) == 2
+    for h, jh in zip(res["history"], jres["history"]):
+        assert h["steps"] == jh["steps"] > 1
+        assert h["staging_overflow"] == jh["staging_overflow"] == 0
+        assert 0.0 < h["cache_hit_rate"] < 1.0
+        np.testing.assert_allclose(h["loss"], jh["loss"], rtol=1e-4,
+                                   atol=1e-5)
+        assert h["valid"] == pytest.approx(jh["valid"], abs=1e-6)
+    assert res["test_acc"] == pytest.approx(jres["test_acc"], abs=1e-6)
 
 
 @pytest.mark.parametrize("what", ["profile_dir"])
-def test_run_cached_training_rejects_unported_settings(small_graph, what):
-    cfg = _cfg(port_config, 7)
+def test_run_cached_training_rejects_unported_settings(
+        small_graph, host_features_run, tmp_path, what):
+    """``profile_dir`` is accepted and not read, as in the reference (only
+    the ``Trainer`` profiles): the same run, and nothing in the
+    directory. (The name dates from when the setting was refused.)"""
+    cfg = _cfg(port_config, small_graph.num_classes, budget_bytes=64 * 1024)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, **{what: "x"}))
-    with pytest.raises(NotImplementedError, match=what):
-        run_cached_training(cfg, small_graph, "cpu")
+        cfg.train, **{what: str(tmp_path / "p")}))
+    _same_history(run_cached_training(cfg, small_graph, "cpu",
+                                      log=lambda s: None), host_features_run)
+    assert not (tmp_path / "p").exists()

@@ -88,6 +88,25 @@ def test_checkpoint_round_trips_every_field(tmp_path):
                        torch.rand(7, generator=state.generator))
 
 
+def test_checkpoint_of_the_one_generator_format_restores(tmp_path):
+    """A file that holds one ``generator`` (the format before every
+    rank's ``generators``) restores at world size 1, and a world of two
+    is told how many ranks wrote it."""
+    ck = str(tmp_path / "ck")
+    state = _stepped_state()
+    path = save_checkpoint(ck, state)
+    payload = torch.load(path, weights_only=True)
+    payload["generator"] = payload.pop("generators")[0]
+    torch.save(payload, path)
+    fresh = _stepped_state(seed=5, steps=0)
+    assert restore_checkpoint(ck, fresh) is fresh
+    assert (fresh.step, fresh.epoch) == (2, 1)
+    assert torch.equal(fresh.generator.get_state(),
+                       state.generator.get_state())
+    with pytest.raises(ValueError, match="of 1 rank"):
+        restore_checkpoint(ck, _stepped_state(steps=0), rank=1, world=2)
+
+
 def test_latest_checkpoint_takes_the_highest_step(tmp_path):
     ck = str(tmp_path / "ck")
     assert latest_checkpoint(ck) is None             # no directory
@@ -178,9 +197,21 @@ def test_cached_driver_kill_and_resume(small_graph, tmp_path, arch):
     assert out2["state"].epoch == 2 and out2["state"].step == 2 * steps
 
 
-def test_profile_dir_still_raises(small_graph):
-    cfg = _cfg("sage", small_graph.num_classes, 1)
+def test_profile_dir_still_raises(small_graph, tmp_path):
+    """``profile_dir`` now runs (``Trainer`` profiles epoch 0, the
+    reference's only reader of it): a profiled run that checkpoints gives
+    exactly the unprofiled run's losses, writes the trace, and a fresh
+    trainer on its checkpoint resumes at epoch 1. (The name dates from
+    when the setting was refused.)"""
+    g = small_graph
+    want = Trainer(_cfg("sage", g.num_classes, 1), g,
+                   device="cpu").fit(log=lambda s: None)
+    prof, ck = tmp_path / "p", str(tmp_path / "ck")
+    cfg = _cfg("sage", g.num_classes, 1, ck)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, profile_dir="p"))
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        Trainer(cfg, small_graph, device="cpu")
+        cfg.train, profile_dir=str(prof)))
+    got = Trainer(cfg, g, device="cpu").fit(log=lambda s: None)
+    assert got["history"][0]["losses"] == want["history"][0]["losses"]
+    assert got["test_acc"] == want["test_acc"]
+    assert (prof / "epoch_0.pt.trace.json").is_file()
+    assert Trainer(cfg, g, device="cpu").state.epoch == 1

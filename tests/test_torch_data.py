@@ -36,7 +36,7 @@ def _defaults(cls):
 
 @pytest.mark.parametrize("name", ["DatasetConfig", "SamplerConfig",
                                   "ModelConfig", "TrainConfig",
-                                  "CacheConfig"])
+                                  "CacheConfig", "ParallelConfig"])
 def test_config_sections_match_reference(name):
     port, ref = (_defaults(getattr(port_config, name)),
                   _defaults(getattr(jax_config, name)))
@@ -45,46 +45,45 @@ def test_config_sections_match_reference(name):
 
 
 def test_config_holds_the_ported_fields():
-    """The fields the port acts on; the rest of the reference's are left
-    out, so setting one fails instead of being ignored."""
+    """The reference's fields, less ``TrainConfig.scan_unroll`` (it tunes
+    ``lax.scan``; the port's epoch is a Python loop): the fields left out
+    before the command line and the cost model's group came in now
+    construct."""
     cfg = port_config.Config()
     got = {f.name: sorted(_defaults(type(getattr(cfg, f.name))))
            for f in dataclasses.fields(cfg)}
-    assert got == {
-        "dataset": ["feature_pad_align", "feature_placement", "num_classes",
-                    "topology_placement"],
-        "sampler": sorted(_defaults(jax_config.SamplerConfig)),
-        "model": sorted(_defaults(jax_config.ModelConfig)),
-        "train": ["checkpoint_dir", "checkpoint_every_steps", "epochs",
-                  "learning_rate", "pipeline_depth", "profile_dir", "seed"],
-        "cache": sorted(set(_defaults(jax_config.CacheConfig))
-                        - {"group_size", "cost_model_granularity"})}
+    ref = jax_config.Config()
+    want = {f.name: sorted(_defaults(type(getattr(ref, f.name))))
+            for f in dataclasses.fields(ref)}
+    want["train"].remove("scan_unroll")
+    assert got == want
     with pytest.raises(TypeError):
         port_config.TrainConfig(scan_unroll=2)
-    # the host-topology placement is a field now, with the reference's
+    # the host-topology placement is a field, with the reference's
     # default and values
     assert (port_config.DatasetConfig().topology_placement
             == jax_config.DatasetConfig().topology_placement == "hbm")
     assert port_config.DatasetConfig(
         topology_placement="host").topology_placement == "host"
-    with pytest.raises(TypeError):
-        port_config.DatasetConfig(name="ogbn-products")
-    with pytest.raises(TypeError):
-        port_config.CacheConfig(cost_model_granularity=0.1)
+    assert port_config.DatasetConfig(
+        name="ogbn-products").name == "ogbn-products"
+    assert port_config.CacheConfig(
+        cost_model_granularity=0.1).cost_model_granularity == 0.1
+    assert port_config.CacheConfig(group_size=2).group_size == 2
 
 
 def test_config_rejects_unported_values():
-    """Values of a kept field that name an unported path raise."""
+    """Every placement the reference names constructs ("hbm_sharded"
+    included: the single-device drivers hold the whole table, and
+    ``MeshTrainer`` refuses it only striped over more than one rank);
+    a value no driver knows raises."""
     assert port_config.DatasetConfig(feature_placement="host")
-    with pytest.raises(NotImplementedError, match="hbm_sharded"):
-        port_config.DatasetConfig(feature_placement="hbm_sharded")
+    assert port_config.DatasetConfig(
+        feature_placement="hbm_sharded").feature_placement == "hbm_sharded"
     with pytest.raises(ValueError, match="feature_placement"):
         port_config.DatasetConfig(feature_placement="disk")
     with pytest.raises(ValueError, match="topology_placement"):
         port_config.DatasetConfig(topology_placement="disk")
-    # a striped cache (group_size > 1) has no field to set
-    with pytest.raises(TypeError, match="group_size"):
-        port_config.CacheConfig(group_size=2)
 
 
 def _assert_same_graph(got, want):

@@ -629,14 +629,102 @@ def test_hybrid_driver_kill_and_resume(small_graph, tmp_path, arch):
 @pytest.mark.parametrize("topo,feat,enabled", [
     ("hbm", "host", True), ("host", "hbm", True), ("host", "host", False)])
 def test_run_hybrid_training_refuses_another_drivers_config(
-        small_graph, topo, feat, enabled):
-    cfg = _cfg(port_config, 7)
+        small_graph, driver_runs, topo, feat, enabled):
+    """The driver reads neither placement nor ``enabled``, as the
+    reference's does (``train.py --synthetic N --topology host`` sends it
+    ``topology_placement="hbm"``; a ``--config`` may send the rest): each
+    config runs exactly as the fixture's host / host / enabled run, which
+    is held against the reference's driver above. (The name dates from
+    when these configs were refused.)"""
+    cfg = _cfg(port_config, small_graph.num_classes)
     cfg = dataclasses.replace(
-        cfg, dataset=port_config.DatasetConfig(topology_placement=topo,
-                                               feature_placement=feat),
-        cache=port_config.CacheConfig(enabled=enabled))
-    with pytest.raises(ValueError, match="topology_placement='host'"):
-        run_hybrid_training(cfg, small_graph, "cpu")
+        cfg, dataset=dataclasses.replace(cfg.dataset,
+                                         topology_placement=topo,
+                                         feature_placement=feat),
+        cache=dataclasses.replace(cfg.cache, enabled=enabled))
+    res = run_hybrid_training(cfg, small_graph, "cpu", log=lambda s: None)
+    want = driver_runs[0]
+    assert [h["losses"] for h in res["history"]] == [
+        h["losses"] for h in want["history"]]
+    assert res["test_acc"] == want["test_acc"]
+    assert res["cost"].feat_capacity == want["cost"].feat_capacity > 0
+
+
+def test_run_hybrid_training_with_no_budget_matches_the_reference(
+        small_graph, monkeypatch):
+    """``train.py --topology host`` with no ``--cache-budget-gb`` (the
+    fault of ROADMAP queue 3, closed): features "hbm", the cache off and a
+    zero budget train through the hybrid driver with two empty caches,
+    every hop and every row served from the host. From the reference's
+    initial weights, with dropout 0, the batches are the host sampler's
+    alone, so each epoch's last loss agrees with the reference's within
+    rtol 1e-4 / atol 1e-5 and the validation and test figures are
+    equal. The reference's own run stops at its first gather from an
+    empty cache: JAX cannot gather from the zero-size ``sub_indices`` of
+    the empty sub-CSR (``TopoCache.sample_hot``) nor from the zero rows of
+    the empty feature cache (``FeatureCache.combine_rows``), a fault of
+    the reference (ROADMAP queue 3). So here each of its empty caches
+    holds one entry that nothing reads, as the port's sub-CSR does
+    (``topo_cache.py``)."""
+    from legion_tpu_torch.models.convert import params_from_flax
+    from legion_tpu_torch.train import hybrid_driver as port_driver
+    r = _ref()
+    g = small_graph
+
+    def cfg(cm):
+        c = _cfg(cm, g.num_classes, budget=0)
+        return dataclasses.replace(
+            c, dataset=dataclasses.replace(c.dataset,
+                                           feature_placement="hbm"),
+            cache=dataclasses.replace(c.cache, enabled=False))
+
+    jbuild = r.TopoCache.build.__func__
+
+    def build_padded(cls, *a, **k):
+        t = jbuild(cls, *a, **k)
+        if t.sub_indices.shape[0] == 0:
+            t = t._replace(sub_indices=r.jnp.zeros((1,), r.jnp.int32))
+        return t
+    monkeypatch.setattr(r.TopoCache, "build", classmethod(build_padded))
+    fbuild = r.FeatureCache.build.__func__
+
+    def fbuild_padded(cls, *a, **k):
+        c = fbuild(cls, *a, **k)
+        if c.rows.shape[0] == 0:
+            c = cls(c.hot_ids, r.jnp.zeros((1, c.rows.shape[1]),
+                                            c.rows.dtype),
+                    c.host_features, c.miss_cap)
+        return c
+    monkeypatch.setattr(r.FeatureCache, "build", classmethod(fbuild_padded))
+    init = {}
+    jstate = r.hybrid_driver.create_train_state
+
+    def spy(params, *a, **k):
+        init["params"] = r.jax.tree_util.tree_map(np.array, params)
+        return jstate(params, *a, **k)
+    monkeypatch.setattr(r.hybrid_driver, "create_train_state", spy)
+    jres = r.hybrid_driver.run_hybrid_training(cfg(r.config), g,
+                                               log=lambda s: None)
+    build = port_driver.build_model
+
+    def build_from_ref(*a, **k):
+        m = build(*a, **k)
+        m.load_state_dict(params_from_flax(init["params"]))
+        return m
+    monkeypatch.setattr(port_driver, "build_model", build_from_ref)
+    res = run_hybrid_training(cfg(port_config), g, "cpu", log=lambda s: None)
+
+    assert (res["cost"].feat_capacity, res["cost"].topo_capacity) == (0, 0)
+    assert (jres["cost"].feat_capacity, jres["cost"].topo_capacity) == (0, 0)
+    assert len(res["history"]) == len(jres["history"]) == 2
+    for h, jh in zip(res["history"], jres["history"]):
+        assert h["steps"] == jh["steps"]
+        assert h["feat_hit_rate"] == jh["feat_hit_rate"] == 0.0
+        assert h["topo_hot_fraction"] == jh["topo_hot_fraction"] == 0.0
+        np.testing.assert_allclose(h["loss"], jh["loss"], rtol=1e-4,
+                                   atol=1e-5)
+        assert h["valid"] == pytest.approx(jh["valid"], abs=1e-6)
+    assert res["test_acc"] == pytest.approx(jres["test_acc"], abs=1e-6)
 
 
 def test_the_other_drivers_refuse_host_topology(small_graph):
@@ -647,12 +735,23 @@ def test_the_other_drivers_refuse_host_topology(small_graph):
         Trainer(dataclasses.replace(
             cfg, dataset=port_config.DatasetConfig(topology_placement="host"),
             cache=port_config.CacheConfig()), small_graph, device="cpu")
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        run_hybrid_training(dataclasses.replace(
-            cfg, train=dataclasses.replace(cfg.train, profile_dir="p")),
-            small_graph, "cpu")
     with pytest.raises(ValueError, match="topology_placement"):
         port_config.DatasetConfig(topology_placement="disk")
+
+
+def test_run_hybrid_training_accepts_profile_dir(small_graph, driver_runs,
+                                                 tmp_path):
+    """``profile_dir`` is accepted and not read, as in the reference (only
+    the ``Trainer`` profiles): the fixture's run exactly, and nothing in
+    the directory."""
+    cfg = _cfg(port_config, small_graph.num_classes)
+    res = run_hybrid_training(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train,
+                                       profile_dir=str(tmp_path / "p"))),
+        small_graph, "cpu", log=lambda s: None)
+    assert [h["losses"] for h in res["history"]] == [
+        h["losses"] for h in driver_runs[0]["history"]]
+    assert not (tmp_path / "p").exists()
 
 
 # -- on the card -------------------------------------------------------------

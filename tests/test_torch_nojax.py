@@ -1,6 +1,7 @@
 """The port must not load JAX: importing legion_tpu_torch and its sampling,
-ops, models, cache, data, train and tools modules in a fresh interpreter leaves
-jax, flax, optax and orbax out of sys.modules."""
+ops, models, cache, data, train (its command line included), parallel,
+utils and tools modules in a fresh interpreter leaves jax, flax, optax and
+orbax out of sys.modules."""
 
 import os
 import subprocess
@@ -45,6 +46,12 @@ import legion_tpu_torch.tools.ab_trainer
 import legion_tpu_torch.tools.k2_bench
 import legion_tpu_torch.tools.pa_cell
 import legion_tpu_torch.tools.profile_cached
+import legion_tpu_torch.parallel
+import legion_tpu_torch.parallel.dp
+import legion_tpu_torch.parallel.mesh
+import legion_tpu_torch.parallel.trainer
+import legion_tpu_torch.utils.comm
+import legion_tpu_torch.train.__main__
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
                 if m in sys.modules)
 print("LOADED", loaded)

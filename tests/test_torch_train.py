@@ -9,6 +9,7 @@ by |g| + eps, so entries with |g| near eps magnify float32 summation-order
 differences."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -199,27 +200,119 @@ def test_cap_overflow_metric_fires(small_graph):
     assert int(m["cap_overflow"]) > 0
 
 
+# -- the Trainer's epoch against legion_tpu's, with its key schedule ---------
+
+def _ref_epoch(g, cfg, num_shards=1, shard=0):
+    """The reference Trainer's first epoch and validation pass on ``shard``:
+    its initial and final params, its epoch record, its valid accuracy,
+    and the uniforms its key schedule draws (train: ``fold_in(rng,
+    step)`` split into the sampling key; eval: ``split(PRNGKey(12345),
+    steps)``), as ``uniforms(step, hop)`` callables for the port."""
+    from legion_tpu.train.loop import Trainer as JaxTrainer
+    jtr = JaxTrainer(cfg, g, num_shards=num_shards)
+    params0 = jax.tree_util.tree_map(np.array, jtr.state.params)
+    train_u = []
+    for s in range(jtr.plan.train_steps):
+        skey, _ = jax.random.split(jax.random.fold_in(jtr.state.rng, s))
+        train_u.append(torch_uniforms(skey, jtr.caps, FANOUTS))
+    eval_u = [torch_uniforms(k, jtr.eval_caps, FANOUTS) for k in
+              jax.random.split(jax.random.PRNGKey(12345),
+                               jtr.plan.valid_steps)]
+    rec = jtr.train_one_epoch(0, shard)
+    return dict(params0=params0, rec=rec,
+                params1=params_from_flax(jtr.state.params),
+                valid=jtr.evaluate("valid", shard),
+                train_u=lambda s, k: train_u[s][k],
+                eval_u=lambda t, k: eval_u[t][k])
+
+
+def _epoch_cfg(num_classes, cm, **dataset):
+    return dataclasses.replace(
+        _cfg(num_classes, batch=128, cm=cm, eval_batch_size=128),
+        dataset=cm.DatasetConfig(num_classes=num_classes, **dataset))
+
+
+@pytest.fixture(scope="module")
+def ref_epoch(small_graph):
+    return _ref_epoch(small_graph, _epoch_cfg(small_graph.num_classes,
+                                              jax_config))
+
+
+def _assert_epoch_matches(tr, ref, shard=0):
+    """The port's Trainer, from the reference's initial params and with
+    its uniforms, against the reference's epoch: last and mean loss within
+    rtol 1e-4 / atol 1e-5, every param after the epoch within 1e-4
+    absolute (Adam's first steps divide by |g| + eps), valid accuracy
+    equal."""
+    tr.model.load_state_dict(params_from_flax(ref["params0"]))
+    rec = tr.train_one_epoch(0, shard, uniforms=ref["train_u"])
+    for k in ("loss", "mean_loss"):
+        np.testing.assert_allclose(rec[k], ref["rec"][k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    got = tr.model.state_dict()
+    for k, want in ref["params1"].items():
+        np.testing.assert_allclose(got[k].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4, err_msg=k)
+    valid = tr.evaluate("valid", shard, uniforms=ref["eval_u"])
+    assert valid == pytest.approx(ref["valid"], abs=1e-6)
+    return rec
+
+
 @pytest.mark.parametrize("what", ["profile_dir", "num_shards"])
-def test_trainer_rejects_unported_settings(small_graph, what):
-    cfg = _cfg(small_graph.num_classes)
-    kw = {}
-    if what == "num_shards":
-        kw["num_shards"] = 2
+def test_trainer_rejects_unported_settings(small_graph, tmp_path, ref_epoch,
+                                           what):
+    """Both settings now run as in the reference. ``profile_dir``: epoch 0
+    under torch.profiler writes its trace into the directory and trains
+    as the reference's Trainer does (which the profiler does not change).
+    ``num_shards=2``: shard 1's epoch and validation on one device, with
+    no collective, against the reference's ``Trainer(num_shards=2)`` on
+    shard 1. (The name dates from when both were refused.)"""
+    g = small_graph
+    if what == "profile_dir":
+        prof = tmp_path / "prof"
+        cfg = _epoch_cfg(g.num_classes, port_config)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, profile_dir=str(prof)))
+        _assert_epoch_matches(Trainer(cfg, g, device="cpu"), ref_epoch)
+        assert [p.name for p in prof.iterdir()] == ["epoch_0.pt.trace.json"]
+        assert "traceEvents" in json.loads(
+            (prof / "epoch_0.pt.trace.json").read_text())
     else:
-        cfg = dataclasses.replace(cfg, train=port_config.TrainConfig(
-            **{what: "ckpt"}))
-    with pytest.raises(NotImplementedError, match=what):
-        Trainer(cfg, small_graph, device="cpu", **kw)
+        ref = _ref_epoch(g, _epoch_cfg(g.num_classes, jax_config),
+                         num_shards=2, shard=1)
+        tr = Trainer(_epoch_cfg(g.num_classes, port_config), g,
+                     device="cpu", num_shards=2)
+        assert tr.plan.train_steps == (
+            min(len(s) for s in tr.shards_train) - 1) // 128
+        _assert_epoch_matches(tr, ref, shard=1)
 
 
 @pytest.mark.parametrize("placement,enabled", [("host", False),
                                                ("host", True),
                                                ("hbm", True)])
 def test_trainer_points_host_features_at_the_cached_driver(
-        small_graph, placement, enabled):
+        small_graph, ref_epoch, placement, enabled):
+    """With the cache off any placement trains the whole table on the
+    device, as the reference's Trainer (which reads neither field) does
+    with the same config; the cache on still goes to the cached driver
+    (the dispatch never sends it here)."""
     cfg = dataclasses.replace(
-        _cfg(small_graph.num_classes),
-        dataset=port_config.DatasetConfig(feature_placement=placement),
+        _epoch_cfg(small_graph.num_classes, port_config,
+                   feature_placement=placement),
         cache=port_config.CacheConfig(enabled=enabled))
-    with pytest.raises(ValueError, match="run_cached_training"):
-        Trainer(cfg, small_graph, device="cpu")
+    if enabled:
+        with pytest.raises(ValueError, match="run_cached_training"):
+            Trainer(cfg, small_graph, device="cpu")
+    else:
+        _assert_epoch_matches(Trainer(cfg, small_graph, device="cpu"),
+                              ref_epoch)
+
+
+def test_trainer_runs_hbm_sharded_at_one_device(small_graph, ref_epoch):
+    """``train.py --features hbm_sharded --devices 1`` runs the reference's
+    Trainer on the whole table; so does the port's."""
+    cfg = _epoch_cfg(small_graph.num_classes, port_config,
+                     feature_placement="hbm_sharded")
+    rec = _assert_epoch_matches(Trainer(cfg, small_graph, device="cpu"),
+                                ref_epoch)
+    assert rec["cap_overflow"] == 0
