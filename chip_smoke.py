@@ -26,7 +26,8 @@ set-up; any failure raises and the script exits non-zero:
    and K5 (``grouped_masked_sum``: float32 value and gradient on the
    batch's identity block, a bf16 case, and width 47 with a float mask);
    K3 and K5 are also timed beside the one PyTorch call that computes
-   the same function (``index_select``, ``einsum``), and each kernel's
+   the same function (``index_select``, ``einsum``; K1 and K2: see
+   below), and each kernel's
    time stands beside its bound: the larger of the bytes this batch
    makes it move over 3.35 TB/s and its operations over 67 TFLOP/s; then
    K2 on a tiny block with a position past its rows (NaN in exactly the
@@ -105,7 +106,37 @@ set-up; any failure raises and the script exits non-zero:
    a subprocess on the card: the verify recipe (50k nodes, 2 epochs,
    batch 1024) above 0.15 with the test line, ``--topology host`` with no
    budget (warns, both caches empty), and ``--devices 2`` on one card
-   (exits non-zero naming the card count).
+   (exits non-zero naming the card count);
+11. the cache-group paths at world size 1 through NCCL (``"mesh_striped"``,
+   cut from the reference's 4-8 ranks to the machine's one card), each
+   against its single-device twin in this call: ``MeshTrainer`` on
+   ``feature_placement="hbm_sharded"`` with ``mesh_dp``'s configuration
+   (run right after it on its graph), ``run_striped_training`` on phase
+   6's cell and ``run_striped_hybrid_training`` on phase 8's. Step 0's
+   loss bitwise, the rest within ``STRIPED_LOSS_RTOL`` (bf16: 1e-4);
+   equal hit rate, hot fraction, staging overflow, host bytes and packed
+   reads; no exchange overflow; exact launches (K3 once more a step than
+   the twin:
+   the exchange's serve and reassembly); the exchange's bytes the closed
+   form's; and on one batch of each path's own tensors the sampling
+   kernel (on the hybrid path: on the sub-CSR stripe with the rows the
+   exchange hands the owner), K3 on the exchange's two gathers and K2
+   against their plain versions;
+12. the same three paths at cache axis 2 against cache axis 1
+   (``"mesh_striped_k2"``, ``legion_tpu_torch.tools.cache_group_cell``):
+   two gloo ranks sharing the card, every collective staged through host
+   memory (behaviour, not speed), on the learning smoke's graph: bitwise
+   feature matrices and hot draws, losses within ``STRIPED_LOSS_RTOL``
+   (float32: 1e-5), bytes equal to the closed forms, the same launches at
+   both axes, and the striped cached run's validation accuracy > 0.15
+   after 2 epochs.
+
+K1 and K2 (forward and backward) are also timed beside
+``torch.nn.functional.embedding_bag`` on the same rows (masked slots
+pointed at a row no valid slot reads, given as ``padding_idx``; the
+index built outside the timed window): mode "mean" (GCN float32's K2
+shape: "sum"), and its backward to the table for K2's; "sqrt" has no
+such call.
 
 Then it prints the card's name and power limit as nvidia-smi reports
 them, a JSON line with every kernel's numbers, and, last,
@@ -401,10 +432,21 @@ def check_k2(h_t, pos, mask, g, norm):
     slots = int(mask.sum())
     rows = int(torch.unique(pos[mask]).numel())
     shape = {"shape": [p, f, s, d], "dtype": str(h_t.dtype).split(".")[-1],
-             "norm": norm, "valid_slots": slots, "library_ms": None}
+             "norm": norm, "valid_slots": slots}
+    # embedding_bag over the same rows: the forward, and its backward to
+    # the table alone (the graph kept, so only the backward is timed)
+    idx, pad = bag_index(s, pos, mask)
+    bag_bwd_ms = None
+    if idx is not None and norm in ("mean", "sum"):
+        import torch.nn.functional as F
+        w = h_t.detach().requires_grad_(True)
+        o = F.embedding_bag(idx, w, mode=norm, padding_idx=pad)
+        bag_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            o, w, g, retain_graph=True))
+        del w, o
     # the distinct rows the valid slots name read once, positions and mask
     # read, the dst rows written; one add per gathered element
-    fwd = {**shape,
+    fwd = {**shape, "library_ms": library_bag(h_t, idx, pad, norm),
            **bound(rows * d * es + 5 * mask.numel() + p * d * es, slots * d),
            "max_abs_err": fwd_err[norm], "max_abs_err_by_norm": fwd_err,
            "ms": time_ms(lambda: gathered_masked_mean(h_t, pos, mask, norm)),
@@ -414,7 +456,7 @@ def check_k2(h_t, pos, mask, g, norm):
     staging = torch.zeros((s, ld), dtype=torch.float32, device=h_t.device)
     # the upstream gradient, positions and mask read, every src row of the
     # gradient written; one add per scattered element
-    bwd = {**shape,
+    bwd = {**shape, "library_ms": bag_bwd_ms,
            **bound(g.numel() * es + 5 * mask.numel() + s * d * es, slots * d),
            "max_abs_err": bwd_err[norm], "max_abs_err_by_norm": bwd_err,
            "ms": time_ms(
@@ -441,21 +483,54 @@ def bf16_err(k, p, what):
     return float((k - p).abs().max())
 
 
+def bag_index(num_rows, rows, mask):
+    """``rows`` (P, f), the table row of each slot, as
+    ``torch.nn.functional.embedding_bag``'s input: every masked slot
+    pointed at a row that no valid slot reads, which the call is given as
+    ``padding_idx`` (left out of the sum and of the mean's count). Built
+    outside any timed window. (None, None) when every row is read."""
+    import torch
+    read = rows[mask].long()
+    if read.numel() and int(read.max()) >= num_rows:
+        return None, None
+    used = torch.zeros(num_rows, dtype=torch.bool, device=rows.device)
+    used[read] = True
+    free = (~used).nonzero()
+    if free.numel() == 0:
+        return None, None
+    pad = int(free[0])
+    return torch.where(mask, rows, pad).long(), pad
+
+
+def library_bag(table, idx, pad, mode):
+    """The time of one ``embedding_bag`` call over ``table`` (None where
+    there is no such call: every row read, or a norm it cannot give)."""
+    import torch.nn.functional as F
+    if idx is None or mode not in ("mean", "sum"):
+        return None
+    return time_ms(lambda: F.embedding_bag(idx, table, mode=mode,
+                                           padding_idx=pad))
+
+
 def check_identity_mean(x, m1, off):
     """K1 (norm "mean", bf16 out, as SAGE's layer 0 runs it) against its
     plain version on the gathered features x and the identity block's
-    mask, both timed."""
+    mask, both timed, beside ``embedding_bag`` (mode "mean") on the same
+    rows."""
     import torch
 
     from legion_tpu_torch.ops.identity_agg import (identity_masked_mean,
                                                    identity_masked_mean_plain)
     d1, slots1 = x.shape[1], int(m1.sum())
+    p1, f1 = m1.shape
+    idx, pad = bag_index(x.shape[0], off + torch.arange(
+        p1 * f1, dtype=torch.int32, device=x.device).reshape(p1, f1), m1)
     # masked slots are skipped: the valid slots' rows and the mask are
     # read, the bf16 rows written; one add per element read
     return {"shape": [*m1.shape, *x.shape, off],
             **bound(slots1 * d1 * x.element_size() + m1.numel()
                     + m1.shape[0] * d1 * 2, slots1 * d1),
-            "library_ms": None,
+            "library_ms": library_bag(x, idx, pad, "mean"),
             "max_abs_err": bf16_err(
                 identity_masked_mean(x, m1, off, "mean", torch.bfloat16),
                 identity_masked_mean_plain(x, m1, off, "mean",
@@ -995,7 +1070,8 @@ def mesh_dp(kernels, results, data, smi):
                             "identity_masked_mean": k1,
                             "k2": {"forward": k2_fwd, "backward": k2_bwd}},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return {k: train_launches[k] + eval_launches[k] for k in kernels}
+    return ({k: train_launches[k] + eval_launches[k] for k in kernels},
+            rec["losses"], 1e3 * steady["epoch_s"] / t)
 
 
 def cli_runs(smi):
@@ -1153,7 +1229,11 @@ def cached_path(kernels, results, dedups):
                                                 "backward": bwd},
           "peak_mem_gb": peak,
           "cost_model": cost})
-    return launches
+    return launches, {
+        "losses": [r["losses"] for r in hist], "launches": launches,
+        "epochs": [{k: r[k] for k in ("cache_hit_rate", "staging_overflow",
+                                      "host_gb", "seconds", "steps")}
+                   for r in hist]}
 
 
 def dedup_case(name, num_nodes, frontier_prev, num_prev, nbrs, cap_new):
@@ -1465,7 +1545,460 @@ def hybrid_path(kernels, results):
                               "staged_rows": n_miss,
                               "overflowed": int(plan.overflow())}},
           "peak_mem_gb": peak, "mem_before_gb": mem0 / 2 ** 30})
-    return launches
+    return launches, {
+        "losses": [r["losses"] for r in hist], "launches": launches,
+        "epochs": [{k: r[k] for k in ("topo_hot_fraction", "feat_hit_rate",
+                                      "fetches", "staging_overflow",
+                                      "host_topo_gb", "seconds", "steps")}
+                   for r in hist]}
+
+
+# Per-step losses of a striped driver against its twin on the same seeds:
+# step 0 bitwise (the forward kernels are deterministic), later steps
+# within a relative distance, since K2 backward adds with float atomics
+# and two runs differ in rounding. In bf16 at full width that drift
+# reached 0.93-3.1e-5 over 20-24 steps on an H100 80GB HBM3 (700 W), and
+# mesh_dp's steps 1-4 reached 1.18e-5, so bf16 runs are held to 1e-4;
+# float32 runs drifted 1.6e-7 and are held to 1e-5.
+STRIPED_LOSS_RTOL = {"bfloat16": 1e-4, "float32": 1e-5}
+
+
+def loss_drift(got, want, what, dtype="bfloat16"):
+    """The worst relative distance of ``got``'s per-step losses from
+    ``want``'s (lists of epochs' lists), after checking step 0 bitwise and
+    every step within ``STRIPED_LOSS_RTOL[dtype]``."""
+    flat_g = [v for ep in got for v in ep]
+    flat_w = [v for ep in want for v in ep]
+    require(len(flat_g) == len(flat_w) and flat_g[0] == flat_w[0],
+            f"{what}: as many steps, step 0 bitwise ({flat_g[:1]} against "
+            f"{flat_w[:1]})")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(flat_g, flat_w))
+    rtol = STRIPED_LOSS_RTOL[dtype]
+    require(worst <= rtol,
+            f"{what}: losses within {rtol} relative, worst {worst}")
+    return worst
+
+
+def check_exchange(table, req, group, cap=None):
+    """K3 on the exact exchange's two gathers of the (M,) requests ``req``
+    over ``group``: the serve (this rank's stripe by the slots its peers
+    asked for) and the reassembly (the responses by owner x cap +
+    position), each bitwise its plain version and timed; together they
+    are ``sharded_row_fetch_stats``'s rows."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.parallel.feature_exchange import (
+        owner_cap, response_index, route_by_owner, sharded_row_fetch_stats)
+    from legion_tpu_torch.utils import comm
+    k = dist.get_world_size(group)
+    cap = cap if cap is not None else owner_cap(req.shape[0], k)
+    send, pos, in_cap, _ = route_by_owner(req, k, cap)
+    recv = comm.all_to_all(send.reshape(-1), group)
+    slot = torch.where(recv >= 0, recv // k, -1).to(torch.int32)
+    rows, serve = check_gather_rows(table, slot)
+    resp = comm.all_to_all(rows, group)
+    out, reassembly = check_gather_rows(
+        resp, response_index(req, pos, in_cap, k, cap))
+    want, _ = sharded_row_fetch_stats(table, req, group, cap)
+    require(torch.equal(out, want),
+            "the exchange's two gathers give its rows")
+    return {"owner_cap": cap, "requests": int((req >= 0).sum()),
+            "serve": serve, "reassembly": reassembly}
+
+
+def mesh_sharded(kernels, data, dp_losses, dp_ms):
+    """Part of phase "mesh_striped", run on phase 4's graph after
+    ``mesh_dp``: ``MeshTrainer`` with ``feature_placement="hbm_sharded"``
+    at world size 1 through NCCL (its one-rank cache group holds the
+    whole table and each step fetches the frontier's rows through the
+    exchange) with ``mesh_dp``'s configuration, two epochs. Step 0's loss
+    bitwise ``mesh_dp``'s, the rest within ``STRIPED_LOSS_RTOL``; exact
+    launches (K3 twice a step: the exchange's serve and reassembly); the
+    epoch's collectives (two all-to-alls a step of the closed form's
+    bytes, the gradient's all-reduce); then K3's two gathers of the
+    exchange held against their plain versions on one batch (the
+    sampling kernel, K1 and K2 see ``mesh_dp``'s tensors there)."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         ParallelConfig, SamplerConfig,
+                                         TrainConfig)
+    from legion_tpu_torch.parallel import mesh
+    from legion_tpu_torch.parallel.trainer import MeshTrainer
+    from legion_tpu_torch.sampling.sampler import sample_batch
+    from legion_tpu_torch.utils import comm
+    cfg = Config(
+        dataset=DatasetConfig(num_classes=CLASSES,
+                              feature_placement="hbm_sharded"),
+        sampler=SamplerConfig(fanouts=(25, 10), batch_size=8000,
+                              observed_cap_slack=1.03, probe_caps=False),
+        model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
+                          dropout=0.5, dtype="bfloat16"),
+        train=TrainConfig(learning_rate=0.003),
+        parallel=ParallelConfig(num_devices=1))
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_process(0, 1, os.path.join(tmp, "init"), "cuda")
+        try:
+            tr = MeshTrainer(cfg, data, device="cuda")
+            reset_launches(kernels)
+            comm.reset_counts()
+            rec = tr.train_one_epoch(0)
+            launches = read_launches(kernels)
+            counts, calls = comm.read_counts(), comm.read_calls()
+            steady = tr.train_one_epoch(1)
+            ids = tr.shards_train[0][:8000].copy()
+            batch = sample_batch(
+                tr.graph, torch.from_numpy(ids).to(dev),
+                torch.tensor(len(ids), dtype=torch.int32, device=dev),
+                torch.from_numpy(data.labels[ids]).to(dev),
+                cfg.sampler.fanouts, tr.caps,
+                dedup_last=cfg.sampler.dedup_last,
+                generator=torch.Generator(device=dev).manual_seed(6))
+            k3 = check_exchange(tr.features, batch.frontier, tr.mesh.group)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    t = rec["steps"]
+    require(backend == "nccl", f"the one-rank group runs NCCL, not {backend}")
+    require(tr.features.shape[0] == data.num_nodes,
+            "a one-rank cache group's stripe is the whole table")
+    worst = loss_drift([rec["losses"]], [dp_losses],
+                       "hbm_sharded MeshTrainer against mesh_dp")
+    want = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
+            "gathered_masked_mean": t, "gathered_masked_mean_backward": t,
+            "gather_rows": 2 * t, "grouped_masked_sum": 0}
+    require(launches == want, f"exact launches {launches} (want {want})")
+    m, d = tr.caps[-1], tr.features.shape[1]
+    a2a = t * comm.exact_exchange_bytes(m, 1, d)["all_to_all"]
+    require(calls.get("all_to_all") == 2 * t
+            and counts.get("all_to_all") == a2a,
+            f"two all-to-alls a step of {a2a // t} B, got {calls} / {counts}")
+    return {"world": 1, "backend": backend, "caps": list(tr.caps),
+            "steps": t, "losses": rec["losses"], "mesh_dp_losses": dp_losses,
+            "worst_rel_diff": worst, "cap_overflow": rec["cap_overflow"],
+            "ms_per_step": 1e3 * steady["epoch_s"] / t,
+            "mesh_dp_ms_per_step": dp_ms, "epoch_counts": counts,
+            "epoch_calls": calls, "launches": launches,
+            "kernel_checks": {"gather_rows": k3}}, launches
+
+
+def _phase_log(lines):
+    def log(s):
+        lines.append(s)
+        print(s, file=sys.stderr, flush=True)
+    return log
+
+
+def striped_cached(kernels, results, ref):
+    """Part of phase "mesh_striped": ``run_striped_training`` at world
+    size 1 on phase 6's cell against phase 6's ``run_cached_training``
+    (``ref``): the same seeds, so step 0 bitwise and the rest within
+    ``STRIPED_LOSS_RTOL``, and the same hit rate, staging overflow and
+    host bytes, no exchange overflow, and exact launches (K3 once more a
+    step than the cached path: the exchange's serve and reassembly where
+    the cache read its rows once). Then one batch's tensors: the sampling
+    kernel on both hops, K3 on the exchange's two gathers, K2 on the
+    layer-1 block. Last, ``run_cached_training`` once more, so that the
+    striped run's ms/step stands between two of its twin's."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.sampling.sampler import sample_batch
+    from legion_tpu_torch.tools import pa_cell
+    from legion_tpu_torch.train.cached_driver import run_cached_training
+    from legion_tpu_torch.train.striped_driver import run_striped_training
+    lines = []
+    data, _, _ = pa_cell.dataset(REPO, _phase_log(lines))
+    cfg = pa_cell.config(epochs=2)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = run_striped_training(cfg, data, "cuda", log=_phase_log(lines))
+    run_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    hist, tr = res["history"], res["trainer"]
+    worst = loss_drift([h["losses"] for h in hist], ref["losses"],
+                       "run_striped_training against run_cached_training")
+    for h, w in zip(hist, ref["epochs"]):
+        for key in ("cache_hit_rate", "staging_overflow", "host_gb"):
+            require(h[key] == w[key], f"epoch {h['epoch']}: {key} "
+                    f"{h[key]} equals the cached driver's {w[key]}")
+        require(h["exchange_overflow"] == 0, "no exchange overflow")
+    want = dict(ref["launches"], gather_rows=ref["launches"]["gather_rows"]
+                + ref["launches"]["gathered_masked_mean"])
+    require(launches == want, f"exact launches {launches} (want {want})")
+    # one batch at the path's caps, through the striped cache
+    caps, dev = tr.caps, torch.device("cuda")
+    seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
+    batch = sample_batch(tr.graph, seeds,
+                         torch.tensor(pa_cell.BATCH, dtype=torch.int32,
+                                      device=dev),
+                         torch.zeros_like(seeds), cfg.sampler.fanouts, caps,
+                         dedup_last=True,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    hops = check_sampling_kernel(tr.graph, hop_frontiers(batch, caps),
+                                 cfg.sampler.fanouts, seed=4)
+    plan = tr.cache.plan(batch.frontier)
+    k3 = check_exchange(tr.cache.rows, torch.where(plan.hit, plan.slot, -1),
+                        tr.cache.group, tr.cache.owner_cap_rows)
+    blk1 = batch.blocks[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h_t = torch.randn((caps[1], pa_cell.CLASSES), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    gd = torch.randn((blk1.nbr_mask.shape[0], pa_cell.CLASSES), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    fwd, bwd = check_k2(h_t, blk1.nbr_pos, blk1.nbr_mask, gd, "mean")
+    results["gathered_masked_mean"]["shapes"]["striped_pa_bf16"] = fwd
+    results["gathered_masked_mean_backward"]["shapes"]["striped_pa_bf16"] = (
+        bwd)
+    results["gather_rows"]["striped_pa_exchange"] = k3
+    results["sample_neighbors"]["striped_pa_hops"] = hops
+    require(dist.get_world_size(tr.cache.group) == 1, "a one-rank group")
+    del res, tr, batch, plan, blk1, h_t, gd
+    torch.cuda.empty_cache()
+    # the single-device driver once more, so that the striped run's
+    # ms/step stands between two of its twin's in this call
+    again = run_cached_training(cfg, data, "cuda", log=_phase_log(lines))
+    out = {"driver_log": lines, "run_s": run_s, "worst_rel_diff": worst,
+           "epochs": [{"epoch": h["epoch"], "losses": h["losses"],
+                       "hit_rate": h["cache_hit_rate"],
+                       "host_gb": h["host_gb"],
+                       "staging_overflow": h["staging_overflow"],
+                       "exchange_overflow": h["exchange_overflow"],
+                       "ms_per_step": 1e3 * h["seconds"] / h["steps"]}
+                      for h in hist],
+           "cached_ms_per_step": [1e3 * w["seconds"] / w["steps"]
+                                  for w in ref["epochs"]],
+           "cached_again_ms_per_step": [1e3 * w["seconds"] / w["steps"]
+                                        for w in again["history"]],
+           "launches": launches,
+           "kernel_checks": {"sample_neighbors_hops": hops,
+                             "gather_rows": k3,
+                             "k2": {"forward": fwd, "backward": bwd}}}
+    return out, launches
+
+
+def striped_hybrid(kernels, results, ref):
+    """Part of phase "mesh_striped": ``run_striped_hybrid_training`` at
+    world size 1 on phase 8's cell against phase 8's
+    ``run_hybrid_training`` (``ref``): step 0 bitwise and the rest within
+    ``STRIPED_LOSS_RTOL``, the same hot fraction, hit rate and packed
+    reads, no exchange overflow, exact launches (K3 once more a step).
+    Then one batch through the trainer's own stages: the sampling kernel
+    on the sub-CSR stripe with the rows the exchange hands the owner, K3
+    on the feature exchange's two gathers, K2 on the layer-1 block. Last,
+    ``run_hybrid_training`` once more (see ``striped_cached``)."""
+    import collections
+
+    import torch
+
+    from legion_tpu_torch.parallel.feature_exchange import (owner_cap,
+                                                            route_by_owner)
+    from legion_tpu_torch.sampling.block import SampledBatch
+    from legion_tpu_torch.tools import hybrid_cell, pa_cell
+    from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
+    from legion_tpu_torch.train.striped_hybrid_driver import (
+        run_striped_hybrid_training)
+    from legion_tpu_torch.utils import comm
+    lines = []
+    data, _, _ = hybrid_cell.dataset(REPO, _phase_log(lines))
+    cfg = hybrid_cell.config(epochs=2)
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = run_striped_hybrid_training(cfg, data, "cuda",
+                                      log=_phase_log(lines))
+    run_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    hist, tr = res["history"], res["trainer"]
+    worst = loss_drift([h["losses"] for h in hist], ref["losses"],
+                       "run_striped_hybrid_training against "
+                       "run_hybrid_training")
+    for h, w in zip(hist, ref["epochs"]):
+        for key in ("topo_hot_fraction", "feat_hit_rate", "fetches",
+                    "staging_overflow", "host_topo_gb"):
+            require(h[key] == w[key], f"epoch {h['epoch']}: {key} "
+                    f"{h[key]} equals the hybrid driver's {w[key]}")
+        require(h["exchange_overflow"] == 0, "no exchange overflow")
+    want = dict(ref["launches"], gather_rows=ref["launches"]["gather_rows"]
+                + ref["launches"]["gathered_masked_mean"])
+    require(launches == want, f"exact launches {launches} (want {want})")
+    # one batch through the trainer's stages
+    dev, caps, topo = torch.device("cuda"), tr.caps, tr.topo
+    seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
+    nb = torch.tensor(pa_cell.BATCH, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    carry, packed0 = tr._prologue(seeds, nb, gen)
+    blocks, frontier, num, plan, _, _, _, _, _ = tr._advance(
+        carry, packed0, 0, 123, gen, 0, seeds, nb)
+    batch = SampledBatch(seeds=seeds, labels=torch.zeros_like(seeds),
+                         num_seeds=nb, frontier=frontier, num_frontier=num,
+                         blocks=tuple(blocks))
+    # the rows the exchange hands the owner for each hop's hits
+    rows, hot_share = [], []
+    for fr in hop_frontiers(batch, caps):
+        hit, rank = topo.lookup(fr)
+        send = route_by_owner(torch.where(hit, rank, -1), 1,
+                              owner_cap(fr.shape[0], 1))[0]
+        recv = comm.all_to_all(send.reshape(-1), topo.group)
+        rows.append(torch.where(recv >= 0, recv, -1).to(torch.int32))
+        hot_share.append(int(hit.sum()) / max(int((fr >= 0).sum()), 1))
+    SubCsr = collections.namedtuple("SubCsr", "indptr indices")
+    sub_hops = check_sampling_kernel(
+        SubCsr(topo.sub_indptr, topo.sub_indices), rows,
+        cfg.sampler.fanouts, seed=9)
+    for rec, share in zip(sub_hops, hot_share):
+        rec["hot_share"] = share
+    k3 = check_exchange(tr.fcache.rows,
+                        torch.where(plan.hit, plan.slot, -1),
+                        tr.fcache.group, tr.fcache.owner_cap_rows)
+    blk1 = batch.blocks[0]
+    g2 = torch.Generator(device=dev).manual_seed(10)
+    h_t = torch.randn((caps[1], pa_cell.CLASSES), generator=g2,
+                      device=dev).to(torch.bfloat16)
+    gd = torch.randn((blk1.nbr_mask.shape[0], pa_cell.CLASSES), generator=g2,
+                     device=dev).to(torch.bfloat16)
+    fwd, bwd = check_k2(h_t, blk1.nbr_pos, blk1.nbr_mask, gd, "mean")
+    results["gathered_masked_mean"]["shapes"]["striped_uk_bf16"] = fwd
+    results["gathered_masked_mean_backward"]["shapes"]["striped_uk_bf16"] = (
+        bwd)
+    results["gather_rows"]["striped_uk_exchange"] = k3
+    results["sample_neighbors"]["striped_uk_hops"] = sub_hops
+    del res, tr, batch, plan, blocks, blk1, h_t, gd
+    torch.cuda.empty_cache()
+    # the single-device driver once more (see striped_cached)
+    again = run_hybrid_training(cfg, data, "cuda", log=_phase_log(lines))
+    out = {"driver_log": lines, "run_s": run_s, "worst_rel_diff": worst,
+           "epochs": [{"epoch": h["epoch"], "losses": h["losses"],
+                       "topo_hot_fraction": h["topo_hot_fraction"],
+                       "feat_hit_rate": h["feat_hit_rate"],
+                       "fetches": h["fetches"],
+                       "exchange_overflow": h["exchange_overflow"],
+                       "staging_overflow": h["staging_overflow"],
+                       "ms_per_step": 1e3 * h["seconds"] / h["steps"]}
+                      for h in hist],
+           "hybrid_ms_per_step": [1e3 * w["seconds"] / w["steps"]
+                                  for w in ref["epochs"]],
+           "hybrid_again_ms_per_step": [1e3 * w["seconds"] / w["steps"]
+                                        for w in again["history"]],
+           "launches": launches,
+           "kernel_checks": {"sample_neighbors_hops": sub_hops,
+                             "gather_rows": k3,
+                             "k2": {"forward": fwd, "backward": bwd}}}
+    return out, launches
+
+
+def mesh_striped(kernels, results, smi, sharded, refs):
+    """Phase "mesh_striped": the cache-group paths at world size 1 through
+    NCCL, in this process (file rendezvous), each against its
+    single-device twin in this call: ``sharded`` (from
+    ``mesh_sharded``), then the striped cached and the striped hybrid
+    drivers on phases 6's and 8's cells. Cut: 4-8 ranks to 1, the
+    machine's one card. Returns each path's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.parallel import mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_process(0, 1, os.path.join(tmp, "init"), "cuda")
+        try:
+            backend = dist.get_backend()
+            cached, l_cached = striped_cached(kernels, results,
+                                              refs["cached"])
+            torch.cuda.empty_cache()
+            hybrid, l_hybrid = striped_hybrid(kernels, results,
+                                              refs["hybrid"])
+        finally:
+            dist.destroy_process_group()
+    require(backend == "nccl", f"the one-rank group runs NCCL, not {backend}")
+    record, l_sharded = sharded
+    emit({"phase": "mesh_striped", "nvidia_smi": smi, "backend": backend,
+          "world": 1, "cut": "4-8 ranks to 1 (one card)",
+          "loss_rtol": STRIPED_LOSS_RTOL["bfloat16"], "hbm_sharded": record,
+          "striped_cached": cached, "striped_hybrid": hybrid,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return {"mesh_striped_sharded": l_sharded,
+            "mesh_striped_cached": l_cached,
+            "mesh_striped_hybrid": l_hybrid}
+
+
+def mesh_striped_k2(smi):
+    """Phase "mesh_striped_k2": ``legion_tpu_torch.tools.cache_group_cell``
+    on two gloo ranks sharing this card (``share_device``: every
+    collective staged through host memory; behaviour, not speed) on the
+    learning smoke's graph. Each path at cache axis 2 against the same
+    run at cache axis 1 (same seeds and hot sets): one batch's feature
+    matrix (and one hop's hot draws) bitwise equal, losses within
+    ``STRIPED_LOSS_RTOL``, the exchange's bytes the closed forms', the
+    same launches at both axes, the striped cached run's validation
+    accuracy > 0.15 after 2 epochs. Returns rank 0's launches of each
+    path at cache axis 2."""
+    from legion_tpu_torch.tools import cache_group_cell
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cache_group_cell.json")
+        t0 = time.perf_counter()
+        cache_group_cell.main([path])
+        run_s = time.perf_counter() - t0
+        with open(path) as f:
+            out = json.load(f)
+
+    def losses(rec):
+        if "losses" in rec:
+            return [rec["losses"]]
+        return [h["losses"] for h in rec["history"]]
+
+    worst = {}
+    for r in out["ranks"]:
+        require(all(r["x_equal"].values()),
+                f"rank {r['rank']}: feature matrices equal at cache axes 1 "
+                f"and 2: {r['x_equal']}")
+        require(r["hot_draws_equal"], f"rank {r['rank']}: hot draws equal")
+        for name, b in r["bytes"].items():
+            require(b["counted"] == b["closed_form"],
+                    f"rank {r['rank']} {name}: bytes {b}")
+        for p in ("sharded", "cached", "hybrid"):
+            worst[f"{p}_rank{r['rank']}"] = loss_drift(
+                losses(r[f"{p}_k2"]), losses(r[f"{p}_k1"]),
+                f"{p} at cache axis 2 against 1, rank {r['rank']}",
+                dtype="float32")
+    r0 = out["ranks"][0]
+    for p in ("sharded", "cached", "hybrid"):
+        l1, l2 = r0["launches"][f"{p}_k1"], r0["launches"][f"{p}_k2"]
+        require(l1 == l2 and l2["gather_rows"] > 0
+                and l2["sample_neighbors"] > 0,
+                f"{p}: the same launches at both axes: {l1} / {l2}")
+    acc = r0["cached_k2"]["history"][-1]["valid"]
+    require(acc > 0.15, f"striped cached validation accuracy {acc} > 0.15")
+    emit({"phase": "mesh_striped_k2", "nvidia_smi": smi,
+          "mode": "2 gloo ranks sharing cuda:0, collectives staged "
+                  "through host memory: behaviour, not speed",
+          "graph": out["size"], "run_s": run_s,
+          "loss_rtol": STRIPED_LOSS_RTOL["float32"],
+          "worst_rel_diff": worst, "valid_acc": {
+              f"{p}_k{k}": ([h["valid"] for h in r0[f"{p}_k{k}"]["history"]]
+                            if "history" in r0[f"{p}_k{k}"]
+                            else [r0[f"{p}_k{k}"]["valid"]])
+              for p in ("sharded", "cached", "hybrid") for k in (1, 2)},
+          "exchange_overflow": {
+              f"{p}_k2": [h["exchange_overflow"]
+                          for h in r0[f"{p}_k2"]["history"]]
+              for p in ("cached", "hybrid")},
+          "hit_rate": {f"cached_k{k}": [h["cache_hit_rate"] for h in
+                                        r0[f"cached_k{k}"]["history"]]
+                       for k in (1, 2)},
+          "owner_caps": {"cached": r0["cached_k2"]["history"][0]["owner_cap"],
+                         "hybrid_topo": r0["hybrid_k2"]["history"][0][
+                             "topo_owner_caps"],
+                         "hybrid_feat": r0["hybrid_k2"]["history"][0][
+                             "feat_owner_cap"]},
+          "bytes": r0["bytes"], "ranks": [
+              {"rank": r["rank"], "x_equal": r["x_equal"],
+               "hot_draws_equal": r["hot_draws_equal"]}
+              for r in out["ranks"]],
+          "launches": r0["launches"]})
+    return {f"mesh_striped_k2_{p}": r0["launches"][f"{p}_k2"]
+            for p in ("sharded", "cached", "hybrid")}
 
 
 def main():
@@ -1608,8 +2141,12 @@ def main():
     for dtype in ("bfloat16", "float32"):
         by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)
         torch.cuda.empty_cache()
-    # MeshTrainer at world size 1 through NCCL on the same graph
-    by_path["mesh_dp"] = mesh_dp(kernels, results, data, smi)
+    # MeshTrainer at world size 1 through NCCL on the same graph, then on
+    # the table striped over its one-rank cache group
+    by_path["mesh_dp"], dp_losses, dp_ms = mesh_dp(kernels, results, data,
+                                                   smi)
+    torch.cuda.empty_cache()
+    sharded = mesh_sharded(kernels, data, dp_losses, dp_ms)
     torch.cuda.empty_cache()
     del data
 
@@ -1666,14 +2203,23 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 6. the cached path at papers100M class -----------------------------
-    by_path["cached_path"] = cached_path(kernels, results, dedups)
+    by_path["cached_path"], cached_ref = cached_path(kernels, results, dedups)
     torch.cuda.empty_cache()
 
     # -- 7. the two dedups on the same tensors ------------------------------
     emit({"phase": "dedup", "nvidia_smi": smi, "cases": dedups})
 
     # -- 8. the host-topology path at uk-union class ------------------------
-    by_path["hybrid_path"] = hybrid_path(kernels, results)
+    by_path["hybrid_path"], hybrid_ref = hybrid_path(kernels, results)
+    torch.cuda.empty_cache()
+
+    # -- 11. the cache-group paths at world size 1 (NCCL), each against its
+    # single-device twin above, and 12. at cache axis 2 on two ranks
+    # sharing the card
+    by_path.update(mesh_striped(kernels, results, smi, sharded,
+                                {"cached": cached_ref, "hybrid": hybrid_ref}))
+    torch.cuda.empty_cache()
+    by_path.update(mesh_striped_k2(smi))
 
     # -- 10. the command line, as a user runs it ----------------------------
     cli_runs(smi)

@@ -1,6 +1,6 @@
 """Presampling hotness measurement (port of
-``legion_tpu/cache/hotness.py``): ``presample_hotness`` and
-``observed_caps``.
+``legion_tpu/cache/hotness.py``): ``presample_hotness``,
+``observed_caps`` and ``host_frontier_probe``.
 
 The reference dedicates a profiling epoch before training: sampling runs
 without feature extraction while per-node access counters accumulate
@@ -96,3 +96,35 @@ def observed_caps(max_per_hop, slack: float = 1.2, align: int = 8,
     if last_exact_fanout is not None:
         caps[-1] = caps[-2] * (1 + last_exact_fanout)
     return tuple(int(c) for c in caps)
+
+
+def host_frontier_probe(indptr, indices, seed_batches, fanouts, caps,
+                        visit, rng: np.random.Generator,
+                        seed_base: int = 0) -> None:
+    """Grow multi-hop frontiers with the host sampler for probe statistics
+    (numpy and the C++ runtime; nothing on the device): the engine behind
+    the host-side owner-cap probe of the striped hybrid driver. Hop h of
+    batch bi is seeded ``seed_base + bi * 997 + h``; a grown frontier past
+    its hop's cap is cut to a random subset (cutting the sorted unique
+    array would favour low ids).
+
+    ``visit(hop, frontier)`` is called with the frontier each hop samples
+    from (hop in [0, len(fanouts))) and once more with hop ==
+    len(fanouts) for the final, feature-fetch frontier."""
+    from legion_tpu_torch import runtime
+    indptr = np.ascontiguousarray(np.asarray(indptr), np.int64)
+    indices = np.ascontiguousarray(np.asarray(indices), np.int32)
+    for bi, seeds in enumerate(seed_batches):
+        seeds = np.asarray(seeds)
+        frontier = seeds[seeds >= 0].astype(np.int64)
+        for hop, f in enumerate(fanouts):
+            visit(hop, frontier)
+            nbrs = runtime.sample_neighbors(
+                indptr, indices, frontier.astype(np.int32), f,
+                seed=seed_base + bi * 997 + hop)
+            grown = np.unique(np.concatenate(
+                [frontier, nbrs[nbrs >= 0].astype(np.int64)]))
+            if len(grown) > caps[hop + 1]:
+                grown = grown[rng.permutation(len(grown))[: caps[hop + 1]]]
+            frontier = grown
+        visit(len(fanouts), frontier)

@@ -150,11 +150,22 @@ class HybridTrainer:
     A packed array travels as in ``cache/pipeline.py``: a non-blocking
     copy into pinned memory and an event, and the host waits for that
     event only, never for the stream. Generator order within a step: hops
-    1..H-1, the next batch's hop 0, then the train step's dropout."""
+    1..H-1, the next batch's hop 0, then the train step's dropout.
+
+    The striped trainer (``cache/striped_hybrid.py``) runs this pipeline
+    through its hooks: ``_uniform`` and ``_hot`` (a hop's uniforms and hot
+    draws), ``_plan`` (the feature plan and statistics beyond it),
+    ``_cold_seed`` (the host leg's seed), ``_sum_ranks`` (an epoch's
+    figures over the ranks) and ``save`` (a mid-epoch checkpoint)."""
+
+    save: Optional[Callable] = None
+
+    n_stats = 4            # hit, miss, valid, staging overflow
 
     def __init__(self, cfg: Config, model: torch.nn.Module, caps,
                  topo: TopoCache, host_indptr: np.ndarray,
-                 host_indices: np.ndarray, fcache: FeatureCache):
+                 host_indices: np.ndarray, fcache: FeatureCache,
+                 reducer: Optional[Callable] = None):
         self.cfg = cfg
         self.model = model
         self.topo = topo
@@ -170,7 +181,9 @@ class HybridTrainer:
         self.stats = {"hot": 0, "cold": 0, "host_topo_bytes": 0,
                       "host_topo_copied_bytes": 0, "fetches": 0,
                       "host_sample_s": 0.0, "fetch_s": 0.0}
-        self.train_from, self.eval_from = make_cache_step_fns(cfg)
+        self.train_from, self.eval_from = make_cache_step_fns(
+            cfg, combine=lambda rows, plan, staged, frontier:
+            fcache.combine(plan, staged, frontier), reducer=reducer)
 
     # -- device stages ------------------------------------------------------
 
@@ -185,6 +198,23 @@ class HybridTrainer:
                              f"{tuple(u.shape)}, want float32 {shape}")
         return u.to(self.device)
 
+    def _hot(self, frontier, u, hop: int):
+        """Hop ``hop``'s draws for the frontier's cache hits and the hit
+        mask."""
+        return self.topo.sample_hot(frontier, u)
+
+    def _plan(self, frontier):
+        """(the feature plan, () int32 statistics beyond the plan's)."""
+        return self.fcache.plan(frontier), []
+
+    def _cold_seed(self, seed: int) -> int:
+        return seed
+
+    def _sum_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """An epoch's figures as every rank holds them: here the one
+        device's own."""
+        return t
+
     @staticmethod
     def _pack_hop(frontier, hit):
         """[n_hot | miss ids (-1 where hot or padding)]: one read serves
@@ -197,7 +227,7 @@ class HybridTrainer:
         frontier = torch.full((self.caps[0],), -1, dtype=torch.int32,
                               device=self.device)
         frontier[: seeds.shape[0]] = seeds
-        nbrs_hot, hit = self.topo.sample_hot(frontier, u)
+        nbrs_hot, hit = self._hot(frontier, u, 0)
         return ((frontier, num_seeds.to(torch.int32), nbrs_hot, hit),
                 self._pack_hop(frontier, hit))
 
@@ -206,7 +236,7 @@ class HybridTrainer:
         frontier, num, nbrs_hot, hit = carry
         frontier, num, blk = grow_frontier(
             frontier, num, _merge(nbrs_hot, cold, hit), self.caps[k])
-        nbrs_hot, hit = self.topo.sample_hot(frontier, u)
+        nbrs_hot, hit = self._hot(frontier, u, k)
         return ((frontier, num, nbrs_hot, hit), blk,
                 _Packed(self._pack_hop(frontier, hit)))
 
@@ -216,12 +246,11 @@ class HybridTrainer:
         frontier, num, nbrs_hot, hit = carry
         frontier, num, blk = grow_frontier(
             frontier, num, _merge(nbrs_hot, cold, hit), self.caps[-1])
-        plan = FeatureCache.plan_ids(self.fcache.hot_ids, frontier,
-                                     self.fcache.miss_cap)
+        plan, extra = self._plan(frontier)
         nxt, next_pack = self._start(seeds_next, num_next, u_next)
         packed = torch.cat([
             torch.stack([plan.num_hit, plan.num_miss, plan.num_valid,
-                         plan.overflow()]),
+                         plan.overflow()] + extra),
             plan.miss_ids, next_pack])
         return frontier, num, blk, plan, nxt, _Packed(packed)
 
@@ -246,7 +275,8 @@ class HybridTrainer:
                            pin_memory=on_cuda)
         t = time.perf_counter()
         runtime.sample_neighbors(self.host_indptr, self.host_indices, miss,
-                                 fanout, seed, out=host.numpy())
+                                 fanout, self._cold_seed(seed),
+                                 out=host.numpy())
         self.stats["host_sample_s"] += time.perf_counter() - t
         n_cold = int((miss >= 0).sum())
         self.stats["hot"] += int(miss_pack[0])
@@ -278,13 +308,13 @@ class HybridTrainer:
         blocks.append(blk)
         t = time.perf_counter()
         fused = self._fetch(packed)
-        miss_cap = self.fcache.miss_cap
-        fstats = fused[:4]
+        miss_cap, ns = self.fcache.miss_cap, self.n_stats
+        fstats = fused[:ns]
         staged = self.fcache.stage_to(
-            self.device, fused[4:4 + min(int(fstats[1]), miss_cap)])
+            self.device, fused[ns:ns + min(int(fstats[1]), miss_cap)])
         stage_s = time.perf_counter() - t
         return (blocks, frontier, num, plan, fstats, staged, stage_s, nxt,
-                fused[4 + miss_cap:])
+                fused[ns + miss_cap:])
 
     def _prologue(self, seeds, num_seeds, source: Uniforms):
         carry, pack = self._start(seeds, num_seeds,
@@ -313,7 +343,7 @@ class HybridTrainer:
             labels_epoch, np.int32)).to(dev)
         nb = torch.full((), b, dtype=torch.int32, device=dev)
         losses, counts = [], []              # counts: edges, cap overflow
-        tot = np.zeros(4, np.int64)          # hit, miss, valid, overflow
+        tot = np.zeros(self.n_stats, np.int64)   # hit, miss, valid, ...
         row_bytes = (self.fcache.rows.shape[1]
                      * self.fcache.rows.element_size())
         host_rows, stage_s = 0, 0.0
@@ -342,15 +372,27 @@ class HybridTrainer:
             tot += fstats
             host_rows += min(int(fstats[1]), self.fcache.miss_cap)
             stage_s += dt_stage
-            maybe_checkpoint_step(self.cfg.train, state, i)
+            maybe_checkpoint_step(self.cfg.train, state, i, self.save)
 
-        loss_h = (torch.stack(losses).cpu().numpy() if losses
-                  else np.zeros(0, np.float32))
-        n_edges, cap_overflow = (
-            torch.stack(counts).cpu().to(torch.int64).sum(0).tolist()
-            if counts else (0, 0))
-        dt = time.perf_counter() - t0
+        # the epoch's one read besides the packed arrays: losses, the
+        # device counts and the host figures, summed over the ranks
         d = {k: self.stats[k] - stats0[k] for k in self.stats}
+        host = [*tot, host_rows] + [d[k] for k in (
+            "hot", "cold", "host_topo_bytes", "host_topo_copied_bytes")]
+        f64 = dict(dtype=torch.float64, device=dev)
+        summed = self._sum_ranks(torch.cat([
+            torch.stack(losses).to(torch.float64) if losses
+            else torch.zeros(0, **f64),
+            torch.stack(counts).to(torch.float64).sum(0) if counts
+            else torch.zeros(2, **f64),
+            torch.tensor(host, **f64)])).cpu()
+        loss_h = summed[:steps].to(torch.float32).numpy()
+        n_edges, cap_overflow, *host = summed[steps:].to(
+            torch.int64).tolist()
+        ns = self.n_stats
+        tot, host_rows = host[:ns], host[ns]
+        hot, cold, topo_b, copied_b = host[ns + 1:]
+        dt = time.perf_counter() - t0
         return {
             "state": state, "steps": steps, "seconds": dt,
             "loss": float(loss_h[-1]) if steps else float("nan"),
@@ -358,13 +400,18 @@ class HybridTrainer:
             "feat_hit_rate": int(tot[0]) / max(int(tot[2]), 1),
             "staging_overflow": int(tot[3]),
             "host_feat_gb": host_rows * row_bytes / 2 ** 30,
-            "host_topo_gb": d["host_topo_bytes"] / 2 ** 30,
-            "host_topo_copied_gb": d["host_topo_copied_bytes"] / 2 ** 30,
-            "topo_hot_fraction": d["hot"] / max(d["hot"] + d["cold"], 1),
+            "host_topo_gb": topo_b / 2 ** 30,
+            "host_topo_copied_gb": copied_b / 2 ** 30,
+            "topo_hot_fraction": hot / max(hot + cold, 1),
             "fetches": d["fetches"], "cap_overflow": cap_overflow,
             "edges_per_s": n_edges / dt, "stage_s": stage_s,
             "host_sample_s": d["host_sample_s"], "fetch_s": d["fetch_s"],
+            **self._extra(tot),
         }
+
+    def _extra(self, tot) -> Dict:
+        """Figures of a subclass's own statistics."""
+        return {}
 
     def eval_epoch(self, model: torch.nn.Module, seeds: np.ndarray,
                    counts: np.ndarray, labels: np.ndarray,
@@ -400,5 +447,5 @@ class HybridTrainer:
             a, b = self.eval_from(model, self.fcache.rows, batch, plan,
                                   staged)
             acc.add_(torch.stack([a, b]).float())
-        a, b = acc.tolist()
+        a, b = self._sum_ranks(acc).tolist()
         return a / max(b, 1.0)

@@ -15,14 +15,20 @@ Which path reads each field:
   ``num_classes`` and ``feature_pad_align`` by every driver;
   ``topology_placement`` and ``feature_placement`` by the command line's
   dispatch, ``feature_placement="hbm_sharded"`` also by ``MeshTrainer``
-  (which runs it on a cache axis of one only).
+  (the table striped over each cache group, the rows fetched through the
+  exchange of ``parallel/feature_exchange.py``).
 * ``sampler``, ``model``: every driver. ``train``: every driver;
-  ``pipeline_depth`` the cached trainer, ``profile_dir`` the ``Trainer``
-  (epoch 0 under ``torch.profiler``; the other drivers accept it and do
-  not read it, as in the reference).
-* ``cache``: ``enabled`` the dispatch; ``budget_bytes``, ``group_size``
-  and ``cost_model_granularity`` the cost model of the cached and hybrid
-  drivers; ``presample_steps`` their presample.
+  ``pipeline_depth`` the cached trainers (single-device and striped),
+  ``profile_dir`` the ``Trainer`` (epoch 0 under ``torch.profiler``; the
+  other drivers accept it and do not read it, as in the reference).
+* ``cache``: ``enabled`` the dispatch; ``budget_bytes`` and
+  ``cost_model_granularity`` the cost model of the cached, hybrid and
+  striped drivers; ``presample_steps`` their presample. ``group_size``:
+  the ranks of a cache group, read by ``parallel.mesh.make_mesh`` for
+  ``MeshTrainer`` and the striped drivers
+  (``train/striped_driver.py``, ``train/striped_hybrid_driver.py``),
+  whose cost model takes the group's budget (``group_size`` x a
+  device's); the single-device drivers pass it to their cost model too.
 * ``parallel``: ``num_devices`` the dispatch and ``MeshTrainer``; the
   ``halo_*`` fields the edge-partitioned path, which the command line
   refuses until it is ported (ROADMAP queue 1 item 7).

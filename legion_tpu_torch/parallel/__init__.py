@@ -1,3 +1,5 @@
 """Data-parallel training over ``torch.distributed`` (counterpart of
-``legion_tpu/parallel``): ``mesh`` lays out and starts the ranks, ``dp``
-is the step's gradient reduction, ``trainer.MeshTrainer`` the lifecycle."""
+``legion_tpu/parallel``): ``mesh`` lays out and starts the ranks and makes
+the cache groups, ``dp`` is the step's gradient reduction and the striped
+table, ``feature_exchange`` the row exchange over a cache group,
+``trainer.MeshTrainer`` the lifecycle."""

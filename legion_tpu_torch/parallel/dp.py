@@ -1,4 +1,6 @@
-"""The data-parallel step (counterpart of ``legion_tpu/parallel/dp.py``).
+"""The data-parallel step (counterpart of ``legion_tpu/parallel/dp.py``):
+the gradient mean, and the striped feature table of
+``feature_placement="hbm_sharded"``.
 
 Every rank samples and trains on its own batch; the gradients are
 averaged over the ranks between the backward pass and the optimizer step
@@ -15,10 +17,32 @@ all-reduces.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from legion_tpu_torch.parallel.feature_exchange import stripe_rows
+from legion_tpu_torch.parallel.mesh import Mesh
+from legion_tpu_torch.train.train_state import TrainState, save_checkpoint
 from legion_tpu_torch.utils import comm
+
+
+def put_striped_features(features: np.ndarray, mesh: Mesh,
+                         device: torch.device | str) -> torch.Tensor:
+    """This rank's stripe of the feature table striped over its cache
+    group (rows with id % k == its cache rank, zero-padded to ceil(N/k)),
+    on ``device``; only those rows are read."""
+    return torch.from_numpy(stripe_rows(np.asarray(features), mesh.cache,
+                                        mesh.cache_rank)).to(device)
+
+
+def save_every_rank(ckpt_dir: str, state: TrainState) -> None:
+    """A checkpoint of a data-parallel run, written by rank 0: the shared
+    model and optimizer with every rank's generator state. Every rank
+    calls it (the generator states are gathered)."""
+    generators = comm.all_gather_object(state.generator.get_state())
+    if dist.get_rank() == 0:
+        save_checkpoint(ckpt_dir, state, generators=generators)
 
 
 class GradMean:

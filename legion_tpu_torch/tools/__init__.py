@@ -9,5 +9,9 @@
   graph (run as a script, see its docstring);
 * ``k2_bench.py``: K2's forward, backward and the backward's three passes
   at the shapes the port runs them at, of this checkout or another one
-  (run as a script, see its docstring).
+  (run as a script, see its docstring);
+* ``cache_group_cell``: the three cache-group paths at cache axis 2
+  against cache axis 1 on two ranks, sharing one card where there is one
+  (``python -m legion_tpu_torch.tools.cache_group_cell OUT.json``;
+  ``chip_smoke.py``'s ``mesh_striped_k2``).
 """

@@ -11,10 +11,13 @@ The flags are ``train.py``'s, with its names and defaults, plus
 It prints the config JSON before it trains, warns about every flag the
 chosen driver cannot honour, and dispatches as ``train.py`` does: to
 ``Trainer``, ``run_cached_training``, ``run_hybrid_training``, or, with
-``--devices`` other than 1, to ``MeshTrainer`` on that many ranks (one
-card each; gloo ranks with ``--device cpu``; 0 = every card this process
-sees). The multi-device paths the port lacks raise ``NotImplementedError``
-naming their ROADMAP item.
+``--devices`` other than 1, on that many ranks (one card each; gloo ranks
+with ``--device cpu``; 0 = every card this process sees) to
+``MeshTrainer`` (``--features hbm_sharded`` stripes the table over each
+cache group of ``--cache-group`` ranks), ``run_striped_training`` (with
+``--cache-budget-gb``) or ``run_striped_hybrid_training`` (with
+``--topology host``). ``--partitioned``, which the port lacks, raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -215,6 +218,19 @@ def _world(args) -> int:
     return torch.cuda.device_count()
 
 
+def _spawn(rank_fn, args, cfg: Config, source) -> None:
+    """Run ``rank_fn(device, cfg_json, load, load_kwargs)`` on every rank
+    of a multi-device run: one card each, or gloo ranks on the CPU."""
+    from legion_tpu_torch.parallel.mesh import spawn
+    load, load_kwargs = source
+    world = _world(args)
+    # CPU ranks share this host's cores
+    threads = (max(1, (os.cpu_count() or 1) // world)
+               if args.device == "cpu" else None)
+    spawn(rank_fn, world, args.device,
+          args=(cfg.to_json(), load, load_kwargs), threads=threads)
+
+
 def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
     """``train.py:233-290``: warn about what the chosen driver ignores,
     then run it."""
@@ -247,8 +263,9 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         if not cfg.cache.enabled:
             _warn("--topology host without --cache-budget-gb: zero hot "
                   "cache, every hop/feature is host-served")
-        raise _not_ported("host topology with --devices != 1 (striped "
-                          "hybrid training)", 6)
+        from legion_tpu_torch.train.striped_hybrid_driver import (
+            striped_hybrid_rank)
+        _spawn(striped_hybrid_rank, args, cfg, source)
     elif topo_host:
         if cfg.cache.group_size > 1:
             _warn("--cache-group > 1 needs --devices > 1; running "
@@ -259,8 +276,8 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
         run_hybrid_training(cfg, data, device)
     elif cfg.cache.enabled and multi:
-        raise _not_ported("the hotness cache with --devices != 1 (striped "
-                          "cached training)", 5)
+        from legion_tpu_torch.train.striped_driver import striped_rank
+        _spawn(striped_rank, args, cfg, source)
     elif cfg.cache.enabled:
         if cfg.cache.group_size > 1:
             _warn("--cache-group > 1 needs --devices > 1; running "
@@ -268,22 +285,12 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         from legion_tpu_torch.train.cached_driver import run_cached_training
         run_cached_training(cfg, data, device)
     elif multi:
-        if cfg.cache.group_size > 1:
+        if (cfg.cache.group_size > 1
+                and cfg.dataset.feature_placement != "hbm_sharded"):
             _warn("--cache-group is meaningless without --cache-budget-gb "
-                  "(no cache to stripe)")
-        if (cfg.dataset.feature_placement == "hbm_sharded"
-                and cfg.cache.group_size > 1):
-            raise _not_ported("--features hbm_sharded striped across "
-                              f"{cfg.cache.group_size} ranks", 4)
-        from legion_tpu_torch.parallel.mesh import spawn
+                  "or --features hbm_sharded (nothing to stripe)")
         from legion_tpu_torch.parallel.trainer import fit_rank
-        load, load_kwargs = source
-        world = _world(args)
-        # CPU ranks share this host's cores
-        threads = (max(1, (os.cpu_count() or 1) // world)
-                   if args.device == "cpu" else None)
-        spawn(fit_rank, world, args.device,
-              args=(cfg.to_json(), load, load_kwargs), threads=threads)
+        _spawn(fit_rank, args, cfg, source)
     else:
         if cfg.cache.group_size > 1:
             _warn("--cache-group is meaningless without --cache-budget-gb "

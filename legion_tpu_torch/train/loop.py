@@ -113,7 +113,8 @@ class StepFns(NamedTuple):
 
 
 def make_step_fns(cfg: Config, caps: Sequence[int],
-                  reducer: Optional[Callable] = None) -> StepFns:
+                  reducer: Optional[Callable] = None,
+                  feature_fetch: Optional[Callable] = None) -> StepFns:
     """Build (train_step, eval_step) for static frontier caps.
 
     Randomness comes from ``state.generator`` (train) or the given
@@ -121,11 +122,22 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
     (see sampler.sample_batch), and dropout still draws from the
     generator. ``reducer(model)``, when given, runs between the backward
     pass and the optimizer step: the data-parallel gradient mean
-    (``parallel/dp.py``; the reference's ``shard_axes``)."""
+    (``parallel/dp.py``; the reference's ``shard_axes``).
+    ``feature_fetch(feats, frontier)`` replaces the gather of the
+    frontier's rows (default ``gather_features``); it may return (rows,
+    overflow), whose () int32 overflow (requests the striped exchange had
+    to cap, read as zero rows) is added to the step's ``cap_overflow``."""
     fanouts = tuple(cfg.sampler.fanouts)
     dedup_last = cfg.sampler.dedup_last
     caps = tuple(caps)
     loss_of, counts_of = make_objective(cfg)
+    fetch = feature_fetch or gather_features
+
+    def features(feats, frontier):
+        x = fetch(feats, frontier)
+        if isinstance(x, tuple):
+            return x
+        return x, None
 
     def sample(graph, seeds, num_seeds, labels, generator, uniforms):
         return sample_batch(graph, seeds, num_seeds, labels, fanouts, caps,
@@ -141,7 +153,7 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         ``state`` in place. Returns the step's metrics as device tensors."""
         batch = sample(graph, seeds, num_seeds, labels, state.generator,
                        uniforms)
-        x = gather_features(feats, batch.frontier)
+        x, fetch_overflow = features(feats, batch.frontier)
         out = state.model(tuple(reversed(batch.blocks)), x,
                           deterministic=False, generator=state.generator)
         loss = loss_of(out, batch)
@@ -159,6 +171,8 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         for blk, cap in zip(batch.blocks, caps[1:]):
             if blk.identity_offset is None:
                 overflow = overflow + (blk.num_src - cap).clamp(min=0)
+        if fetch_overflow is not None:
+            overflow = overflow + fetch_overflow
         return {"loss": loss.detach(), "edges": edges,
                 "frontier": batch.num_frontier, "cap_overflow": overflow}
 
@@ -169,7 +183,7 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         tensors; for ``lp_sage`` the (LP loss sum, valid-pair count), so
         that the epoch's a / b is the pair-weighted mean loss."""
         batch = sample(graph, seeds, num_seeds, labels, generator, uniforms)
-        x = gather_features(feats, batch.frontier)
+        x, _ = features(feats, batch.frontier)
         out = model(tuple(reversed(batch.blocks)), x, deterministic=True)
         return counts_of(out, batch)
 
@@ -238,8 +252,7 @@ class Trainer:
                                            self.device)
         feats = pad_feature_dim(np.asarray(data.features, np.float32),
                                 cfg.dataset.feature_pad_align or 1)
-        self.features = torch.from_numpy(np.ascontiguousarray(feats)).to(
-            self.device)
+        self.features = self._place_features(feats)
 
         self.shards_train = shard_node_set(data.train_ids, num_shards)
         self.shards_valid = shard_node_set(data.valid_ids, num_shards)
@@ -271,9 +284,19 @@ class Trainer:
                                rank=rank, world=world)
         self.fns = make_step_fns(
             cfg, self.caps,
-            reducer=make_reducer(self.model) if make_reducer else None)
-        self.fns_eval = make_step_fns(cfg, self.eval_caps)
+            reducer=make_reducer(self.model) if make_reducer else None,
+            feature_fetch=self.feature_fetch)
+        self.fns_eval = make_step_fns(cfg, self.eval_caps,
+                                      feature_fetch=self.feature_fetch)
         self.history: list[Dict] = []
+
+    # the frontier's rows come from the whole table on the device
+    feature_fetch: Optional[Callable] = None
+
+    def _place_features(self, feats: np.ndarray) -> torch.Tensor:
+        """The feature table as the steps read it: the whole (padded)
+        table on the device."""
+        return torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
 
     def _probe_caps(self):
         """Tighten static frontier caps to slack x the maxima realized on

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -101,11 +101,13 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, rank: int = 0,
     return state
 
 
-def maybe_checkpoint_step(train_cfg, state: TrainState,
-                          step_index: int) -> None:
+def maybe_checkpoint_step(train_cfg, state: TrainState, step_index: int,
+                          save: Optional[Callable] = None) -> None:
     """Mid-epoch checkpoint cadence (``TrainConfig.checkpoint_every_steps``),
     shared by the pipelined trainers so the cadence cannot drift between
-    drivers."""
+    drivers. ``save(ckpt_dir, state)`` writes it (default
+    ``save_checkpoint``; the striped trainers write every rank's
+    generator)."""
     if (train_cfg.checkpoint_dir and train_cfg.checkpoint_every_steps
             and (step_index + 1) % train_cfg.checkpoint_every_steps == 0):
-        save_checkpoint(train_cfg.checkpoint_dir, state)
+        (save or save_checkpoint)(train_cfg.checkpoint_dir, state)

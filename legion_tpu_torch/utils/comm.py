@@ -7,22 +7,35 @@ bytes of each call by op kind on this rank. ``reset_counts`` and
 ``read_counts`` bracket a step (or any span), and the closed forms are
 asserted against what was read.
 
-A call's bytes are the bytes of the tensor this rank hands in (for
-``all_reduce`` the buffer reduced in place; for ``all_gather_object`` the
-pickled object), so a count is the reference's HLO output bytes for the
-ops the port uses so far.
+A call's bytes are the reference's HLO output bytes of the same op: the
+tensor handed in for ``all_reduce`` and ``all_to_all`` (whose output is as
+large), the gathered tensor for ``all_gather``, this rank's share for
+``reduce_scatter``, and the pickled object for ``all_gather_object``.
+
+The all-gather and the reduce-scatter are ``dist.all_gather`` and
+``dist.reduce_scatter`` over lists of tensors: the tensor forms
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``) print a
+deprecation warning under gloo on newer torch, and their replacements do
+not exist on older torch; the list forms run on both and on NCCL.
+
+``stage_through_host(True)`` is the share-device mode of
+``parallel.mesh`` (several gloo ranks on one card): each wrapper then
+copies CUDA tensors to host memory, runs the collective there and copies
+the result back, counting the same bytes. Nothing else stages: a CUDA
+tensor handed to a gloo group outside that mode fails in ``dist``.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 _COUNTS: Dict[str, int] = {}
 _CALLS: Dict[str, int] = {}
+_STAGE = {"on": False}
 
 
 def _count(op: str, nbytes: int) -> None:
@@ -45,12 +58,62 @@ def read_calls() -> Dict[str, int]:
     return dict(_CALLS)
 
 
+def stage_through_host(on: bool) -> None:
+    """Set by ``parallel.mesh.init_process``: on only in its share-device
+    mode."""
+    _STAGE["on"] = bool(on)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.cpu() if _STAGE["on"] and t.is_cuda else t
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
     """In-place sum over every rank (``dist.all_reduce``); returns
     ``tensor``."""
-    _count("all_reduce", tensor.numel() * tensor.element_size())
-    dist.all_reduce(tensor)
+    _count("all_reduce", _nbytes(tensor))
+    buf = _host(tensor)
+    dist.all_reduce(buf)
+    if buf is not tensor:
+        tensor.copy_(buf)
     return tensor
+
+
+def all_to_all(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``dist.all_to_all_single`` with equal splits along dim 0: block p
+    of the result is block ``me`` of rank p's ``tensor``."""
+    _count("all_to_all", _nbytes(tensor))
+    src = _host(tensor.contiguous())
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(tensor.device)
+
+
+def all_gather(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``tensor`` of ``group``, concatenated in rank order
+    along dim 0."""
+    k = dist.get_world_size(group)
+    _count("all_gather", k * _nbytes(tensor))
+    src = _host(tensor.contiguous())
+    parts = [torch.empty_like(src) for _ in range(k)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts).to(tensor.device)
+
+
+def reduce_scatter(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of ``tensor``'s block ``me``
+    along dim 0 (k equal blocks)."""
+    k = dist.get_world_size(group)
+    src = _host(tensor.contiguous())
+    parts = list(src.chunk(k))
+    out = torch.empty_like(parts[0])
+    _count("reduce_scatter", _nbytes(out))
+    dist.reduce_scatter(out, parts, group=group)
+    return out.to(tensor.device)
 
 
 def all_gather_object(obj) -> List:
@@ -65,13 +128,37 @@ def all_gather_object(obj) -> List:
 # Closed forms (bytes per rank per step)
 # ---------------------------------------------------------------------------
 
+def exact_exchange_bytes(m: int, k: int, d: int, itemsize: int = 4,
+                         cap: Optional[int] = None,
+                         payload: bool = False) -> Dict[str, int]:
+    """``sharded_row_fetch`` / ``StripedTopoCache.sample_hot`` (the exact
+    route-by-owner exchange): a (k, cap) int32 id all-to-all (twice the
+    ids when the draw-grid index rides along) and a (k, cap, d) response
+    all-to-all."""
+    from legion_tpu_torch.parallel.feature_exchange import owner_cap
+    cap = cap if cap is not None else owner_cap(m, k)
+    ids = k * cap * 4 * (2 if payload else 1)
+    return {"all_to_all": ids + k * cap * d * itemsize}
+
+
+def psum_exchange_bytes(m: int, k: int, d: int,
+                        itemsize: int = 4) -> Dict[str, int]:
+    """``sharded_row_fetch_psum``: the all-gather of every rank's (m,)
+    ids and the reduce-scatter of the (k*m, d) one-hot response, as the
+    wrappers count them (the reduce-scatter's share (m, d); its whole
+    input crosses the links, see ``link_bytes``)."""
+    return {"all_gather": k * m * 4, "reduce_scatter": m * d * itemsize}
+
+
 def link_bytes(out_bytes: Dict[str, int], k: int) -> int:
     """Approximate per-rank link traffic of ``read_counts()``-style bytes
-    on a ring of k ranks: an all-reduce moves ~2 (k-1)/k x its input, any
-    other op its bytes once. (The reference's factors for the ops the
-    port does not call yet come with the paths that call them.)"""
-    return int(sum(v * (2 * (k - 1) / k if op == "all_reduce" else 1.0)
-                   for op, v in out_bytes.items()))
+    on a ring of k ranks (the reference's factors): an all-gather's output
+    crossed ~(k-1)/k, a reduce-scatter's input (k x its share) crosses,
+    an all-to-all moves (k-1)/k of itself, an all-reduce ~2 (k-1)/k of
+    its input; anything else counts once."""
+    f = {"all_gather": (k - 1) / k, "reduce_scatter": k - 1,
+         "all_to_all": (k - 1) / k, "all_reduce": 2 * (k - 1) / k}
+    return int(sum(v * f.get(op, 1.0) for op, v in out_bytes.items()))
 
 
 def grad_allreduce_bytes(param_count: int, itemsize: int = 4) -> int:

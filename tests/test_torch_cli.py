@@ -1,9 +1,9 @@
 """The port's command line, ``python -m legion_tpu_torch.train``
 (``legion_tpu_torch/train/__main__.py``), against ``train.py``: the same
 config JSON for the same flags, the dispatch to each driver with
-``train.py``'s warnings, the registry and ``--config`` checks, each
+``train.py``'s warnings, the registry and ``--config`` checks, the
 unported path refused by its ROADMAP item, and two gloo ranks training
-through ``--devices 2 --device cpu``. Single-device runs are in-process
+through ``--devices 2 --device cpu``, on each cache-group path too. Single-device runs are in-process
 on the CPU; ``train.py`` and the two-rank run are subprocesses."""
 
 import json
@@ -141,17 +141,36 @@ def test_cli_host_topology_without_a_budget_trains(capsys):
     assert "Accuracy on test data" in cap.out
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--partitioned"], 7),
-    (["--topology", "host", "--devices", "2"], 6),
-    (["--cache-budget-gb", "0.01", "--devices", "2"], 5),
-    (["--features", "hbm_sharded", "--devices", "2", "--cache-group", "2"],
-     4)], ids=["partitioned", "striped_hybrid", "striped_cache",
-               "hbm_sharded"])
+@pytest.mark.parametrize("flags,item", [(["--partitioned"], 7)],
+                         ids=["partitioned"])
 def test_cli_refuses_unported_paths_by_item(flags, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item}"):
         cli.main(["--synthetic", "1500", "--device", "cpu"] + SMALL + flags)
+
+
+@pytest.mark.parametrize("flags,lines", [
+    (["--topology", "host", "--cache-budget-gb", "0.0002"],
+     ["owner-cap probe (Kg=2)", "(x2 ranks/group)", "topo_hot:"]),
+    (["--cache-budget-gb", "0.0002"],
+     ["(x2 ranks/group)", "owner cap", "hit:"]),
+    (["--features", "hbm_sharded"], ["[mesh {'data': 1, 'cache': 2}]"])],
+    ids=["striped_hybrid", "striped_cache", "hbm_sharded"])
+def test_cli_runs_each_cache_group_path(flags, lines):
+    """``--devices 2 --cache-group 2 --device cpu`` on each path that
+    stripes over a cache group: two gloo ranks train to the test line;
+    rank 0 logs."""
+    r = subprocess.run(
+        [sys.executable, "-m", "legion_tpu_torch.train", "--device", "cpu",
+         "--devices", "2", "--cache-group", "2", "--synthetic", "1500"]
+        + SMALL + flags, capture_output=True, text=True, timeout=300,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    for line in lines:
+        assert line in r.stdout, line
+    assert r.stdout.count("Epoch:0") == 1
+    assert "Accuracy on test data" in r.stdout
+    assert "NotImplementedError" not in r.stderr
 
 
 def test_cli_devices_zero_on_the_cpu_asks_for_a_count():

@@ -77,7 +77,7 @@ class _Spy(GradMean):
 def _rank_checks(device, d, world):
     """Everything one rank checks, in one spawn: the parity epoch and
     eval, one step counted alone with its gradients, and (2 ranks) the
-    kill-and-resume and the striped-table refusal."""
+    kill-and-resume and the striped table."""
     rank = dist.get_rank()
     g = _graph()
     u = np.load(os.path.join(d, "uniforms.npz"))
@@ -135,13 +135,15 @@ def _rank_checks(device, d, world):
             "valid": ([h["valid"] for h in whole["history"]],
                       [h["valid"] for h in rest["history"]]),
             "test": (whole["test_acc"], rest["test_acc"])}
-        try:
-            MeshTrainer(dataclasses.replace(
-                _cfg(port_config, world, feature_placement="hbm_sharded"),
-                cache=port_config.CacheConfig(group_size=2)), g, device)
-            out["striped"] = "ran"
-        except NotImplementedError as e:
-            out["striped"] = str(e)
+        striped = MeshTrainer(dataclasses.replace(
+            _cfg(port_config, world, feature_placement="hbm_sharded"),
+            cache=port_config.CacheConfig(group_size=2)), g, device)
+        striped.model.load_state_dict(torch.load(os.path.join(d,
+                                                              "init.pt")))
+        out["striped"] = {"mesh": striped.mesh.shape,
+                          "rows": striped.features.shape[0],
+                          "losses": striped.train_one_epoch(
+                              0, uniforms=train_u)["losses"]}
         sharded = MeshTrainer(_cfg(port_config, world,
                                    feature_placement="hbm_sharded"), g,
                               device)
@@ -301,11 +303,14 @@ def test_kill_and_resume_at_two_ranks(run2):
 
 
 def test_hbm_sharded_across_ranks_is_refused_by_name(run2):
-    """Striped over a cache axis of two it names its ROADMAP item; on a
-    cache axis of one it is the whole table, and trains as "hbm" does."""
+    """Striped over a cache axis of two (each rank holding half the
+    table, the frontier's rows fetched over the group) and on a cache
+    axis of one (the whole table), it trains bitwise as "hbm" does."""
     _, _, ranks = run2
     for r in ranks:
-        assert "ROADMAP.md queue 1 item 4" in r["striped"]
+        assert r["striped"]["mesh"] == {"data": 1, "cache": 2}
+        assert r["striped"]["rows"] == 1000          # ceil(2000 / 2)
+        assert r["striped"]["losses"] == r["losses"]
         assert r["sharded_losses"] == r["losses"]
 
 

@@ -50,6 +50,13 @@ import legion_tpu_torch.parallel
 import legion_tpu_torch.parallel.dp
 import legion_tpu_torch.parallel.mesh
 import legion_tpu_torch.parallel.trainer
+import legion_tpu_torch.parallel.feature_exchange
+import legion_tpu_torch.cache.striped
+import legion_tpu_torch.cache.striped_pipeline
+import legion_tpu_torch.cache.striped_hybrid
+import legion_tpu_torch.train.striped_driver
+import legion_tpu_torch.train.striped_hybrid_driver
+import legion_tpu_torch.tools.cache_group_cell
 import legion_tpu_torch.utils.comm
 import legion_tpu_torch.train.__main__
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
