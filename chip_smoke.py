@@ -102,11 +102,12 @@ set-up; any failure raises and the script exits non-zero:
    path against its plain version on one batch at those loose caps (the
    sampling kernel on both hops, K3 on the whole frontier, K1 on the
    identity block, K2 forward and backward on layer 1's block);
-10. the command line (``"cli"``): ``python -m legion_tpu_torch.train`` as
-   a subprocess on the card: the verify recipe (50k nodes, 2 epochs,
+10. the command line (``"cli"``, last): ``python -m legion_tpu_torch.train``
+   as a subprocess on the card: the verify recipe (50k nodes, 2 epochs,
    batch 1024) above 0.15 with the test line, ``--topology host`` with no
-   budget (warns, both caches empty), and ``--devices 2`` on one card
-   (exits non-zero naming the card count);
+   budget (warns, both caches empty), ``--devices 2`` on one card (exits
+   non-zero naming the card count), and ``--partitioned --devices 1`` on
+   the verify recipe (one NCCL rank) above 0.15 with the test line;
 11. the cache-group paths at world size 1 through NCCL (``"mesh_striped"``,
    cut from the reference's 4-8 ranks to the machine's one card), each
    against its single-device twin in this call: ``MeshTrainer`` on
@@ -129,7 +130,27 @@ set-up; any failure raises and the script exits non-zero:
    feature matrices and hot draws, losses within ``STRIPED_LOSS_RTOL``
    (float32: 1e-5), bytes equal to the closed forms, the same launches at
    both axes, and the striped cached run's validation accuracy > 0.15
-   after 2 epochs.
+   after 2 epochs;
+13. the edge-partitioned path at world size 1 through NCCL
+   (``"mesh_partitioned"``, cut from the reference's 2-8 ranks to the
+   machine's one card, so the exchange makes no collective): the driver on
+   phase 6's graph, SAGE-256 bf16, batch 8000, the loose caps, two epochs
+   of 10 steps with eval: finite losses, no halo overflow, exact launch
+   counts, one batch bitwise the same through the exact and the psum
+   exchange (NCCL all-gather and reduce-scatter) with ids >= 2^24, its
+   logits within 3e-2 x max|logit| of the CPU plain path; the sampling
+   kernel on the compact CSR, K3 on the self-served gather and K2 on
+   layer 1's block against their plain versions, and K2 at layer 0's block
+   shape, which the path does not run (layer 0 widens); set-up seconds
+   (partition, shard, owner table), peak host RSS and device memory,
+   ms/step and edges/s beside phase 6's ms/step;
+14. the same path at two gloo ranks sharing the card against one rank
+   (``"mesh_partitioned_k2"``, ``legion_tpu_torch.tools.partition_cell``;
+   behaviour, not speed) on the learning smoke's graph, greedy partition:
+   exact and psum draws and rows bitwise equal on one batch, the
+   collective-permute bytes the closed forms', no halo overflow,
+   validation accuracy > 0.15 at both world sizes, and the launches per
+   step the CPU test pins.
 
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
@@ -1076,12 +1097,14 @@ def mesh_dp(kernels, results, data, smi):
 
 def cli_runs(smi):
     """Phase "cli": ``python -m legion_tpu_torch.train`` as a user runs it
-    on the card, three times: the reference's verify recipe (50k-node
+    on the card, four times: the reference's verify recipe (50k-node
     planted-label graph, 2 epochs, batch 1024) must reach validation
     accuracy > 0.15 and print the test line; ``--topology host`` with no
     budget (the repaired case) must warn, finish, and report both caches
     empty; ``--devices 2`` on this one-card machine must exit non-zero
-    naming the card count."""
+    naming the card count; and ``--partitioned --devices 1`` on the
+    verify recipe (one rank through NCCL) must reach > 0.15 and print the
+    test line."""
     import re
 
     import torch
@@ -1126,6 +1149,18 @@ def cli_runs(smi):
             f"rc {r.returncode}, {r.stderr[-500:]}")
     out["devices_2"] = {"returncode": r.returncode, "message": msg,
                         "seconds": secs}
+    r, secs = run("--partitioned", "--devices", "1", "--synthetic", "50000",
+                  "--epochs", "2", "--batch-size", "1024")
+    require(r.returncode == 0,
+            f"--partitioned on the verify recipe exits 0: {r.stderr[-2000:]}")
+    accs = [float(a) for a in re.findall(r"Val Acc: ([0-9.]+)", r.stdout)]
+    require(len(accs) == 2 and accs[-1] > 0.15
+            and "[1-way partitioned]" in r.stdout,
+            f"--partitioned reaches Val Acc > 0.15, got {accs}")
+    require("Accuracy on test data" in r.stdout,
+            "--partitioned prints the test line")
+    out["partitioned"] = {"valid_acc": accs, "seconds": secs,
+                          "test_line": r.stdout.strip().splitlines()[-1]}
     emit({"phase": "cli", "nvidia_smi": smi, **out})
 
 
@@ -2001,6 +2036,292 @@ def mesh_striped_k2(smi):
             for p in ("sharded", "cached", "hybrid")}
 
 
+def mesh_partitioned(kernels, results, smi, cached_ref):
+    """Phase "mesh_partitioned": the edge-partitioned path at world size 1
+    through NCCL, in this process, on phase 6's papers100M-class graph
+    (cut: 2-8 ranks to 1, the machine's one card; no request leaves the
+    rank, so the exchange makes no collective and the step's host and
+    device cost is what shows) with SAGE-256 bf16, fanout [25,10], batch
+    8000 and the reference's loose caps: ``run_partitioned_training`` for
+    two epochs of 10 steps, each followed by eval on the valid set, then
+    the test set. Finite losses, no halo overflow, exact launch counts
+    (per train step the sampling kernel twice, K3, K2 forward and
+    backward once each; per eval step the same but K2 backward; K1 and K5
+    never). On one more batch, sampled with one set of grids through the
+    exact exchange and through the psum exchange (whose all-gather and
+    reduce-scatter run through NCCL): bitwise the same draws and feature
+    matrix, ids >= 2^24 in the frontier, and the logits within 3e-2 x
+    max|logit| of the same batch through the plain versions on the CPU.
+    Then every kernel of the path against its plain version on that
+    batch's tensors: the sampling kernel on the compact CSR with each
+    hop's ``where(mine, row, -1)`` frontier, K3 on the self-served gather
+    of the whole frontier, K2 forward and backward on layer 1's block; and
+    K2 at layer 0's block shape (the block's positions into the
+    transformed features, width 256), which the path does not run: layer 0
+    widens 32 -> 256 and aggregates the raw features with the plain
+    gather, as the reference's model does. Returns the run's launch
+    counts."""
+    import resource
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         ParallelConfig, SamplerConfig,
+                                         TrainConfig)
+    from legion_tpu_torch.models import build_model
+    from legion_tpu_torch.parallel import mesh
+    from legion_tpu_torch.parallel.halo import _local_lookup
+    from legion_tpu_torch.parallel.multihost import HaloPath
+    from legion_tpu_torch.sampling.block import Block
+    from legion_tpu_torch.sampling.sampler import DeviceGraph
+    from legion_tpu_torch.tools import pa_cell
+    from legion_tpu_torch.train.partitioned_driver import (
+        run_partitioned_training)
+    from legion_tpu_torch.utils import comm
+    lines = []
+
+    def log(s):
+        lines.append(s)
+        print(s, file=sys.stderr, flush=True)
+
+    data, _, _ = pa_cell.dataset(REPO, log)
+    b, fanouts = pa_cell.BATCH, (25, 10)
+    cfg = Config(
+        dataset=DatasetConfig(num_classes=pa_cell.CLASSES),
+        sampler=SamplerConfig(fanouts=fanouts, batch_size=b),
+        model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
+                          dropout=0.5, dtype="bfloat16"),
+        train=TrainConfig(learning_rate=0.003, epochs=2),
+        parallel=ParallelConfig(num_devices=1))
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_process(0, 1, os.path.join(tmp, "init"), "cuda")
+        try:
+            backend = dist.get_backend()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            res = run_partitioned_training(cfg, data, dev, log=log)
+            run_s = time.perf_counter() - t0
+            launches = read_launches(kernels)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            # one batch through both exchanges, the same grids
+            tr, model = res["trainer"], res["state"].model
+            shard = tr.path.shard
+            seeds = torch.from_numpy(data.train_ids[:b].copy()).to(dev)
+            labels = torch.from_numpy(data.labels[data.train_ids[:b]]).to(dev)
+            nb = torch.tensor(b, dtype=torch.int32, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(11)
+            grids = [torch.rand((c, f), generator=gen, device=dev)
+                     for c, f in zip(tr.caps, fanouts)]
+            tr.path.overflow.zero_()
+            batch = tr.path.sampler(fanouts, tr.caps)(
+                shard, seeds, nb, labels, None, grids)
+            x = tr.path.fetch(shard.feat_rows, batch.frontier)
+            batch_overflow = int(tr.path.overflow)
+            psum = HaloPath(shard, tr.path.owner_of, None)
+            comm.reset_counts()
+            pbatch = psum.sampler(fanouts, tr.caps)(shard, seeds, nb, labels,
+                                                    None, grids)
+            px = psum.fetch(shard.feat_rows, pbatch.frontier)
+            torch.cuda.synchronize()
+            psum_counts = comm.read_counts()
+        finally:
+            dist.destroy_process_group()
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    require(backend == "nccl", f"the one-rank group runs NCCL, not {backend}")
+    hist = res["history"]
+    require(len(hist) == 2 and all(h["steps"] == pa_cell.STEPS
+                                   for h in hist),
+            f"two epochs of {pa_cell.STEPS} steps")
+    for h in hist:
+        require(all(math.isfinite(v) for v in h["losses"]),
+                f"finite losses in epoch {h['epoch']}")
+        require(h["halo_overflow"] == 0 and h["cap_overflow"] == 0,
+                f"no halo or cap overflow in epoch {h['epoch']}")
+    require(tr.caps == (8000, 208000, 2288000) and res["dist_caps"] == (),
+            f"the loose caps and no distance at one rank: {tr.caps}, "
+            f"{res['dist_caps']}")
+    t = sum(h["steps"] for h in hist)
+    e = (2 * -(-len(data.valid_ids) // cfg.sampler.eval_batch_size)
+         + -(-len(data.test_ids) // cfg.sampler.eval_batch_size))
+    want = {"sample_neighbors": 2 * (t + e), "identity_masked_mean": 0,
+            "gathered_masked_mean": t + e,
+            "gathered_masked_mean_backward": t, "gather_rows": t + e,
+            "grouped_masked_sum": 0}
+    require(launches == want, f"exact launches over {t} train and {e} eval "
+            f"steps: {launches} (want {want})")
+    same = (torch.equal(batch.frontier, pbatch.frontier)
+            and all(torch.equal(a.nbr_pos, c.nbr_pos)
+                    and torch.equal(a.nbr_mask, c.nbr_mask)
+                    and torch.equal(a.num_src, c.num_src)
+                    for a, c in zip(batch.blocks, pbatch.blocks)))
+    require(same, "the exact and psum exchanges draw bitwise the same")
+    require(torch.equal(x, px), "the exact and psum exchanges give bitwise "
+            "the same feature matrix")
+    require(batch_overflow == 0, "no halo overflow on the batch")
+    big = int((batch.frontier >= 1 << 24).sum())
+    require(big > 0, "the sampled frontier holds ids >= 2^24")
+    num_frontier = int(batch.num_frontier)
+    # the logits through the kernels against the plain versions on the CPU
+    blocks = tuple(reversed(batch.blocks))
+    with torch.no_grad():
+        out = model(blocks, x, deterministic=True).float().cpu()
+        cpu_model = build_model("sage", data.feature_dim, 256,
+                                pa_cell.CLASSES, 2, 0.5, "bfloat16")
+        cpu_model.load_state_dict({k: v.cpu()
+                                   for k, v in model.state_dict().items()})
+        ref = cpu_model(tuple(Block(k.nbr_pos.cpu(), k.nbr_mask.cpu(),
+                                    k.num_src.cpu(), k.num_dst.cpu())
+                              for k in blocks), x.cpu()).float()
+    scale = float(ref.abs().max())
+    logit_err = float((out - ref).abs().max())
+    require(bool(torch.isfinite(out).all()) and logit_err <= 3e-2 * scale,
+            f"logits on the card within 3e-2 x max|logit| of the CPU plain "
+            f"path ({logit_err} vs {scale})")
+    del cpu_model, ref, out
+    # every kernel of the path on the batch's own tensors
+    graph = DeviceGraph(shard.sub_indptr, shard.sub_indices)
+    local = []
+    for fr in hop_frontiers(batch, tr.caps) + [batch.frontier]:
+        mine, row = _local_lookup(shard.owned_ids, fr)
+        local.append(torch.where(mine, row, -1))
+    hops = check_sampling_kernel(graph, local[:2], fanouts, seed=12)
+    results["sample_neighbors"]["mesh_partitioned_hops"] = hops
+    _, k3 = check_gather_rows(shard.feat_rows, local[2])
+    results["gather_rows"]["mesh_partitioned"] = k3
+    xb = x.to(torch.bfloat16)
+    fwd, bwd = check_k2(*layer1_inputs(types.SimpleNamespace(model=model),
+                                       batch, xb), "mean")
+    shapes = "partitioned_pa_bf16"
+    results["gathered_masked_mean"]["shapes"][shapes] = fwd
+    results["gathered_masked_mean_backward"]["shapes"][shapes] = bwd
+    layer0 = model.layers[0]
+    blk0 = blocks[0]
+    with torch.no_grad():
+        h_t0 = layer0._dense(layer0.fc_neigh, xb)
+    g0 = torch.randn((blk0.dst_cap, h_t0.shape[1]), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    fwd0, bwd0 = check_k2(h_t0, blk0.nbr_pos, blk0.nbr_mask, g0, "mean")
+    off = "partitioned_pa_bf16_layer0_not_on_path"
+    results["gathered_masked_mean"]["shapes"][off] = fwd0
+    results["gathered_masked_mean_backward"]["shapes"][off] = bwd0
+    del h_t0, g0, xb, x, px, batch, pbatch, graph, local
+    steady = hist[-1]
+    cached_steady = cached_ref["epochs"][-1]
+    emit({"phase": "mesh_partitioned", "nvidia_smi": smi,
+          "backend": backend, "world": 1,
+          "cut": "2-8 ranks to 1 (one card): no collective in the exchange",
+          "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
+                    "features": data.feature_dim},
+          "caps": list(tr.caps), "dist_caps": list(res["dist_caps"]),
+          "edge_cut": res["edge_cut"], "setup_s": res["setup_s"],
+          "run_s": run_s, "driver_log": lines,
+          "epochs": [{"epoch": h["epoch"], "losses": h["losses"],
+                      "ms_per_step": 1e3 * h["seconds"] / h["steps"],
+                      "edges_per_s": h["edges_per_s"], "valid_acc": h["valid"],
+                      "halo_overflow": h["halo_overflow"]} for h in hist],
+          "steady_ms_per_step": 1e3 * steady["seconds"] / steady["steps"],
+          "steady_edges_per_s": steady["edges_per_s"],
+          "cached_path_steady_ms_per_step": 1e3 * cached_steady["seconds"]
+          / cached_steady["steps"],
+          "test_acc": res["test_acc"], "train_steps": t, "eval_steps": e,
+          "launches": launches, "frontier_ids_past_2_24": big,
+          "num_frontier": num_frontier,
+          "psum_counts": psum_counts,
+          "logits_vs_cpu_max_abs_err": logit_err, "logits_max_abs": scale,
+          "kernel_checks": {"sample_neighbors_hops": hops, "gather_rows": k3,
+                            "k2_layer1": {"forward": fwd, "backward": bwd},
+                            "k2_layer0_shape_not_on_path": {
+                                "forward": fwd0, "backward": bwd0}},
+          "peak_mem_gb": peak, "peak_host_rss_gb": rss_gb})
+    return launches
+
+
+def mesh_partitioned_k2(smi):
+    """Phase "mesh_partitioned_k2": ``legion_tpu_torch.tools.partition_cell``
+    on two gloo ranks sharing this card (every collective staged through
+    host memory: behaviour, not speed), then on one rank, on the learning
+    smoke's graph with the greedy partition (its edge cut printed beside
+    hash's), SAGE-256 float32, 2 epochs. On every rank one batch drawn
+    through the exact and the psum exchange with the same grids gives
+    bitwise the same draws and feature matrix, the exact exchange's
+    counted collective-permute bytes equal ``halo_exact_hop_bytes`` (both
+    hops) plus ``halo_exact_fetch_bytes`` at the probed caps, no halo
+    overflow anywhere, validation accuracy > 0.15 at both world sizes,
+    and the launches per step are those the CPU test pins: at 2 ranks the
+    sampling kernel 4 times (twice a hop), K3 3 times, K2 forward once
+    (layer 1; layer 0 widens 100 -> 256), K2 backward once a train step;
+    at 1 rank the sampling kernel twice and K3 once. Returns rank 0's
+    launches of the 2-rank driver run."""
+    from legion_tpu_torch.tools import partition_cell
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "partition_cell.json")
+        t0 = time.perf_counter()
+        partition_cell.main([path])
+        run_s = time.perf_counter() - t0
+        with open(path) as f:
+            out = json.load(f)
+    for world, per_hop, k3 in ((2, 4, 3), (1, 2, 1)):
+        run = out[f"world{world}"]
+        for r in run["ranks"]:
+            what = f"world {world} rank {r['rank']}"
+            ob = r["one_batch"]
+            require(ob["draws_equal"] and ob["x_equal"],
+                    f"{what}: exact and psum draws and rows bitwise equal")
+            require(ob["exact_bytes"] == ob["closed_form_bytes"],
+                    f"{what}: collective-permute bytes {ob['exact_bytes']} "
+                    f"are the closed form's {ob['closed_form_bytes']}")
+            ovs = ([h["halo_overflow"] for h in r["history"]]
+                   + [r["extra_epoch_halo_overflow"],
+                      r["extra_eval_halo_overflow"], ob["overflow"]])
+            require(not any(ovs), f"{what}: no halo overflow, got {ovs}")
+            t, e = r["train_steps"], r["eval_steps"]
+            want_t = {"sample_neighbors": per_hop * t,
+                      "identity_masked_mean": 0, "gathered_masked_mean": t,
+                      "gathered_masked_mean_backward": t,
+                      "gather_rows": k3 * t, "grouped_masked_sum": 0}
+            want_e = dict(want_t, sample_neighbors=per_hop * e,
+                          gathered_masked_mean=e,
+                          gathered_masked_mean_backward=0,
+                          gather_rows=k3 * e)
+            require(r["train_launches"] == want_t
+                    and r["eval_launches"] == want_e,
+                    f"{what}: launches per step, train {r['train_launches']}"
+                    f" (want {want_t}), eval {r['eval_launches']} (want "
+                    f"{want_e})")
+        acc = run["ranks"][0]["history"][-1]["valid"]
+        require(acc > 0.15, f"world {world}: validation accuracy {acc} > "
+                "0.15")
+    r0 = out["world2"]["ranks"][0]
+    emit({"phase": "mesh_partitioned_k2", "nvidia_smi": smi,
+          "mode": "2 gloo ranks sharing cuda:0, collectives staged "
+                  "through host memory: behaviour, not speed; then 1 rank "
+                  "through NCCL",
+          "graph": out["world2"]["size"], "run_s": run_s,
+          "edge_cut": out["world2"]["edge_cut"],
+          "dist_caps": r0["dist_caps"], "caps": r0["caps"],
+          "valid_acc": {w: [h["valid"] for h in
+                            out[w]["ranks"][0]["history"]]
+                        for w in ("world2", "world1")},
+          "test_acc": {w: out[w]["ranks"][0]["test_acc"]
+                       for w in ("world2", "world1")},
+          "losses": {w: [h["losses"] for h in out[w]["ranks"][0]["history"]]
+                     for w in ("world2", "world1")},
+          "one_batch": {w: [r["one_batch"] for r in out[w]["ranks"]]
+                        for w in ("world2", "world1")},
+          "launches": {w: {"train": out[w]["ranks"][0]["train_launches"],
+                           "eval": out[w]["ranks"][0]["eval_launches"],
+                           "train_steps": out[w]["ranks"][0]["train_steps"],
+                           "eval_steps": out[w]["ranks"][0]["eval_steps"]}
+                       for w in ("world2", "world1")},
+          "run_seconds": {w: out[w]["ranks"][0]["run_s"]
+                          for w in ("world2", "world1")}})
+    return r0["run_launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2220,6 +2541,13 @@ def main():
                                 {"cached": cached_ref, "hybrid": hybrid_ref}))
     torch.cuda.empty_cache()
     by_path.update(mesh_striped_k2(smi))
+
+    # -- 13. the edge-partitioned path at world size 1 (NCCL) on phase 6's
+    # graph, and 14. at two ranks sharing the card against one -----------
+    by_path["mesh_partitioned"] = mesh_partitioned(kernels, results, smi,
+                                                   cached_ref)
+    torch.cuda.empty_cache()
+    by_path["mesh_partitioned_k2"] = mesh_partitioned_k2(smi)
 
     # -- 10. the command line, as a user runs it ----------------------------
     cli_runs(smi)

@@ -29,9 +29,10 @@ Which path reads each field:
   (``train/striped_driver.py``, ``train/striped_hybrid_driver.py``),
   whose cost model takes the group's budget (``group_size`` x a
   device's); the single-device drivers pass it to their cost model too.
-* ``parallel``: ``num_devices`` the dispatch and ``MeshTrainer``; the
-  ``halo_*`` fields the edge-partitioned path, which the command line
-  refuses until it is ported (ROADMAP queue 1 item 7).
+* ``parallel``: ``num_devices`` the dispatch, ``MeshTrainer`` and the
+  edge-partitioned driver; the ``halo_*`` fields that driver
+  (``train/partitioned_driver.py``: the exchange, and the slack and
+  batches of its cap probe).
 """
 
 from __future__ import annotations

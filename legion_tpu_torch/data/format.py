@@ -17,14 +17,16 @@ file               dtype       contents
 ``trainingset``    int32       train node ids
 ``validationset``  int32       valid node ids
 ``testingset``     int32       test node ids
+``partition_K_bn`` int32       per-node partition id (optional, K-way)
 ``meta.json``      json        counts and dims
 =================  ==========  ==========================================
 
 ``load_dataset(mmap=True)`` leaves every array a ``numpy.memmap``, so a
 feature table larger than RAM stays in the page cache; ``host_tensor``
-wraps such an array as a CPU tensor without copying it. The reference's
-optional ``partition_K_bn`` file (multi-device partitions) is neither
-written nor read here yet.
+wraps such an array as a CPU tensor without copying it.
+``load_dataset(partition_count=K)`` reads a ``partition_K_bn`` when the
+directory holds one (the reference's precomputed K-way partition, which
+the edge-partitioned driver uses instead of partitioning).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import dataclasses
 import json
 import os
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,6 +54,7 @@ class GraphData:
     train_ids: np.ndarray     # (T,) int32
     valid_ids: np.ndarray     # (V,) int32
     test_ids: np.ndarray      # (S,) int32
+    partition: Optional[np.ndarray] = None  # (N,) int32, optional
 
     @property
     def num_nodes(self) -> int:
@@ -70,6 +74,25 @@ class GraphData:
 
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr).astype(np.int64)
+
+    def validate(self) -> None:
+        """Raise ValueError unless the arrays form a graph: a
+        nondecreasing indptr from 0 to E, one feature row and one label a
+        node, every neighbor id in [0, N)."""
+        n, e = self.num_nodes, self.num_edges
+        if self.indptr[0] != 0 or self.indptr[-1] != e:
+            raise ValueError(f"indptr runs from {self.indptr[0]} to "
+                             f"{self.indptr[-1]}, not from 0 to {e}")
+        if (np.diff(self.indptr) < 0).any():
+            raise ValueError("indptr must be nondecreasing")
+        if self.features.shape[0] != n or self.labels.shape[0] != n:
+            raise ValueError(f"{self.features.shape[0]} feature rows and "
+                             f"{self.labels.shape[0]} labels for {n} nodes")
+        if e:
+            lo, hi = int(self.indices.min()), int(self.indices.max())
+            if lo < 0 or hi >= n:
+                raise ValueError(f"neighbor ids span [{lo}, {hi}], outside "
+                                 f"[0, {n})")
 
 
 def save_dataset(g: GraphData, path: str) -> None:
@@ -97,11 +120,16 @@ def save_dataset(g: GraphData, path: str) -> None:
     }
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
+    if g.partition is not None:
+        k = int(g.partition.max()) + 1
+        w(f"partition_{k}_bn", g.partition, np.int32)
 
 
-def load_dataset(path: str, mmap: bool = True) -> GraphData:
+def load_dataset(path: str, mmap: bool = True,
+                 partition_count: Optional[int] = None) -> GraphData:
     """Load a packed dataset directory; with ``mmap`` the arrays stay on
-    disk and in the page cache."""
+    disk and in the page cache. ``partition_count=K`` also loads the
+    directory's ``partition_K_bn`` when there is one."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     n, e, fdim = meta["num_nodes"], meta["num_edges"], meta["feature_dim"]
@@ -112,6 +140,12 @@ def load_dataset(path: str, mmap: bool = True) -> GraphData:
             return np.memmap(fp, dtype=dtype, mode="r", shape=shape)
         return np.fromfile(fp, dtype=dtype).reshape(shape)
 
+    part = None
+    if partition_count is not None:
+        name = f"partition_{partition_count}_bn"
+        if os.path.exists(os.path.join(path, name)):
+            part = r(name, np.int32, (n,))
+
     return GraphData(
         indptr=r("edge_src", np.int64, (n + 1,)),
         indices=r("edge_dst", np.int32, (e,)),
@@ -120,6 +154,7 @@ def load_dataset(path: str, mmap: bool = True) -> GraphData:
         train_ids=r("trainingset", np.int32, (meta["train_num"],)),
         valid_ids=r("validationset", np.int32, (meta["valid_num"],)),
         test_ids=r("testingset", np.int32, (meta["test_num"],)),
+        partition=part,
     )
 
 

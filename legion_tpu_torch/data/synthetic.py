@@ -1,8 +1,8 @@
 """Synthetic graph generators (counterpart of
 ``legion_tpu/data/synthetic.py``): ``random_power_law_graph``,
-``bench_graph`` and the on-disk ``streaming_power_law_graph``, which give
-the same arrays (and files) as the reference's for the same arguments.
-``chain_graph`` is not ported yet (ROADMAP.md).
+``bench_graph``, the on-disk ``streaming_power_law_graph`` (with its
+planted ``communities``) and ``chain_graph``, which give the same arrays
+(and files) as the reference's for the same arguments.
 
 The Zipf source draws, a binary search of every edge's uniform in a CDF
 of one float64 per node, take most of the generation time at 10^8+
@@ -140,6 +140,8 @@ def streaming_power_law_graph(
     valid_num: int = 16_000,
     test_num: int = 16_000,
     chunk_nodes: int = 2_000_000,
+    communities: int = 0,
+    intra_frac: float = 0.8,
     log=print,
 ) -> str:
     """Write a packed dataset (``data.format`` layout) straight to disk
@@ -149,9 +151,13 @@ def streaming_power_law_graph(
 
     In-degrees are Poisson(avg_degree) (num_edges is their sum, recorded
     in meta.json); neighbor sources are Zipf(alpha)-popular over a
-    permuted id space. The reference's ``communities`` option (planted
-    block structure for the partitioned drivers) is not ported yet.
-    Returns path."""
+    permuted id space. Returns path.
+
+    ``communities`` > 1 plants block structure, which a partitioner can
+    find: nodes fall into that many random groups, and each edge's source
+    is drawn from its destination's own group (Zipf-skewed within it)
+    with probability ``intra_frac``, else from the global Zipf. Adds 8
+    bytes of RAM a node."""
     rng = np.random.default_rng(seed)
     os.makedirs(path, exist_ok=True)
 
@@ -165,13 +171,32 @@ def streaming_power_law_graph(
     cdf = np.cumsum(ranks ** (-alpha))
     cdf /= cdf[-1]
     perm = rng.permutation(num_nodes).astype(np.int32)
+    if communities > 1:
+        csize = -(-num_nodes // communities)
+        cperm = rng.permutation(num_nodes).astype(np.int32)
+        cinv = np.empty(num_nodes, np.int32)
+        cinv[cperm] = np.arange(num_nodes, dtype=np.int32)
+        lcdf = np.cumsum(np.arange(1, csize + 1, dtype=np.float64)
+                         ** (-alpha))
+        lcdf /= lcdf[-1]
 
     with open(os.path.join(path, "edge_dst"), "wb") as f:
         done = 0
         for s in range(0, num_nodes, chunk_nodes):
             c = counts[s: s + chunk_nodes]
             e = int(c.sum())
-            _zipf_sources(cdf, perm, rng.random(e)).tofile(f)
+            src = _zipf_sources(cdf, perm, rng.random(e))
+            if communities > 1 and e:
+                # each edge's destination, its group and the group's base
+                dst = np.int64(s) + np.repeat(
+                    np.arange(len(c), dtype=np.int64), c)
+                base = (cinv[dst] // csize).astype(np.int64) * csize
+                lr = np.minimum(
+                    np.searchsorted(lcdf, rng.random(e)).astype(np.int64),
+                    np.minimum(csize, num_nodes - base) - 1)
+                intra = rng.random(e) < intra_frac
+                src = np.where(intra, cperm[base + lr], src)
+            src.astype(np.int32).tofile(f)
             done += e
             if (s // chunk_nodes) % 8 == 0:
                 log(f"  edges {done}/{num_edges} {time.time()-t0:.0f}s")
@@ -203,3 +228,15 @@ def streaming_power_law_graph(
         }, f, indent=2)
     log(f"dataset complete {time.time()-t0:.0f}s")
     return path
+
+
+def chain_graph(num_nodes: int = 8, feature_dim: int = 4) -> GraphData:
+    """A deterministic chain 0 <- 1 <- 2 <- ...: node v's one in-neighbor
+    is v + 1. One-hot features and alternating labels; every node is a
+    train id. For samplers checked by hand."""
+    src = np.arange(1, num_nodes, dtype=np.int32)
+    dst = np.arange(0, num_nodes - 1, dtype=np.int32)
+    feats = np.eye(num_nodes, feature_dim, dtype=np.float32)
+    labels = (np.arange(num_nodes) % 2).astype(np.int32)
+    ids = np.arange(num_nodes, dtype=np.int32)
+    return from_coo(src, dst, num_nodes, feats, labels, ids, ids[:0], ids[:0])

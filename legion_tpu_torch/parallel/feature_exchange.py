@@ -95,6 +95,20 @@ def shard_rows(table: np.ndarray, k: int) -> np.ndarray:
     return np.stack([stripe_rows(table, k, j) for j in range(k)])
 
 
+def group_positions(group: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos (M,) int32: each request's exclusive rank within its group,
+    request order kept; counts (k,) int32 requests per group) for group
+    ids in [0, k], where k marks padding, which counts in no group (its
+    pos reads group k - 1's, as the reference's clamped take does; no
+    caller uses it). No host sync."""
+    oh = (group[:, None] == torch.arange(k, dtype=group.dtype,
+                                         device=group.device)).to(torch.int32)
+    csum = torch.cumsum(oh, 0, dtype=torch.int32)
+    pos = (csum - oh).gather(1, group.clamp(max=k - 1).long()[:, None])[:, 0]
+    return pos, oh.sum(0, dtype=torch.int32)
+
+
 def route_by_owner(ids: torch.Tensor, k: int, cap: int,
                    payload: Optional[torch.Tensor] = None):
     """Group requests by owner (id % k) into a (k, cap) send buffer, -1
@@ -105,13 +119,7 @@ def route_by_owner(ids: torch.Tensor, k: int, cap: int,
     slots]). No host sync."""
     valid = ids >= 0
     owner = torch.where(valid, ids % k, k)
-    oh = (owner[:, None] == torch.arange(k, dtype=owner.dtype,
-                                         device=ids.device)).to(torch.int32)
-    csum = torch.cumsum(oh, 0, dtype=torch.int32)
-    # exclusive count within the owner (padding reads the last owner's,
-    # as the reference's clamped take does; no caller uses it)
-    pos = (csum - oh).gather(1, owner.clamp(max=k - 1).long()[:, None])[:, 0]
-    counts = oh.sum(0, dtype=torch.int32)
+    pos, counts = group_positions(owner, k)
     overflow = (counts - cap).clamp(min=0).sum(dtype=torch.int32)
     in_cap = valid & (pos < cap)
     # kept requests land on distinct slots; the rest on one dropped slot

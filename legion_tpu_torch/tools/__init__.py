@@ -13,5 +13,9 @@
 * ``cache_group_cell``: the three cache-group paths at cache axis 2
   against cache axis 1 on two ranks, sharing one card where there is one
   (``python -m legion_tpu_torch.tools.cache_group_cell OUT.json``;
-  ``chip_smoke.py``'s ``mesh_striped_k2``).
+  ``chip_smoke.py``'s ``mesh_striped_k2``);
+* ``partition_cell``: the edge-partitioned path at 2 ranks (exact
+  exchange against psum) and at 1 rank, the same way
+  (``python -m legion_tpu_torch.tools.partition_cell OUT.json``;
+  ``chip_smoke.py``'s ``mesh_partitioned_k2``).
 """

@@ -16,8 +16,10 @@ with ``--device cpu``; 0 = every card this process sees) to
 ``MeshTrainer`` (``--features hbm_sharded`` stripes the table over each
 cache group of ``--cache-group`` ranks), ``run_striped_training`` (with
 ``--cache-budget-gb``) or ``run_striped_hybrid_training`` (with
-``--topology host``). ``--partitioned``, which the port lacks, raises
-``NotImplementedError`` naming its ROADMAP item.
+``--topology host``). ``--partitioned`` runs ``run_partitioned_training``
+on ``--devices`` ranks (world size 1 in this process; under torchrun, on
+the ranks torchrun started: ``parallel/launch.py``), with a dataset
+directory's ``partition_<devices>_bn`` where it has one.
 """
 
 from __future__ import annotations
@@ -84,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="multi-device feature placement: replicated per "
                          "device or row-striped over the cache axis")
     ap.add_argument("--partitioned", action="store_true",
-                    help="edge-partitioned multi-host training (not "
-                         "ported yet)")
+                    help="edge-partitioned multi-host training with halo "
+                         "exchange")
     ap.add_argument("--halo-exchange", default="exact",
                     choices=["exact", "psum"],
                     help="partitioned-path halo strategy")
@@ -134,7 +136,13 @@ def setup(args, ap):
     if args.config:
         with open(args.config) as f:
             cfg = Config.from_json(f.read())
-        load, load_kwargs = load_dataset, {"path": cfg.dataset.path}
+        # --partitioned uses a precomputed k-way partition file of the
+        # dataset directory where it has one
+        load, load_kwargs = load_dataset, {
+            "path": cfg.dataset.path,
+            "partition_count": (cfg.parallel.num_devices
+                                if args.partitioned
+                                and cfg.parallel.num_devices > 1 else None)}
         data = load(**load_kwargs)
         if non_default:
             _warn("--config supplies the whole Config; these command-line "
@@ -157,7 +165,10 @@ def setup(args, ap):
                     else DatasetConfig())
             if not args.data_dir:
                 ap.error("--data-dir (or --synthetic) required")
-            load, load_kwargs = load_dataset, {"path": args.data_dir}
+            load, load_kwargs = load_dataset, {
+                "path": args.data_dir,
+                "partition_count": (args.devices if args.partitioned
+                                    and args.devices > 1 else None)}
             data = load(**load_kwargs)
             # the registry's shapes and meta.json must agree: a mismatch
             # means the wrong directory or a bad conversion
@@ -202,12 +213,6 @@ def setup(args, ap):
     return cfg, data, (load, load_kwargs), topo_host
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to legion_tpu_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
-
-
 def _world(args) -> int:
     """The rank count of a multi-device run."""
     if args.devices > 0:
@@ -218,17 +223,19 @@ def _world(args) -> int:
     return torch.cuda.device_count()
 
 
-def _spawn(rank_fn, args, cfg: Config, source) -> None:
+def _spawn(rank_fn, args, cfg: Config, source, runner=None) -> None:
     """Run ``rank_fn(device, cfg_json, load, load_kwargs)`` on every rank
-    of a multi-device run: one card each, or gloo ranks on the CPU."""
+    of a multi-device run: one card each, or gloo ranks on the CPU.
+    ``runner`` starts them (default ``parallel.mesh.spawn``)."""
     from legion_tpu_torch.parallel.mesh import spawn
     load, load_kwargs = source
     world = _world(args)
     # CPU ranks share this host's cores
     threads = (max(1, (os.cpu_count() or 1) // world)
                if args.device == "cpu" else None)
-    spawn(rank_fn, world, args.device,
-          args=(cfg.to_json(), load, load_kwargs), threads=threads)
+    (runner or spawn)(rank_fn, world, args.device,
+                      args=(cfg.to_json(), load, load_kwargs),
+                      threads=threads)
 
 
 def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
@@ -258,7 +265,10 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         if topo_host:
             _warn("--partitioned ignores --topology host (each host holds "
                   "its own partition's CSR in device memory)")
-        raise _not_ported("--partitioned (edge-partitioned training)", 7)
+        from legion_tpu_torch.parallel.launch import run_ranks
+        from legion_tpu_torch.train.partitioned_driver import (
+            partitioned_rank)
+        _spawn(partitioned_rank, args, cfg, source, runner=run_ranks)
     elif topo_host and multi:
         if not cfg.cache.enabled:
             _warn("--topology host without --cache-budget-gb: zero hot "

@@ -114,7 +114,8 @@ class StepFns(NamedTuple):
 
 def make_step_fns(cfg: Config, caps: Sequence[int],
                   reducer: Optional[Callable] = None,
-                  feature_fetch: Optional[Callable] = None) -> StepFns:
+                  feature_fetch: Optional[Callable] = None,
+                  sampler: Optional[Callable] = None) -> StepFns:
     """Build (train_step, eval_step) for static frontier caps.
 
     Randomness comes from ``state.generator`` (train) or the given
@@ -126,7 +127,11 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
     ``feature_fetch(feats, frontier)`` replaces the gather of the
     frontier's rows (default ``gather_features``); it may return (rows,
     overflow), whose () int32 overflow (requests the striped exchange had
-    to cap, read as zero rows) is added to the step's ``cap_overflow``."""
+    to cap, read as zero rows) is added to the step's ``cap_overflow``.
+    ``sampler(graph, seeds, num_seeds, labels, generator, uniforms)``
+    replaces ``sample_batch`` (the edge-partitioned path's, whose
+    ``graph`` is the rank's shard); it is handed the generator or the
+    uniforms, whichever the step was given."""
     fanouts = tuple(cfg.sampler.fanouts)
     dedup_last = cfg.sampler.dedup_last
     caps = tuple(caps)
@@ -140,6 +145,10 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         return x, None
 
     def sample(graph, seeds, num_seeds, labels, generator, uniforms):
+        if sampler is not None:
+            return sampler(graph, seeds, num_seeds, labels,
+                           None if uniforms is not None else generator,
+                           uniforms)
         return sample_batch(graph, seeds, num_seeds, labels, fanouts, caps,
                             dedup_last=dedup_last,
                             generator=None if uniforms is not None

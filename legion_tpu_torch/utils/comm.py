@@ -10,7 +10,9 @@ asserted against what was read.
 A call's bytes are the reference's HLO output bytes of the same op: the
 tensor handed in for ``all_reduce`` and ``all_to_all`` (whose output is as
 large), the gathered tensor for ``all_gather``, this rank's share for
-``reduce_scatter``, and the pickled object for ``all_gather_object``.
+``reduce_scatter``, the received tensor for ``ppermute`` (counted as the
+reference's ``collective-permute``), and the pickled object for
+``all_gather_object``.
 
 The all-gather and the reduce-scatter are ``dist.all_gather`` and
 ``dist.reduce_scatter`` over lists of tensors: the tensor forms
@@ -116,6 +118,30 @@ def reduce_scatter(tensor: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(tensor.device)
 
 
+def ppermute(tensor: torch.Tensor, shift: int, group=None) -> torch.Tensor:
+    """A ring shift over the ranks of ``group``: this rank's ``tensor``
+    goes to rank ``(me + shift) % k`` and the result is what rank ``(me -
+    shift) % k`` sent, of the same shape (every rank sends one). The send
+    and the receive sit in one ``dist.batch_isend_irecv``; every rank must
+    call with the same shift. ``shift`` must not be a multiple of k."""
+    k = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if shift % k == 0:
+        raise ValueError(f"ppermute by {shift} over {k} ranks sends to self")
+    _count("collective-permute", _nbytes(tensor))
+    src = _host(tensor.contiguous())
+    out = torch.empty_like(src)
+    to, frm = (me + shift) % k, (me - shift) % k
+    if group is not None:
+        to = dist.get_global_rank(group, to)
+        frm = dist.get_global_rank(group, frm)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, to, group),
+            dist.P2POp(dist.irecv, out, frm, group)]):
+        req.wait()
+    return out.to(tensor.device)
+
+
 def all_gather_object(obj) -> List:
     """Every rank's ``obj``, in rank order."""
     _count("all_gather_object", len(pickle.dumps(obj)))
@@ -150,14 +176,32 @@ def psum_exchange_bytes(m: int, k: int, d: int,
     return {"all_gather": k * m * 4, "reduce_scatter": m * d * itemsize}
 
 
+def halo_exact_fetch_bytes(dist_caps, d: int,
+                           itemsize: int = 4) -> Dict[str, int]:
+    """``partitioned_row_fetch_exact``: per ring distance r one forward
+    ppermute of (C_r,) int32 request ids and one backward ppermute of
+    (C_r, d) rows; self-requests enter no collective."""
+    s = int(sum(dist_caps))
+    return {"collective-permute": s * 4 + s * d * itemsize}
+
+
+def halo_exact_hop_bytes(dist_caps, fanout: int) -> Dict[str, int]:
+    """``partitioned_sample_hop_exact``: per distance one forward
+    ppermute of (C_r, 2) int32 (id and draw-grid row) and one backward
+    ppermute of (C_r, fanout) int32 draws."""
+    s = int(sum(dist_caps))
+    return {"collective-permute": s * 8 + s * fanout * 4}
+
+
 def link_bytes(out_bytes: Dict[str, int], k: int) -> int:
     """Approximate per-rank link traffic of ``read_counts()``-style bytes
     on a ring of k ranks (the reference's factors): an all-gather's output
     crossed ~(k-1)/k, a reduce-scatter's input (k x its share) crosses,
     an all-to-all moves (k-1)/k of itself, an all-reduce ~2 (k-1)/k of
-    its input; anything else counts once."""
+    its input, a collective-permute once; anything else counts once."""
     f = {"all_gather": (k - 1) / k, "reduce_scatter": k - 1,
-         "all_to_all": (k - 1) / k, "all_reduce": 2 * (k - 1) / k}
+         "all_to_all": (k - 1) / k, "all_reduce": 2 * (k - 1) / k,
+         "collective-permute": 1.0}
     return int(sum(v * f.get(op, 1.0) for op, v in out_bytes.items()))
 
 

@@ -1,10 +1,11 @@
 """The port's command line, ``python -m legion_tpu_torch.train``
 (``legion_tpu_torch/train/__main__.py``), against ``train.py``: the same
 config JSON for the same flags, the dispatch to each driver with
-``train.py``'s warnings, the registry and ``--config`` checks, the
-unported path refused by its ROADMAP item, and two gloo ranks training
-through ``--devices 2 --device cpu``, on each cache-group path too. Single-device runs are in-process
-on the CPU; ``train.py`` and the two-rank run are subprocesses."""
+``train.py``'s warnings, the registry and ``--config`` checks, and two
+gloo ranks training through ``--devices 2 --device cpu``, on each
+cache-group path and the edge-partitioned path too. Single-device runs
+are in-process on the CPU; ``train.py`` and the two-rank runs are
+subprocesses."""
 
 import json
 import os
@@ -75,6 +76,8 @@ FLAG_SETS = {
     "packed_mesh": ["--devices", "4", "--cache-budget-gb", "1",
                     "--features", "hbm_sharded", "--halo-exchange", "psum",
                     "--halo-cap-slack", "1.5", "--topology", "host"],
+    "partitioned": ["--synthetic", "1500", "--partitioned", "--devices", "2",
+                    "--halo-exchange", "psum", "--halo-cap-slack", "1.1"],
 }
 
 
@@ -141,12 +144,72 @@ def test_cli_host_topology_without_a_budget_trains(capsys):
     assert "Accuracy on test data" in cap.out
 
 
-@pytest.mark.parametrize("flags,item", [(["--partitioned"], 7)],
-                         ids=["partitioned"])
-def test_cli_refuses_unported_paths_by_item(flags, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        cli.main(["--synthetic", "1500", "--device", "cpu"] + SMALL + flags)
+def _partitioned_dir(packed_dir, tmp_path):
+    """The packed dataset with a 2-way hash partition file beside it."""
+    from legion_tpu_torch.data.format import load_dataset
+    from legion_tpu_torch.data.partition import partition_graph
+    g = load_dataset(packed_dir, mmap=False)
+    g.partition = partition_graph(g, 2, mode="hash")
+    d = str(tmp_path / "parted")
+    save_dataset(g, d)
+    return d
+
+
+def test_cli_partitioned_honors_partition_file(packed_dir, tmp_path):
+    """``--partitioned --devices 2`` loads ``partition_2_bn`` from the
+    dataset directory (as ``train.py:172-177`` does) and trains on it, two
+    gloo ranks to the test line; rank 0 logs."""
+    d = _partitioned_dir(packed_dir, tmp_path)
+    r = subprocess.run(
+        [sys.executable, "-m", "legion_tpu_torch.train", "--device", "cpu",
+         "--data-dir", d, "--partitioned", "--devices", "2", "--epochs", "1",
+         "--batch-size", "32", "--fanouts", "4,3", "--hidden-dim", "16"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "using precomputed 2-way partition" in r.stdout
+    assert r.stdout.count("[2-way partitioned]") == 1
+    assert "Accuracy on test data" in r.stdout
+
+
+@pytest.mark.parametrize("partitioned", [True, False])
+def test_cli_reads_the_partition_file_only_for_partitioned(
+        packed_dir, tmp_path, partitioned):
+    """The dataset each rank loads carries the partition of
+    ``--devices`` parts under ``--partitioned`` only, from the flags and
+    from ``--config`` alike."""
+    from legion_tpu_torch.config import Config, DatasetConfig, ParallelConfig
+    d = _partitioned_dir(packed_dir, tmp_path)
+    f = tmp_path / "run.json"
+    f.write_text(Config(dataset=DatasetConfig(path=d),
+                        parallel=ParallelConfig(num_devices=2)).to_json())
+    flags = ["--partitioned"] if partitioned else []
+    for argv in (["--data-dir", d, "--devices", "2"], ["--config", str(f)]):
+        args = cli.build_parser().parse_args(argv + flags + ["--device",
+                                                             "cpu"])
+        _, data, (load, kw), _ = cli.setup(args, cli.build_parser())
+        for g in (data, load(**kw)):
+            assert (g.partition is not None) == partitioned
+
+
+def test_cli_partitioned_halo_flags(capsys):
+    """``--halo-exchange`` / ``--halo-cap-slack`` reach the partitioned
+    driver (psum: no cap probe; exact, the default: the probe's line with
+    the slack), here on one rank in this process; another driver warns
+    that it ignores them, in ``train.py``'s words."""
+    base = ["--synthetic", "1500", "--device", "cpu", "--partitioned"] + SMALL
+    cli.main(base + ["--halo-exchange", "psum"])
+    out = capsys.readouterr().out
+    assert '"halo_exchange": "psum"' in out
+    assert "halo exact exchange" not in out
+    assert "Accuracy on test data" in out and "[1-way partitioned]" in out
+    cli.main(base + ["--halo-cap-slack", "1.5"])
+    out = capsys.readouterr().out
+    assert "halo exact exchange: per-distance caps () (frontier cap" in out
+    assert "slack 1.5)" in out
+    cli.main(["--synthetic", "1500", "--device", "cpu", "--halo-exchange",
+              "psum"] + SMALL)
+    assert "apply only to --partitioned" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,lines", [

@@ -107,8 +107,8 @@ def test_no_dead_config_knobs():
     """Every config field is read somewhere in the port outside
     ``config.py`` (``tests/test_config.py::test_no_dead_config_knobs``
     over ``legion_tpu_torch/``): a knob nothing consumes silently lies to
-    the user. The one exception is a field only the edge-partitioned path
-    reads, which the command line refuses until ROADMAP queue 1 item 7."""
+    the user. Since the edge-partitioned driver reads the halo fields,
+    there is no exception."""
     root = pathlib.Path(port_config.__file__).resolve().parent
     blob = "\n".join(p.read_text() for p in root.rglob("*.py")
                      if p.resolve() != pathlib.Path(
@@ -117,5 +117,4 @@ def test_no_dead_config_knobs():
             for cls in (DatasetConfig, SamplerConfig, port_config.ModelConfig,
                         TrainConfig, CacheConfig, ParallelConfig, Config)
             for f in dataclasses.fields(cls) if f.name not in blob]
-    assert dead == ["ParallelConfig.halo_probe_batches"], (
-        f"dead config knob(s), implement or delete: {dead}")
+    assert dead == [], f"dead config knob(s), implement or delete: {dead}"

@@ -244,3 +244,82 @@ def test_pa_cell_dataset_is_remade_when_its_arguments_change(tmp_path,
     assert sorted(p.name for p in (tmp_path / ".bench_cache").iterdir()) == [
         os.path.basename(pa_cell.dataset_dir(root))]
     assert not np.array_equal(other.indices, first.indices)
+
+
+# -- what the edge-partitioned path reads -------------------------------------
+
+@pytest.mark.parametrize("seed,communities", [(1, 4), (3, 7)])
+def test_streaming_communities_write_the_reference_files(tmp_path, seed,
+                                                         communities):
+    """Planted communities, chunks that split the nodes unevenly: the same
+    bytes in every file as the reference's."""
+    kw = dict(num_nodes=4000, avg_degree=6, feature_dim=4, num_classes=5,
+              seed=seed, train_num=200, valid_num=30, test_num=30,
+              chunk_nodes=1100, communities=communities, intra_frac=0.75,
+              log=lambda s: None)
+    port_synthetic.streaming_power_law_graph(str(tmp_path / "p"), **kw)
+    jax_synthetic.streaming_power_law_graph(str(tmp_path / "r"), **kw)
+    assert _files(tmp_path / "p") == _files(tmp_path / "r")
+
+
+@pytest.mark.parametrize("num_nodes,feature_dim", [(8, 4), (5, 7)])
+def test_chain_graph_matches_reference(num_nodes, feature_dim):
+    got = port_synthetic.chain_graph(num_nodes, feature_dim)
+    _assert_same_graph(got, jax_synthetic.chain_graph(num_nodes,
+                                                      feature_dim))
+    assert got.indices.tolist() == list(range(1, num_nodes))
+
+
+def _broken(kind):
+    """A graph the reference's validate rejects, and what breaks it."""
+    g = port_synthetic.random_power_law_graph(num_nodes=50, avg_degree=4,
+                                              feature_dim=3, num_classes=2)
+    if kind == "indptr_end":
+        g.indptr = g.indptr.copy()
+        g.indptr[-1] -= 1
+    elif kind == "decreasing":
+        g.indptr = g.indptr.copy()
+        i = int(np.argmax(np.diff(g.indptr) > 0))
+        g.indptr[i + 1] = g.indptr[i] - 1
+    elif kind == "neighbor":
+        g.indices = g.indices.copy()
+        g.indices[3] = 50
+    elif kind == "features":
+        g.features = g.features[:49]
+    return g
+
+
+@pytest.mark.parametrize("kind", ["indptr_end", "decreasing", "neighbor",
+                                  "features"])
+def test_validate_rejects_what_the_reference_rejects(kind):
+    """The reference asserts, the port raises ValueError, on the same
+    graphs; both accept the intact graph."""
+    g = _broken(kind)
+    with pytest.raises(ValueError):
+        g.validate()
+    with pytest.raises(AssertionError):
+        jax_format.GraphData(**dataclasses.asdict(g)).validate()
+    good = _broken("none")
+    good.validate()
+    jax_format.GraphData(**dataclasses.asdict(good)).validate()
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_partition_file_round_trip(tmp_path, writer):
+    """``save_dataset`` writes ``partition_<k>_bn`` beside the graph (the
+    same bytes in both packages); ``load_dataset(partition_count=k)``
+    reads it in both, another k or none reads no partition."""
+    g = port_synthetic.random_power_law_graph(num_nodes=300, avg_degree=5,
+                                              feature_dim=6, num_classes=4)
+    g.partition = (np.arange(300) % 3).astype(np.int32)
+    jg = jax_format.GraphData(**dataclasses.asdict(g))
+    a, b = tmp_path / "port", tmp_path / "reference"
+    port_format.save_dataset(g, str(a))
+    jax_format.save_dataset(jg, str(b))
+    assert _files(a) == _files(b) and "partition_3_bn" in _files(a)
+    path = str(a if writer == "port" else b)
+    for load in (port_format.load_dataset, jax_format.load_dataset):
+        np.testing.assert_array_equal(load(path, partition_count=3).partition,
+                                      g.partition)
+        assert load(path, partition_count=2).partition is None
+        assert load(path).partition is None

@@ -59,6 +59,12 @@ import legion_tpu_torch.train.striped_hybrid_driver
 import legion_tpu_torch.tools.cache_group_cell
 import legion_tpu_torch.utils.comm
 import legion_tpu_torch.train.__main__
+import legion_tpu_torch.data.partition
+import legion_tpu_torch.parallel.halo
+import legion_tpu_torch.parallel.multihost
+import legion_tpu_torch.parallel.launch
+import legion_tpu_torch.train.partitioned_driver
+import legion_tpu_torch.tools.partition_cell
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
                 if m in sys.modules)
 print("LOADED", loaded)
