@@ -20,7 +20,12 @@ set-up; any failure raises and the script exits non-zero:
    time of both (CUDA events, 20 reps after warm-up): the sampling kernel
    bitwise at the batch's two hop shapes (beside its byte bound, the
    distinct 32-byte sectors its reads touch and their time at the memory
-   peak), K3, K1 (also with GCN's "sqrt" norm), K2 forward and backward
+   peak, both from ``ops/sample.py::sample_traffic``, and also timed with
+   the L2 flushed before each call, ``cold_ms``, as at every path below
+   that checks it) and on the ragged cases of
+   ``tools/k4_bench.py::ragged_cases`` (28 frontier and fanout shapes
+   around the warp's tile; a failure raises), K3, K1 (also with GCN's
+   "sqrt" norm), K2 forward and backward
    with every norm at SAGE's layer-1 shape in bf16 and at GCN float32's
    (the backward's zero fill, scatter kernel and cast pass timed apart)
    and K5 (``grouped_masked_sum``: float32 value and gradient on the
@@ -185,6 +190,9 @@ NODES, CLASSES = 2_449_029, 47
 # tensor cores (none of these kernels holds a matrix product).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# what ``time_ms(cold=True)`` writes before each call: over twice the
+# H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
 
 
 # what the kernels line holds of each kernel, beside its launch counts
@@ -196,28 +204,44 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps=20, warmup=3, trials=5):
+def time_ms(fn, reps=20, warmup=3, trials=5, cold=False):
     """Device time of one fn() call in ms: the median over trials of a
     CUDA event pair around reps back-to-back calls, divided by reps. Each
     trial first parks the stream in a ~10 ms device sleep so the host can
     queue all reps before the device starts, so host launch overhead
     (tens of us per call, more than the smallest kernels take) does not
-    count as device time."""
+    count as device time.
+
+    With ``cold`` the L2 holds none of fn's data when it starts, as in a
+    training step, where the kernels between two calls move far more than
+    the L2's 50 MB: before each call a scratch buffer of ``FLUSH_BYTES``
+    is written, and each call has its own event pair, after the write; a
+    trial's time is the mean of its reps pairs."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    scratch = (torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                           device="cuda") if cold else None)
     times = []
     for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps if cold else 1)]
         torch.cuda._sleep(20_000_000)             # cycles, ~10 ms
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
+        if cold:
+            for start, end in pairs:
+                scratch.zero_()
+                start.record()
+                fn()
+                end.record()
+        else:
+            pairs[0][0].record()
+            for _ in range(reps):
+                fn()
+            pairs[0][1].record()
+        pairs[-1][1].synchronize()
+        times.append(sum(s.elapsed_time(e) for s, e in pairs) / reps)
     return statistics.median(times)
 
 
@@ -308,13 +332,16 @@ def toolchain():
 
 def check_sampling_kernel(graph, frontiers, fanouts, seed):
     """The sampling kernel bitwise against its plain version on each hop's
-    (frontier, uniforms), and both timed. Returns per-hop records, each
+    (frontier, uniforms), and both timed; the kernel with a warm L2
+    (``ms``) and a cold one (``cold_ms``). Returns per-hop records, each
     with ``bound_ms`` (the useful bytes) and ``sector_ms`` (the distinct
-    32-byte sectors those reads touch) at the memory peak."""
+    32-byte sectors those reads touch) at the memory peak, both counted by
+    ``ops/sample.py::sample_traffic``."""
     import torch
 
     from legion_tpu_torch.ops.sample import (sample_neighbors,
-                                             sample_neighbors_plain)
+                                             sample_neighbors_plain,
+                                             sample_traffic)
     gen = torch.Generator(device=graph.indptr.device).manual_seed(seed)
     out = []
     for fr, f in zip(frontiers, fanouts):
@@ -324,37 +351,45 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
         k, p = sample_neighbors(*args), sample_neighbors_plain(*args)
         require(torch.equal(k, p), f"sample_neighbors at {tuple(u.shape)} "
                 "is bitwise its plain version")
-        slots, valid = u.numel(), int((k >= 0).sum())
-        # frontier, uniforms and output once; an indptr pair per valid
-        # node and one index per valid slot; ~3 operations per slot
-        nbytes = (4 * fr.numel() + 8 * slots + 8 * int((fr >= 0).sum())
-                  + 4 * valid)
-        # The same reads in the 32-byte sectors device memory moves: the
-        # distinct sectors of indptr (two entries a valid node) and of
-        # indices (the drawn entry of each valid slot; eight int32 to a
-        # sector), beside the coalesced frontier, uniforms and output.
-        ids = fr[fr >= 0].long()
-        start = graph.indptr[ids]
-        deg = (graph.indptr[ids + 1] - start)[:, None]
-        draw = torch.minimum((u[fr >= 0] * deg.float()).to(torch.int32),
-                             (deg - 1).clamp(min=0))
-        slot = torch.arange(f, dtype=torch.int32, device=fr.device)
-        addr = (start[:, None].long() + draw)[(slot[None, :] < deg)
-                                              & (deg > 0)]
-        require(addr.numel() == valid, "one drawn entry per valid slot")
-        sectors = (int(torch.unique(addr // 8).numel())
-                   + int(torch.unique(torch.cat([ids, ids + 1]) // 8).numel()))
-        sector_bytes = 32 * sectors + 4 * fr.numel() + 8 * slots
-        del ids, start, deg, draw, addr
+        traffic = sample_traffic(graph.indptr, fr, u)
+        valid = traffic["valid_slots"]
+        require(valid == int((k >= 0).sum()),
+                "sample_traffic counts the kernel's valid slots")
+        # ~3 operations per valid slot: a multiply, a conversion, a min
         out.append({"shape": list(u.shape), "valid_slots": valid,
-                    **bound(nbytes, 3 * slots), "library_ms": None,
-                    "sector_bytes": sector_bytes,
-                    "sector_ms": 1e3 * sector_bytes / PEAK_BYTES_PER_S,
+                    **bound(traffic["useful_bytes"], 3 * valid),
+                    "library_ms": None,
+                    "sector_bytes": traffic["sector_bytes"],
+                    "sector_ms": (1e3 * traffic["sector_bytes"]
+                                  / PEAK_BYTES_PER_S),
                     "max_abs_err": float((k - p).abs().max()),
                     "ms": time_ms(lambda: sample_neighbors(*args)),
+                    "cold_ms": time_ms(lambda: sample_neighbors(*args),
+                                       cold=True),
                     "plain_ms": time_ms(
                         lambda: sample_neighbors_plain(*args))})
     return out
+
+
+def check_sampling_sweep():
+    """The sampling kernel bitwise against its plain version on
+    ``tools/k4_bench.py::ragged_cases`` (ragged tiles, fanouts past the
+    warp, degree 0 and > 2^16, ids past 2^24, all -1 tiles, uniforms just
+    below 1). Raises on the first that differs; returns the case count."""
+    import torch
+
+    from legion_tpu_torch.ops.sample import (sample_neighbors,
+                                             sample_neighbors_plain)
+    from legion_tpu_torch.tools.k4_bench import ragged_cases
+    cases = ragged_cases()
+    csr = [t.cuda() for t in cases[0][1:3]]      # one CSR for every case
+    for name, _, _, frontier, u in cases:
+        args = (*csr, frontier.cuda(), u.cuda())
+        require(torch.equal(sample_neighbors(*args),
+                            sample_neighbors_plain(*args)),
+                f"sample_neighbors on ragged case {name} is bitwise its "
+                "plain version")
+    return len(cases)
 
 
 def check_gather_rows(table, ids):
@@ -2387,7 +2422,8 @@ def main():
     # the kernels line carries the larger hop (hop 2 from the hop-1
     # frontier); both are in this phase's line
     results["sample_neighbors"].update(
-        {k: hops[-1][k] for k in KERNEL_KEYS}, main_path_hops=hops)
+        {k: hops[-1][k] for k in KERNEL_KEYS}, main_path_hops=hops,
+        ragged_cases=check_sampling_sweep())
     blk0, blk1 = reversed(batch.blocks)        # model order
     require(blk0.identity_offset is not None, "layer 0's block is identity")
     table, ids = tr.features, batch.frontier

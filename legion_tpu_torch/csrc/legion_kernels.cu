@@ -15,11 +15,16 @@
 //  * K2 (forward and backward) and the sampling kernel move little, out of
 //    the L2 or in scattered 4-byte reads. K2 forward is bound by the
 //    operations a warp executes per 94-byte row and K2 backward by the
-//    L2's rate of float adds; the sampling kernel by its dependent loads. K2
+//    L2's rate of float adds; the sampling kernel by its chains of dependent
+//    loads on small frontiers and its scattered sectors on large ones. K2
 //    runs one warp per dst row: the row's index data is loaded once by the
 //    lanes, only the valid slots are walked (ballot, then a compacted table
 //    or shuffles), and the backward adds 16 bytes per atomic into a padded
-//    f32 staging buffer. The sampling kernel keeps one thread per slot.
+//    f32 staging buffer. The sampling kernel runs one warp per tile of 32
+//    frontier rows (or per slice of a tile's rounds, when the tiles are too
+//    few to fill the card): the tile's ids are loaded once by its lanes, a
+//    tile with no neighbor loads nothing more, and each lane keeps its
+//    index loads in flight together.
 //
 // Built by legion_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -550,37 +555,176 @@ gather_rows_kernel(const W* __restrict__ table,
 // lane offset is the draw, and the select is one 4-byte load, exact for
 // every int32 id.
 //
-// Bound: latency of dependent loads (frontier id -> indptr pair -> one
-// index), about 12 bytes of useful reads per slot; at the main path's hop 2
-// it is 1.2M slots. Design: one thread per (p, f) slot, the threads of a
-// warp on consecutive slots of one or two nodes, so the frontier and indptr
-// reads coalesce or hit L1 and only the neighbor read scatters. The draw is
-// computed bit-exactly as the plain version's float32 ops: __int2float_rn,
-// __fmul_rn (no contraction into an FMA) and truncation toward zero.
+// Bound. Each slot is a chain of dependent loads: the frontier id, then
+// the node's indptr pair, then (where the slot is valid) its uniform, then
+// one scattered 4-byte index. At hop 1 (8000 x 25 at the main path) the
+// work is ~2.5 MB and the chain's latency bounds it; at hop 2 (121,856 x
+// 10) the index reads touch ~1M distinct 32-byte sectors and the sectors
+// bound it (ops/sample.py::sample_traffic counts both).
+//
+// Design. A warp takes a tile of 32 consecutive frontier rows, whose 32 * f
+// slots are contiguous in u and out, or a slice of its rounds:
+//  * lane i loads frontier[r0 + i] and its row's indptr pair: one coalesced
+//    read and 32 independent indptr loads for the tile, where one thread
+//    per slot paid that chain for every slot. A tile none of whose rows has
+//    a neighbor (all -1 padding, or degree 0: ballot) writes -1 and loads
+//    nothing else;
+//  * the slots are walked as rounds of 32 lanes, coalesced for any f. A
+//    lane's (row, slot) steps by 32 = q * f + rem slots a round in 32-bit
+//    adds (one division per warp, none per slot), and the row's start and
+//    degree come from its lane by shuffle;
+//  * a warp issues the uniforms of its valid slots, then every index load,
+//    then the stores: up to B loads in flight a lane (B = 4, 8, 16 or 32,
+//    the least that holds the warp's rounds), so a warp's chain
+//    is the four loads of one slot. A slot that is not valid loads neither
+//    its uniform nor an index. Only the uniforms and a bit mask of the
+//    valid slots are held across it (the walk is stepped again for the
+//    index loads), and the batch has no branch, so the scheduler can
+//    overlap its shuffles and loads;
+//  * how many rounds a warp takes: all f of its tile while the tiles fill
+//    kSampleWarpsPerSm warps on every SM (hop 2: a warp per tile, each
+//    row's ids loaded once); with fewer tiles (hop 1: 250 tiles of 8000
+//    rows) a tile is cut into slices of rounds, each slice's warp loading
+//    the tile's ids again, since 250 warps each walking 25 rounds wait on
+//    their own instruction chains (0.0047 ms against 0.0039 cut in 7);
+//  * the uniforms are read once and evict first (__ldcs); frontier, indptr
+//    and indices take the read-only path (__ldg); out is stored normally,
+//    since the dedup reads it next;
+//  * a persistent grid: blocks of two warps (so a few hundred warps still
+//    spread over the SMs), at most as many as the SMs hold at once, each
+//    warp striding over (tile, slice) items.
+// The draw is computed bit-exactly as the plain version's float32 ops:
+// __int2float_rn, __fmul_rn (no contraction into an FMA) and truncation
+// toward zero.
+// Registers (nvcc 12.9, -Xptxas -v): 96 / 56 / 40 / 32 at B = 32 / 16 / 8
+// / 4, no spills. On the H100 (PERF.md, section 6) hop 2 of the main path
+// takes 0.0156 ms, 65 % of its sector time, against 0.0195 for one thread
+// per slot; hop 1 takes 0.0039 against 0.0033: its 200,000 slots are too
+// few to hide a warp's longer chain of instructions.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+constexpr int kSampleThreads = 64;
+// Warps on each SM (of the 64 it holds) below which a tile is cut into
+// slices of rounds. 16 cuts hop 1's 250 tiles into 7 slices of 4 rounds:
+// of the slice counts 1, 2, 4, 8, 13 and 25 forced at hop 1 (8000 x 25),
+// 8 was the fastest; hop 2's 3,808 tiles stay whole (PERF.md, section 6).
+constexpr int kSampleWarpsPerSm = 16;
+
+// A lane's slot of the next round: s + 32 = (row + q) * f + (j + rem).
+__device__ __forceinline__ void next_round(int f, int q, int rem, int& row,
+                                           int& j) {
+  row += q;
+  j += rem;
+  if (j >= f) {
+    j -= f;
+    ++row;
+  }
+}
+
+// A warp per (tile, slice): slice g of a tile is its rounds [g * per,
+// min(f, (g + 1) * per)), per <= B; `slices` = ceil(f / per) a tile.
+template <int B>
+__global__ void __launch_bounds__(kSampleThreads)
 sample_neighbors_kernel(const int32_t* __restrict__ indptr,
                         const int32_t* __restrict__ indices,
                         const int32_t* __restrict__ frontier,
                         const float* __restrict__ u,
-                        int32_t* __restrict__ out, int64_t p, int f) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (t >= p * f) return;
-  const int64_t r = t / f;
-  const int j = static_cast<int>(t - r * f);
-  const int32_t id = frontier[r];
-  int32_t v = -1;
-  if (id >= 0) {
-    const int32_t start = indptr[id];
-    const int32_t deg = indptr[id + 1] - start;
-    if (deg > 0 && j < deg) {
-      int32_t draw = __float2int_rz(__fmul_rn(u[t], __int2float_rn(deg)));
-      draw = draw < deg - 1 ? draw : deg - 1;
-      v = indices[static_cast<int64_t>(start) + draw];
+                        int32_t* __restrict__ out, int64_t p, int f,
+                        int per, int slices) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t items = (p + kWarp - 1) / kWarp * slices;
+  const int64_t stride =
+      static_cast<int64_t>(gridDim.x) * (kSampleThreads / kWarp);
+  const int q = kWarp / f, rem = kWarp - q * f;
+  for (int64_t item = (static_cast<int64_t>(blockIdx.x) * kSampleThreads +
+                       threadIdx.x) / kWarp;
+       item < items; item += stride) {
+    const int64_t tile = slices == 1 ? item : item / slices;
+    const int k0 = static_cast<int>(item - tile * slices) * per;
+    const int k1 = k0 + per < f ? k0 + per : f;
+    const int64_t r0 = tile * kWarp;
+    const int rows = static_cast<int>(p - r0 < kWarp ? p - r0 : kWarp);
+    const int32_t id = lane < rows ? __ldg(frontier + r0 + lane) : -1;
+    int32_t start = 0, deg = 0;
+    if (id >= 0) {
+      start = __ldg(indptr + id);
+      deg = __ldg(indptr + id + 1) - start;
+    }
+    const int slots = rows * f;  // rows past p have id -1 and degree 0
+    const float* ut = u + r0 * f;
+    int32_t* dst = out + r0 * f;
+    if (__ballot_sync(kFullMask, deg > 0) == 0) {
+      for (int s = k0 * kWarp + lane; s < k1 * kWarp && s < slots;
+           s += kWarp) {
+        dst[s] = -1;
+      }
+      continue;
+    }
+    // this lane's slot of round k0: one division per warp and slice
+    int row = (k0 * kWarp + lane) / f;
+    int j = k0 * kWarp + lane - row * f;
+    // the slice's valid slots and their uniforms
+    unsigned valid = 0;
+    float uu[B];
+    int r = row, jj = j;
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int32_t d = __shfl_sync(kFullMask, deg, r);
+      const bool ok = k0 + b < k1 && jj < d;
+      valid |= ok ? 1u << b : 0u;
+      uu[b] = ok ? __ldcs(ut + (k0 + b) * kWarp + lane) : 0.0f;
+      next_round(f, q, rem, r, jj);
+    }
+    // every index load of the slice, then the stores
+    int32_t v[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int32_t s0 = __shfl_sync(kFullMask, start, row);
+      const int32_t d = __shfl_sync(kFullMask, deg, row);
+      int32_t draw = __float2int_rz(__fmul_rn(uu[b], __int2float_rn(d)));
+      draw = draw < d - 1 ? draw : d - 1;
+      v[b] = valid >> b & 1u ? __ldg(indices + s0 + draw) : -1;
+      next_round(f, q, rem, row, j);
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int s = (k0 + b) * kWarp + lane;
+      if (k0 + b < k1 && s < slots) dst[s] = v[b];
     }
   }
-  out[t] = v;
+}
+
+// The persistent grid of sample_neighbors_kernel<B>: as many blocks as the
+// card holds at once, found once per B (a process drives one kind of
+// card), and no more than the (tile, slice) items need.
+template <int B>
+cudaError_t launch_sample(const int32_t* indptr, const int32_t* indices,
+                          const int32_t* frontier, const float* u,
+                          int32_t* out, int64_t p, int f, int per,
+                          cudaStream_t stream) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, sample_neighbors_kernel<B>, kSampleThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    resident = sms * per_sm;
+  }
+  const int slices = (f + per - 1) / per;
+  constexpr int kWarpsPerBlock = kSampleThreads / kWarp;
+  const int64_t wanted =
+      ((p + kWarp - 1) / kWarp * slices + kWarpsPerBlock - 1) /
+      kWarpsPerBlock;
+  const unsigned blocks =
+      static_cast<unsigned>(wanted < resident ? wanted : resident);
+  sample_neighbors_kernel<B><<<blocks, kSampleThreads, 0, stream>>>(
+      indptr, indices, frontier, u, out, p, f, per, slices);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -852,13 +996,33 @@ int legion_sample_neighbors(const void* indptr, const void* indices,
                             const void* frontier, const void* u, void* out,
                             int64_t p, int f, void* stream) {
   if (p * f == 0) return cudaSuccess;
-  sample_neighbors_kernel<<<blocks_for(p * f), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(indptr),
-      static_cast<const int32_t*>(indices),
-      static_cast<const int32_t*>(frontier), static_cast<const float*>(u),
-      static_cast<int32_t*>(out), p, f);
-  return cudaGetLastError();
+  // Rounds a warp takes of its tile: all f while the tiles fill
+  // kSampleWarpsPerSm warps on every SM, else the tile is cut into slices
+  // until they do; never more than 32.
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t tiles = (p + kWarp - 1) / kWarp;
+  const int64_t fill = static_cast<int64_t>(sms) * kSampleWarpsPerSm / tiles;
+  const int cut = static_cast<int>(fill < 1 ? 1 : fill < f ? fill : f);
+  int per = (f + cut - 1) / cut;
+  per = per < kWarp ? per : kWarp;
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const int32_t* ix = static_cast<const int32_t*>(indices);
+  const int32_t* fr = static_cast<const int32_t*>(frontier);
+  const float* uf = static_cast<const float*>(u);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (per <= 4) return launch_sample<4>(ip, ix, fr, uf, o, p, f, per, s);
+  if (per <= 8) return launch_sample<8>(ip, ix, fr, uf, o, p, f, per, s);
+  if (per <= 16) return launch_sample<16>(ip, ix, fr, uf, o, p, f, per, s);
+  return launch_sample<32>(ip, ix, fr, uf, o, p, f, per, s);
 }
 
 // mask_is_weight == 0: a bool mask (one byte per slot); otherwise weights

@@ -10,9 +10,12 @@ which every JAX layout reproduces bit for bit, so the same uniforms give
 the same neighbors.
 
 The CUDA kernel (``csrc/legion_kernels.cu``, ``sample_neighbors_kernel``)
-runs one thread per slot and computes the draw with the plain version's
-float32 rounding; see the source note there. A CPU tensor takes the plain
-version; a CUDA tensor takes the kernel or raises.
+runs one warp per tile of 32 frontier rows (per slice of a tile's rounds
+when the tiles are too few to fill the card) and computes the draw with
+the plain version's float32 rounding; see the source note there. A CPU tensor
+takes the plain version; a CUDA tensor takes the kernel or raises.
+``sample_traffic`` counts the bytes the kernel's work needs on given
+inputs, for its bound.
 """
 
 from __future__ import annotations
@@ -45,6 +48,43 @@ def sample_neighbors_plain(indptr: torch.Tensor, indices: torch.Tensor,
     d = deg[:, None]
     ok = valid[:, None] & (slot[None, :] < d) & (d > 0)
     return torch.where(ok, nbr, -1)
+
+
+def sample_traffic(indptr: torch.Tensor, frontier: torch.Tensor,
+                   u: torch.Tensor) -> dict:
+    """What the sampling kernel must move on these inputs. A slot is valid
+    where its node is not padding (id >= 0) and its index is below the
+    node's degree.
+
+    * ``valid_slots``;
+    * ``useful_bytes``: ``frontier`` read once, ``out`` written once, the
+      uniform of each valid slot, one ``indptr`` pair per node that is not
+      padding, and one ``indices`` entry per valid slot;
+    * ``sector_bytes``: the same reads counted in the 32-byte sectors
+      device memory moves: the distinct sectors of the ``indptr`` pairs, of
+      the drawn ``indices`` entries and of the valid slots' uniforms,
+      beside ``frontier`` and ``out``, which are whole and contiguous.
+      Sectors are counted from each array's start (tensors start aligned).
+    """
+    p, f = u.shape
+    rows = torch.nonzero(frontier >= 0).flatten()
+    ids = frontier[rows].long()
+    start = indptr[ids]
+    deg = indptr[ids + 1] - start
+    ok = torch.arange(f, device=u.device)[None, :] < deg[:, None]
+    slot = (rows[:, None] * f + torch.arange(f, device=u.device))[ok]
+    addr = (start[:, None].long() + _draws(u[rows], deg).long())[ok]
+    valid = int(slot.numel())
+
+    def sectors(i: torch.Tensor) -> int:
+        return int(torch.unique(torch.div(i, 8, rounding_mode="floor"))
+                   .numel())
+
+    whole = 4 * p + 4 * p * f                      # frontier and out
+    return {"valid_slots": valid,
+            "useful_bytes": whole + 8 * ids.numel() + 8 * valid,
+            "sector_bytes": whole + 32 * (sectors(torch.cat([ids, ids + 1]))
+                                          + sectors(addr) + sectors(slot))}
 
 
 def sample_neighbors(indptr: torch.Tensor, indices: torch.Tensor,

@@ -10,6 +10,11 @@
 * ``k2_bench.py``: K2's forward, backward and the backward's three passes
   at the shapes the port runs them at, of this checkout or another one
   (run as a script, see its docstring);
+* ``k4_bench.py``: the sampling kernel (K4's counterpart) at every
+  path's hop shapes with a warm and a cold L2, of this checkout or
+  another one (run as a script, see its docstring); its
+  ``ragged_cases()`` are the kernel's edge cases, which ``chip_smoke.py``
+  and the ``cuda`` test hold it to;
 * ``cache_group_cell``: the three cache-group paths at cache axis 2
   against cache axis 1 on two ranks, sharing one card where there is one
   (``python -m legion_tpu_torch.tools.cache_group_cell OUT.json``;

@@ -7,19 +7,23 @@ every neighbor id lies in [2^24, 2^31 - 1), routes the JAX sampler's lane
 select through ``select_lanes_pallas`` in interpret mode (as
 tests/test_pallas_ops.py runs it), and holds the port's plain version to
 it bit for bit on the same uniforms, for each of the JAX layouts (their
-tail paths included: degrees reach 300). The ``cuda`` test holds the
-kernel to the plain version bit for bit on the card. JAX is imported
-inside the parity tests only, so ``pytest --noconftest -m cuda`` runs
-where JAX is absent."""
+tail paths included: degrees reach 300). ``sample_traffic``, the count
+the kernel's bound is computed from, is held to a brute-force count on
+small CSRs. The ``cuda`` test holds the kernel to the plain version bit
+for bit on the card, on the ragged cases of ``tools/k4_bench.py`` too.
+JAX is imported inside the parity tests only, so ``pytest --noconftest
+-m cuda`` runs where JAX is absent."""
 
 import numpy as np
 import pytest
 import torch
 
 from legion_tpu_torch.ops.sample import (sample_neighbors,
-                                         sample_neighbors_plain)
+                                         sample_neighbors_plain,
+                                         sample_traffic)
 from legion_tpu_torch.sampling import sampler
 from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
+from legion_tpu_torch.tools.k4_bench import ragged_cases
 
 torch.set_num_threads(2)
 
@@ -152,6 +156,111 @@ def test_sampler_routes_every_hop_through_the_wrapper(monkeypatch,
     assert batch.frontier.shape[0] == 1536
 
 
+def _brute_traffic(indptr, frontier, u):
+    """sample_traffic's three counts, slot by slot in Python."""
+    indptr, frontier, u = indptr.numpy(), frontier.numpy(), u.numpy()
+    p, f = u.shape
+    useful = sector = 4 * p + 4 * p * f           # frontier and out
+    valid, ptr_sec, idx_sec, u_sec = 0, set(), set(), set()
+    for r in range(p):
+        node = int(frontier[r])
+        if node < 0:
+            continue
+        useful += 8
+        ptr_sec |= {node // 8, (node + 1) // 8}
+        start = int(indptr[node])
+        deg = int(indptr[node + 1]) - start
+        for j in range(min(deg, f)):
+            draw = min(int(np.float32(u[r, j]) * np.float32(deg)), deg - 1)
+            valid += 1
+            useful += 8
+            idx_sec.add((start + draw) // 8)
+            u_sec.add((r * f + j) // 8)
+    sector += 32 * (len(ptr_sec) + len(idx_sec) + len(u_sec))
+    return {"valid_slots": valid, "useful_bytes": useful,
+            "sector_bytes": sector}
+
+
+def _traffic_case(name):
+    """Small hand-built CSRs, each aimed at one part of the count."""
+    i32 = dict(dtype=torch.int32)
+    if name == "degree_zero":
+        # node 1 has no neighbor: its indptr pair is read, nothing else
+        indptr = torch.tensor([0, 3, 3, 4, 12], **i32)
+        frontier = torch.tensor([0, 1, 2, 3, 1], **i32)
+        f = 4
+    elif name == "shared_sector":
+        # node 0's run lies in one sector and node 1's spans two; node 0
+        # repeats, so its draws and its indptr pair share sectors
+        indptr = torch.tensor([0, 8, 14, 14], **i32)
+        frontier = torch.tensor([0, 0, 1, 0, 2], **i32)
+        f = 6
+    elif name == "padding":
+        # -1 rows read nothing; whole and partial u sectors
+        indptr = torch.tensor([0, 40, 41, 50], **i32)
+        frontier = torch.tensor([-1, 0, -1, -1, 2, 1, -1], **i32)
+        f = 10
+    else:
+        # ids past 2^24: the counts stay exact integers
+        assert name == "big_ids"
+        n = BIG + 16
+        deg = torch.zeros(n, dtype=torch.int64)
+        deg[[3, BIG + 1, BIG + 2, BIG + 9, BIG + 15]] = torch.tensor(
+            [5, 30, 1, 12, 7])
+        indptr = torch.zeros(n + 1, dtype=torch.int64)
+        indptr[1:] = torch.cumsum(deg, 0)
+        indptr = indptr.to(torch.int32)
+        frontier = torch.tensor([BIG + 1, BIG + 2, -1, 3, BIG + 9, BIG + 15,
+                                 BIG + 4, BIG + 1], **i32)
+        f = 25
+    u = torch.rand((frontier.shape[0], f),
+                   generator=torch.Generator().manual_seed(len(name)))
+    u[:, -1] = float(np.nextafter(np.float32(1), np.float32(0)))
+    return indptr, frontier, u
+
+
+@pytest.mark.parametrize("name", ["degree_zero", "shared_sector", "padding",
+                                  "big_ids"])
+def test_sample_traffic_counts_what_a_brute_force_count_does(name):
+    indptr, frontier, u = _traffic_case(name)
+    got = sample_traffic(indptr, frontier, u)
+    assert got == _brute_traffic(indptr, frontier, u)
+    indices = torch.arange(int(indptr[-1]), dtype=torch.int32)
+    out = sample_neighbors_plain(indptr, indices, frontier, u)
+    assert got["valid_slots"] == int((out >= 0).sum())
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    return {name: args for name, *args in ragged_cases()}
+
+
+def test_ragged_cases_reach_every_edge(ragged):
+    """The sweep the card holds the kernel to has what it claims: 28
+    cases, degrees 0, 1 and > 2^16 in its frontiers, ids past 2^24, a
+    whole tile of -1, a tile of degree-0 nodes and uniforms below 1.0
+    that round up."""
+    assert len(ragged) == 28
+    indptr, _, frontier, u = ragged["p8017_f64"]
+    deg = (indptr[1:] - indptr[:-1])[frontier[frontier >= 0].long()]
+    assert {0, 1}.issubset(set(deg.tolist())) and int(deg.max()) > 1 << 16
+    assert int(frontier.max()) >= BIG
+    assert (frontier[32:64] == -1).all()
+    assert (frontier[64:96] >= 0).all()
+    assert ((indptr[frontier[64:96].long() + 1]
+             - indptr[frontier[64:96].long()]) == 0).all()
+    top = float(np.nextafter(np.float32(1), np.float32(0)))
+    assert (u == top).any()
+    assert ragged["p1_f25"][2].tolist() == [int(frontier[0])]
+
+
+@pytest.mark.parametrize("name", ["p1_f25", "p31_f7", "p33_f33", "p33_f64"])
+def test_sample_traffic_on_ragged_cases(ragged, name):
+    indptr, _, frontier, u = ragged[name]
+    assert sample_traffic(indptr, frontier, u) == _brute_traffic(
+        indptr, frontier, u)
+
+
 # -- on the card --------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -175,3 +284,12 @@ def test_cuda_sample_neighbors_is_bitwise_the_plain_version(fanout):
                                                        frontier, u))
     with pytest.raises(ValueError, match="device"):
         sample_neighbors(indptr, indices, frontier.cpu(), u)
+    if fanout != 10:
+        return
+    # the ragged edges of the warp-per-tile design, once
+    for name, *args in ragged_cases():
+        args = [t.to(dev) for t in args]
+        n0 = sample_neighbors.launches
+        got = sample_neighbors(*args)
+        assert sample_neighbors.launches == n0 + 1
+        assert torch.equal(got, sample_neighbors_plain(*args)), name
