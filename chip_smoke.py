@@ -8,7 +8,10 @@ Run from the repository root, on a machine with one card:
 It imports only torch and legion_tpu_torch. It builds the port's CUDA
 kernels from csrc/ with nvcc and its host runtime (csrc/gnnio.cpp) with
 g++, then runs these phases, printing one JSON line for each but the
-set-up; any failure raises and the script exits non-zero:
+set-up. Each phase first writes ``phase <name> start <seconds>s`` to
+stderr, so a failing check's traceback (``RuntimeError: check failed:
+...``) follows the name of its phase; any failure raises and the script
+exits non-zero:
 
 1. toolchain: torch and CUDA versions, the card, nvcc, both builds;
 2. set-up: the full-size products-scale synthetic graph and a
@@ -155,7 +158,21 @@ set-up; any failure raises and the script exits non-zero:
    exact and psum draws and rows bitwise equal on one batch, the
    collective-permute bytes the closed forms', no halo overflow,
    validation accuracy > 0.15 at both world sizes, and the launches per
-   step the CPU test pins.
+   step the CPU test pins;
+15. a user's path from an OGB dataset (``"ogb_products"``, before
+   ``cli``): ``legion_tpu_torch.tools.products_cell``'s stand-in for
+   ogbn-products at its published shapes (2,449,029 nodes, 61,859,140
+   edges, 100 float32 features, planted labels in 47 classes; generated
+   once into .bench_cache/), converted by ``data/ogb.py`` into a fresh
+   directory (seconds and peak host RSS; ``meta.json`` equal to the
+   registry's ``PR`` entry), trained through the parity harness
+   (``tools/parity_ogb.py``, in this process: SAGE-256 bf16, batch 8000,
+   3 epochs, verdict PASS above 0.15, finite losses, no cap overflow,
+   launches per step equal to the main path's), every kernel held against
+   its plain version on one batch of a ``Trainer`` on the packed
+   directory, and ``python -m legion_tpu_torch.train --dataset PR
+   --data-dir <packed>`` for one epoch (exit 0, finite loss, the test
+   line), with ms/step beside the main path's.
 
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
@@ -621,6 +638,49 @@ def layer1_inputs(tr, batch, x):
     return h_t.detach(), pos, mask, gd.contiguous()
 
 
+def trainer_kernel_checks(tr, labels, seed):
+    """Every kernel of a SAGE ``Trainer``'s step against its plain version
+    on one batch of its first training seeds, sampled at its caps with a
+    generator seeded ``seed``: the sampling kernel on both hops (uniforms
+    seeded ``seed + 1``), K3 on the whole frontier (-1 padding included),
+    K1 on the identity block and K2 forward and backward on layer 1's
+    block, each with the tolerance of the main path's check."""
+    import torch
+
+    from legion_tpu_torch.sampling.sampler import sample_batch
+    cfg, dev = tr.cfg, tr.device
+    ids = tr.shards_train[0][:cfg.sampler.batch_size].copy()
+    batch = sample_batch(
+        tr.graph, torch.from_numpy(ids).to(dev),
+        torch.tensor(len(ids), dtype=torch.int32, device=dev),
+        torch.from_numpy(labels[ids]).to(dev), cfg.sampler.fanouts,
+        tr.caps, dedup_last=cfg.sampler.dedup_last,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    hops = check_sampling_kernel(tr.graph, hop_frontiers(batch, tr.caps),
+                                 cfg.sampler.fanouts, seed=seed + 1)
+    x, k3 = check_gather_rows(tr.features, batch.frontier)
+    blk0 = batch.blocks[-1]
+    require(blk0.identity_offset is not None, "layer 0's block is identity")
+    k1 = check_identity_mean(x, blk0.nbr_mask, blk0.identity_offset)
+    k2_fwd, k2_bwd = check_k2(*layer1_inputs(tr, batch, x), "mean")
+    return {"sample_neighbors_hops": hops, "gather_rows": k3,
+            "identity_masked_mean": k1,
+            "k2": {"forward": k2_fwd, "backward": k2_bwd}}
+
+
+def record_kernel_checks(results, path, checks):
+    """File ``trainer_kernel_checks``' records under ``path`` in the
+    kernels line's results (K2's among its shapes, as ``<path>_bf16``)."""
+    results["sample_neighbors"][f"{path}_hops"] = checks[
+        "sample_neighbors_hops"]
+    results["gather_rows"][path] = checks["gather_rows"]
+    results["identity_masked_mean"][path] = checks["identity_masked_mean"]
+    results["gathered_masked_mean"]["shapes"][f"{path}_bf16"] = checks[
+        "k2"]["forward"]
+    results["gathered_masked_mean_backward"]["shapes"][f"{path}_bf16"] = (
+        checks["k2"]["backward"])
+
+
 def k2_fill_case():
     """K2 on a tiny block where three valid slots point past the rows:
     the kernel gives NaN in exactly the plain version's rows and its
@@ -1005,7 +1065,6 @@ def mesh_dp(kernels, results, data, smi):
                                          TrainConfig)
     from legion_tpu_torch.parallel import mesh
     from legion_tpu_torch.parallel.trainer import MeshTrainer
-    from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.train.loop import Trainer
     from legion_tpu_torch.utils import comm
     cfg = Config(
@@ -1087,28 +1146,8 @@ def mesh_dp(kernels, results, data, smi):
             f"exact launches: train {train_launches} (want {want_train}), "
             f"eval {eval_launches} (want {want_eval})")
     # every kernel at the loose caps' shapes, against its plain version
-    dev = torch.device("cuda")
-    ids = tr.shards_train[0][:8000].copy()
-    batch = sample_batch(
-        tr.graph, torch.from_numpy(ids).to(dev),
-        torch.tensor(len(ids), dtype=torch.int32, device=dev),
-        torch.from_numpy(data.labels[ids]).to(dev), cfg.sampler.fanouts,
-        tr.caps, dedup_last=cfg.sampler.dedup_last,
-        generator=torch.Generator(device=dev).manual_seed(6))
-    hops = check_sampling_kernel(tr.graph, hop_frontiers(batch, tr.caps),
-                                 cfg.sampler.fanouts, seed=7)
-    results["sample_neighbors"]["mesh_dp_hops"] = hops
-    x, k3 = check_gather_rows(tr.features, batch.frontier)
-    results["gather_rows"]["mesh_dp"] = k3
-    blk0 = batch.blocks[-1]
-    require(blk0.identity_offset is not None, "layer 0's block is identity")
-    k1 = check_identity_mean(x, blk0.nbr_mask, blk0.identity_offset)
-    results["identity_masked_mean"]["mesh_dp"] = k1
-    k2_fwd, k2_bwd = check_k2(*layer1_inputs(tr, batch, x), "mean")
-    results["gathered_masked_mean"]["shapes"]["mesh_dp_bf16"] = k2_fwd
-    results["gathered_masked_mean_backward"]["shapes"]["mesh_dp_bf16"] = (
-        k2_bwd)
-    del batch, x, blk0
+    checks = trainer_kernel_checks(tr, data.labels, seed=6)
+    record_kernel_checks(results, "mesh_dp", checks)
     emit({"phase": "mesh_dp", "nvidia_smi": smi, "backend": backend,
           "world": 1, "mesh": tr.mesh.shape, "caps": list(tr.caps),
           "init_s": init_s, "steps": t, "eval_steps": e,
@@ -1122,9 +1161,7 @@ def mesh_dp(kernels, results, data, smi):
           "param_bytes": pb, "allreduce_ms": allreduce_ms,
           "step_counts": step_counts, "epoch_counts": epoch_counts,
           "train_launches": train_launches, "eval_launches": eval_launches,
-          "kernel_checks": {"sample_neighbors_hops": hops, "gather_rows": k3,
-                            "identity_masked_mean": k1,
-                            "k2": {"forward": k2_fwd, "backward": k2_bwd}},
+          "kernel_checks": checks,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return ({k: train_launches[k] + eval_launches[k] for k in kernels},
             rec["losses"], 1e3 * steady["epoch_s"] / t)
@@ -2357,8 +2394,242 @@ def mesh_partitioned_k2(smi):
     return r0["run_launches"]
 
 
+# epochs of the ogb_products phase's harness run (its default is 10)
+OGB_EPOCHS = 3
+
+
+def resident_gb():
+    """This process's resident set (``VmRSS``) in GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def with_peak_rss(fn, period=0.01):
+    """``fn()`` while a thread samples this process's resident set every
+    ``period`` seconds. Returns (fn's result, the largest sample in GiB):
+    a sampled peak, which a spike shorter than ``period`` can escape."""
+    import threading
+    peak, done = [resident_gb()], threading.Event()
+
+    def watch():
+        while not done.wait(period):
+            peak[0] = max(peak[0], resident_gb())
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        watcher.join()
+    return out, max(peak[0], resident_gb())
+
+
+def per_step(launches, train_steps, eval_steps):
+    """Launches per step as exact fractions: the backward kernel's per
+    train step, every other kernel's per train or eval step."""
+    from fractions import Fraction
+    return {name: Fraction(n, train_steps + (
+        0 if name == "gathered_masked_mean_backward" else eval_steps))
+        for name, n in launches.items()}
+
+
+def ogb_products(kernels, results, smi, main_rec):
+    """Phase "ogb_products": a user's path from an OGB dataset to training
+    on the card, on ``tools/products_cell.py``'s stand-in at the published
+    shapes of ogbn-products (2,449,029 nodes, 61,859,140 edges, 100
+    float32 features, 47 classes; cut: none). It converts the stand-in
+    with ``convert_ogb_node_dataset`` into a fresh directory under
+    .bench_cache/ (seconds, peak host RSS; ``meta.json`` must equal the
+    registry's ``PR`` entry in nodes, edges, width and classes), trains
+    through the harness ``legion_tpu_torch.tools.parity_ogb`` in this
+    process (SAGE-256 bf16, fanout [25,10], batch 8000, ``OGB_EPOCHS``
+    epochs, target 0.15, 7x chance: verdict PASS above 0.15, finite
+    losses, no cap overflow, and each kernel's launches per step equal to
+    ``main_rec``'s, the main path's, once the cap probe's are taken off),
+    holds every kernel against its plain version on one batch of a
+    ``Trainer`` of the same configuration on ``load_dataset(packed)``, and
+    runs ``python -m legion_tpu_torch.train --dataset PR --data-dir
+    <packed>`` for one epoch (exit 0, no registry complaint, finite
+    losses, the test line). Returns the harness run's launch counts."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from legion_tpu_torch.config import (DATASET_REGISTRY, Config,
+                                         DatasetConfig, ModelConfig,
+                                         SamplerConfig, TrainConfig)
+    from legion_tpu_torch.data.format import load_dataset
+    from legion_tpu_torch.data.ogb import convert_ogb_node_dataset
+    from legion_tpu_torch.tools import parity_ogb, products_cell
+    from legion_tpu_torch.train.loop import Trainer
+    reg = DATASET_REGISTRY["PR"]
+    t0 = time.perf_counter()
+    root = products_cell.standin(REPO, log=stderr_log)
+    gen_s = time.perf_counter() - t0
+    cache = os.path.join(REPO, ".bench_cache")
+    names = ("ogb", "ogb.nodeproppred")
+    saved = {k: sys.modules.get(k) for k in names}
+    stand_in = products_cell.ogb_module()
+    sys.modules.update({k: stand_in for k in names})
+    try:
+        with tempfile.TemporaryDirectory(dir=cache,
+                                         prefix="ogb_products_") as tmp:
+            packed = os.path.join(tmp, "packed")
+            rss_before = resident_gb()
+            t0 = time.perf_counter()
+            _, peak = with_peak_rss(lambda: convert_ogb_node_dataset(
+                "ogbn-products", root, packed))
+            convert_s = time.perf_counter() - t0
+            with open(os.path.join(packed, "meta.json")) as f:
+                meta = json.load(f)
+            want = [reg.num_nodes, reg.num_edges, reg.feature_dim,
+                    reg.num_classes]
+            got = [meta["num_nodes"], meta["num_edges"],
+                   meta["feature_dim"], meta["num_classes"]]
+            require(got == want, f"the converted meta.json has the PR "
+                    f"registry's nodes, edges, width and classes: {got} "
+                    f"against {want}")
+
+            # the harness, in this process; its log goes to stderr after
+            out, err = io.StringIO(), io.StringIO()
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out), \
+                        contextlib.redirect_stderr(err):
+                    rc = parity_ogb.main([
+                        "--ogb-root", root, "--out", packed, "--dtype",
+                        "bfloat16", "--epochs", str(OGB_EPOCHS), "--target",
+                        "0.15"])
+            finally:
+                stderr_log(out.getvalue() + err.getvalue())
+            harness_s = time.perf_counter() - t0
+            launches = read_launches(kernels)
+            torch.cuda.empty_cache()
+            verdict = json.loads(out.getvalue().strip().splitlines()[-1])
+            epochs = [rec for rec in (json.loads(s) for s in
+                                      err.getvalue().splitlines()
+                                      if s.startswith("{"))
+                      if rec.get("event") == "train_epoch"]
+            require(rc == 0 and verdict["parity"] == "PASS"
+                    and verdict["test_acc"] > 0.15,
+                    f"the harness passes above 0.15: rc {rc}, {verdict}")
+            require(len(epochs) == OGB_EPOCHS, f"{OGB_EPOCHS} epochs logged")
+            for rec in epochs:
+                require(all(math.isfinite(v) for v in rec["losses"]),
+                        f"finite losses in epoch {rec['epoch']}")
+                require(rec["cap_overflow"] == 0,
+                        f"no cap overflow in epoch {rec['epoch']}")
+
+            # a Trainer of the harness's configuration on the packed
+            # directory: its set-up launches (the cap probe's draws) and
+            # every kernel on one batch of its step
+            data = load_dataset(packed)
+            cfg = Config(
+                dataset=DatasetConfig(
+                    name="ogbn-products", path=packed,
+                    num_nodes=data.num_nodes, num_edges=data.num_edges,
+                    feature_dim=data.feature_dim,
+                    num_classes=data.num_classes),
+                sampler=SamplerConfig(fanouts=(25, 10), batch_size=8000),
+                model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
+                                  dropout=0.5, dtype="bfloat16"),
+                train=TrainConfig(learning_rate=0.003, epochs=OGB_EPOCHS))
+            reset_launches(kernels)
+            t0 = time.perf_counter()
+            tr = Trainer(cfg, data, device="cuda")
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            setup = read_launches(kernels)
+            plan = tr.plan
+            t_steps = OGB_EPOCHS * plan.train_steps
+            # a validation pass after each epoch and one more, and the test
+            e_steps = (OGB_EPOCHS + 1) * plan.valid_steps + plan.test_steps
+            require(all(rec["steps"] == plan.train_steps for rec in epochs),
+                    "the harness trained the plan's steps")
+            got_rate = per_step({k: launches[k] - setup[k] for k in kernels},
+                                t_steps, e_steps)
+            want_rate = per_step(main_rec["launches"], *main_rec["steps"])
+            require(got_rate == want_rate,
+                    f"launches per step as on the main path: {got_rate} "
+                    f"against {want_rate}")
+            checks = trainer_kernel_checks(tr, data.labels, seed=11)
+            record_kernel_checks(results, "ogb_products", checks)
+            caps = list(tr.caps)
+            del tr, data
+            torch.cuda.empty_cache()
+
+            # the command line, as a user runs it on the packed directory
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "legion_tpu_torch.train", "--dataset",
+                 "PR", "--data-dir", packed, "--batch-size", "8000",
+                 "--fanouts", "25,10", "--hidden-dim", "256", "--dtype",
+                 "bfloat16", "--epochs", "1"], capture_output=True,
+                text=True, timeout=600, cwd=REPO,
+                env=dict(os.environ, PYTHONPATH=REPO))
+            cli_s = time.perf_counter() - t0
+    finally:
+        for k, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = mod
+    require(r.returncode == 0,
+            f"--dataset PR on the packed directory exits 0: "
+            f"{r.stderr[-2000:]}")
+    require("registry" not in r.stderr, "no registry complaint")
+    losses = [float(v) for v in re.findall(r"Loss:([^,]+),", r.stdout)]
+    require(len(losses) == 1 and all(math.isfinite(v) for v in losses),
+            f"one finite epoch loss from the command line, got {losses}")
+    require("Accuracy on test data" in r.stdout,
+            "the command line prints the test line")
+    steady = epochs[1:]
+    emit({"phase": "ogb_products", "nvidia_smi": smi,
+          "source": {"name": "ogbn-products", "stand_in": "tools/"
+                     "products_cell.py", "num_nodes": reg.num_nodes,
+                     "edge_index_columns": products_cell.SHAPE["num_edges"],
+                     "split": list(products_cell.SHAPE["split"]),
+                     "gen_s": gen_s},
+          "packed": meta, "registry_pr": want, "convert_s": convert_s,
+          "convert_peak_rss_gb": peak, "rss_before_convert_gb": rss_before,
+          "harness_s": harness_s, "verdict": verdict, "caps": caps,
+          "trainer_init_s": init_s,
+          "epochs": [{"epoch": rec["epoch"], "steps": rec["steps"],
+                      "losses": rec["losses"],
+                      "cap_overflow": rec["cap_overflow"],
+                      "epoch_s": rec["epoch_s"],
+                      "ms_per_step": 1e3 * rec["epoch_s"] / rec["steps"],
+                      "edges_per_s": rec["edges_per_s"]} for rec in epochs],
+          "steady_ms_per_step": 1e3 * sum(rec["epoch_s"] for rec in steady)
+          / sum(rec["steps"] for rec in steady),
+          "steady_edges_per_s": [rec["edges_per_s"] for rec in steady],
+          "main_path": {"ms_per_step": main_rec["ms_per_step"],
+                        "edges_per_s": main_rec["edges_per_s"]},
+          "train_steps": t_steps, "eval_steps": e_steps,
+          "launches": launches, "setup_launches": setup,
+          "launches_per_step": {k: str(v) for k, v in got_rate.items()},
+          "kernel_checks": checks,
+          "cli": {"seconds": cli_s, "losses": losses,
+                  "test_line": r.stdout.strip().splitlines()[-1]}})
+    return launches
+
+
 def main():
     import torch
+    start = time.perf_counter()
+
+    def announce(phase):
+        """One stderr line as each phase starts, so that a failure's
+        traceback follows the name of the phase that raised it."""
+        stderr_log(f"phase {phase} start {time.perf_counter() - start:.1f}s")
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
@@ -2383,9 +2654,11 @@ def main():
     results = {name: {} for name in kernels}
 
     # -- 1. toolchain and card ------------------------------------------------
+    announce("toolchain")
     smi = toolchain()
 
     # -- 2. the main path's set-up: data and Trainer (which probes caps) ---
+    announce("setup")
     t0 = time.perf_counter()
     data = bench_graph(num_nodes=NODES)
     gen_s = time.perf_counter() - t0
@@ -2409,6 +2682,7 @@ def main():
     # block (K2 forward) and the gradient of the step's loss at layer 1's
     # aggregate (K2 backward). Dropout is off so that the gradient is a
     # function of the inputs.
+    announce("kernels")
     b = cfg.sampler.batch_size
     seed_ids = data.train_ids[:b].copy()
     batch = sample_batch(
@@ -2463,6 +2737,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 4. the main path at full width ------------------------------------
+    announce("main_path")
     reset_launches(kernels)
     epochs = [tr.train_one_epoch(e) for e in range(2)]
     valid_acc = tr.evaluate("valid")
@@ -2490,24 +2765,36 @@ def main():
                       "edges_per_s": r["edges_per_s"]} for r in epochs],
           "valid_acc": valid_acc, "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    # what the ogb_products phase holds its run to: the same Trainer's
+    # launches per step, and its steady epoch beside its own
+    main_rec = {"launches": launches,
+                "steps": (sum(r["steps"] for r in epochs),
+                          tr.plan.valid_steps),
+                "ms_per_step": 1e3 * epochs[-1]["epoch_s"]
+                / epochs[-1]["steps"],
+                "edges_per_s": epochs[-1]["edges_per_s"]}
     del tr
     torch.cuda.empty_cache()
     # GCN at the same width on the same graph: bf16 (K1 "sqrt", K2 "sum")
     # and float32 (K5)
     by_path = {"main_path": launches}
     for dtype in ("bfloat16", "float32"):
+        announce(f"gcn_{dtype}")
         by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)
         torch.cuda.empty_cache()
     # MeshTrainer at world size 1 through NCCL on the same graph, then on
     # the table striped over its one-rank cache group
+    announce("mesh_dp")
     by_path["mesh_dp"], dp_losses, dp_ms = mesh_dp(kernels, results, data,
                                                    smi)
     torch.cuda.empty_cache()
+    announce("mesh_striped (hbm_sharded)")
     sharded = mesh_sharded(kernels, data, dp_losses, dp_ms)
     torch.cuda.empty_cache()
     del data
 
     # -- 5. it learns, and agrees with the plain versions on a small input --
+    announce("learn")
     data = random_power_law_graph(num_nodes=50_000, avg_degree=15,
                                   feature_dim=100, num_classes=CLASSES,
                                   seed=0)
@@ -2552,14 +2839,16 @@ def main():
                      "staging_overflow": [h["staging_overflow"]
                                           for h in cres["history"]]}})
     del cres
-    emit({"phase": "gcn_learn", **gcn_learns(data)})
-    emit({"phase": "lp_sage", **lp_sage_path(data)})
-    emit({"phase": "checkpoint_resume", **checkpoint_resume(data)})
-    emit({"phase": "hybrid_learn", **hybrid_learns(data)})
+    for phase, fn in (("gcn_learn", gcn_learns), ("lp_sage", lp_sage_path),
+                      ("checkpoint_resume", checkpoint_resume),
+                      ("hybrid_learn", hybrid_learns)):
+        announce(phase)
+        emit({"phase": phase, **fn(data)})
     del data
     torch.cuda.empty_cache()
 
     # -- 6. the cached path at papers100M class -----------------------------
+    announce("cached_path")
     by_path["cached_path"], cached_ref = cached_path(kernels, results, dedups)
     torch.cuda.empty_cache()
 
@@ -2567,26 +2856,39 @@ def main():
     emit({"phase": "dedup", "nvidia_smi": smi, "cases": dedups})
 
     # -- 8. the host-topology path at uk-union class ------------------------
+    announce("hybrid_path")
     by_path["hybrid_path"], hybrid_ref = hybrid_path(kernels, results)
     torch.cuda.empty_cache()
 
     # -- 11. the cache-group paths at world size 1 (NCCL), each against its
     # single-device twin above, and 12. at cache axis 2 on two ranks
     # sharing the card
+    announce("mesh_striped")
     by_path.update(mesh_striped(kernels, results, smi, sharded,
                                 {"cached": cached_ref, "hybrid": hybrid_ref}))
     torch.cuda.empty_cache()
+    announce("mesh_striped_k2")
     by_path.update(mesh_striped_k2(smi))
 
     # -- 13. the edge-partitioned path at world size 1 (NCCL) on phase 6's
     # graph, and 14. at two ranks sharing the card against one -----------
+    announce("mesh_partitioned")
     by_path["mesh_partitioned"] = mesh_partitioned(kernels, results, smi,
                                                    cached_ref)
     torch.cuda.empty_cache()
+    announce("mesh_partitioned_k2")
     by_path["mesh_partitioned_k2"] = mesh_partitioned_k2(smi)
 
+    # -- 15. from an OGB dataset (the products stand-in) through conversion,
+    # the harness and the command line --------------------------------------
+    announce("ogb_products")
+    by_path["ogb_products"] = ogb_products(kernels, results, smi, main_rec)
+    torch.cuda.empty_cache()
+
     # -- 10. the command line, as a user runs it ----------------------------
+    announce("cli")
     cli_runs(smi)
+    announce("summary")
 
     print(smi, flush=True)
     # launches: the count on the SAGE main path (phase 4), and for K5, which

@@ -10,7 +10,7 @@ fallback would change results without a word.
 Four entries: ``gather_rows``, ``sample_neighbors`` (the host leg of the
 host-topology placement: the misses of the device's topology cache),
 ``accumulate_hist`` (the host presample's hotness counts) and
-``coo_to_csr``. Each has a plain numpy version beside it (``*_plain``)
+``coo_to_csr`` (the CSR of the OGB converter, ``data/ogb.py``). Each has a plain numpy version beside it (``*_plain``)
 that gives exactly the same result; the tests hold the C++ against them,
 and nothing on the drivers' path calls them.
 

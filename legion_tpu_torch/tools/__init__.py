@@ -22,5 +22,10 @@
 * ``partition_cell``: the edge-partitioned path at 2 ranks (exact
   exchange against psum) and at 1 rank, the same way
   (``python -m legion_tpu_torch.tools.partition_cell OUT.json``;
-  ``chip_smoke.py``'s ``mesh_partitioned_k2``).
+  ``chip_smoke.py``'s ``mesh_partitioned_k2``);
+* ``parity_ogb``: the OGB accuracy-parity harness: convert, train, one
+  JSON verdict line (``python -m legion_tpu_torch.tools.parity_ogb``);
+* ``products_cell``: a stand-in for ``ogb.nodeproppred`` serving an
+  ogbn-products-shaped graph made from a seed (``chip_smoke.py``'s
+  ``ogb_products``).
 """

@@ -66,6 +66,9 @@ import legion_tpu_torch.parallel.multihost
 import legion_tpu_torch.parallel.launch
 import legion_tpu_torch.train.partitioned_driver
 import legion_tpu_torch.tools.partition_cell
+import legion_tpu_torch.data.ogb
+import legion_tpu_torch.tools.parity_ogb
+import legion_tpu_torch.tools.products_cell
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
                 if m in sys.modules)
 print("LOADED", loaded)
