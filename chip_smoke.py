@@ -174,6 +174,19 @@ exits non-zero:
    --data-dir <packed>`` for one epoch (exit 0, finite loss, the test
    line), with ms/step beside the main path's.
 
+16. the benchmark's entry point (``"bench"``, right after phase 4, on its
+   graph; ``legion_tpu_torch.bench``): in this process both variants of
+   ``run_variant`` at full width for 40 steps (a warm-up pass and two
+   timed trials), ``fanout`` launching per step exactly what the main
+   path does and ``coo_segment`` K3 once and the sampling kernel twice,
+   no K1 or K2; then the graph saved into a fresh cache directory and
+   ``python -m legion_tpu_torch.bench`` run there twice at its defaults,
+   each printing one line with bench.py's keys, positive ``value`` and
+   ``step_ms`` and ``kernel_gate`` "pass" (the gate of
+   ``tools/bench_kernels.py``, whose ``time_ms`` and ``bound`` this script
+   shares), the second reading the caps and baseline memos the first
+   wrote. Both lines are printed after the phase's own.
+
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
 pointed at a row no valid slot reads, given as ``padding_idx``; the
@@ -190,27 +203,25 @@ at once and prints no result.
 import json
 import math
 import os
-import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from fractions import Fraction
+
+# the kernels' comparisons, timing and bounds, shared with the port's
+# kernel gate
+from legion_tpu_torch.tools.bench_kernels import (
+    PEAK_BYTES_PER_S, bound, compare_gather_rows, compare_grouped_sum,
+    compare_identity_mean, compare_k2_backward, compare_k2_forward,
+    compare_sample, time_ms, within_bf16, within_f32)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "legion_tpu_torch/csrc/legion_kernels.cu"
 
 # bench_graph's full size (the ogbn-products stand-in) and its classes
 NODES, CLASSES = 2_449_029, 47
-
-# Published peaks of the H100 SXM (NVIDIA's data sheet) that the kernels'
-# bounds are stated against: device memory, and float32 outside the
-# tensor cores (none of these kernels holds a matrix product).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-# what ``time_ms(cold=True)`` writes before each call: over twice the
-# H100's 50 MB L2
-FLUSH_BYTES = 128 << 20
-
 
 # what the kernels line holds of each kernel, beside its launch counts
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -219,58 +230,6 @@ KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, reps=20, warmup=3, trials=5, cold=False):
-    """Device time of one fn() call in ms: the median over trials of a
-    CUDA event pair around reps back-to-back calls, divided by reps. Each
-    trial first parks the stream in a ~10 ms device sleep so the host can
-    queue all reps before the device starts, so host launch overhead
-    (tens of us per call, more than the smallest kernels take) does not
-    count as device time.
-
-    With ``cold`` the L2 holds none of fn's data when it starts, as in a
-    training step, where the kernels between two calls move far more than
-    the L2's 50 MB: before each call a scratch buffer of ``FLUSH_BYTES``
-    is written, and each call has its own event pair, after the write; a
-    trial's time is the mean of its reps pairs."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    scratch = (torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
-                           device="cuda") if cold else None)
-    times = []
-    for _ in range(trials):
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-                 for _ in range(reps if cold else 1)]
-        torch.cuda._sleep(20_000_000)             # cycles, ~10 ms
-        if cold:
-            for start, end in pairs:
-                scratch.zero_()
-                start.record()
-                fn()
-                end.record()
-        else:
-            pairs[0][0].record()
-            for _ in range(reps):
-                fn()
-            pairs[0][1].record()
-        pairs[-1][1].synchronize()
-        times.append(sum(s.elapsed_time(e) for s, e in pairs) / reps)
-    return statistics.median(times)
-
-
-def bound(nbytes, flops):
-    """The least time the card could take: each input byte read once and
-    each output byte written once at the memory peak, or the operations
-    at the float32 peak, whichever is larger."""
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_F32_FLOP_PER_S
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_bytes": int(nbytes), "bound_flops": int(flops)}
 
 
 def require(cond, what):
@@ -365,9 +324,10 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
         u = torch.rand((fr.shape[0], f), generator=gen,
                        device=fr.device, dtype=torch.float32)
         args = (graph.indptr, graph.indices, fr, u)
-        k, p = sample_neighbors(*args), sample_neighbors_plain(*args)
-        require(torch.equal(k, p), f"sample_neighbors at {tuple(u.shape)} "
+        c = compare_sample(*args)
+        require(c.ok, f"sample_neighbors at {tuple(u.shape)} "
                 "is bitwise its plain version")
+        k = c.out
         traffic = sample_traffic(graph.indptr, fr, u)
         valid = traffic["valid_slots"]
         require(valid == int((k >= 0).sum()),
@@ -379,7 +339,7 @@ def check_sampling_kernel(graph, frontiers, fanouts, seed):
                     "sector_bytes": traffic["sector_bytes"],
                     "sector_ms": (1e3 * traffic["sector_bytes"]
                                   / PEAK_BYTES_PER_S),
-                    "max_abs_err": float((k - p).abs().max()),
+                    "max_abs_err": c.max_abs_err,
                     "ms": time_ms(lambda: sample_neighbors(*args)),
                     "cold_ms": time_ms(lambda: sample_neighbors(*args),
                                        cold=True),
@@ -393,17 +353,11 @@ def check_sampling_sweep():
     ``tools/k4_bench.py::ragged_cases`` (ragged tiles, fanouts past the
     warp, degree 0 and > 2^16, ids past 2^24, all -1 tiles, uniforms just
     below 1). Raises on the first that differs; returns the case count."""
-    import torch
-
-    from legion_tpu_torch.ops.sample import (sample_neighbors,
-                                             sample_neighbors_plain)
     from legion_tpu_torch.tools.k4_bench import ragged_cases
     cases = ragged_cases()
     csr = [t.cuda() for t in cases[0][1:3]]      # one CSR for every case
     for name, _, _, frontier, u in cases:
-        args = (*csr, frontier.cuda(), u.cuda())
-        require(torch.equal(sample_neighbors(*args),
-                            sample_neighbors_plain(*args)),
+        require(compare_sample(*csr, frontier.cuda(), u.cuda()).ok,
                 f"sample_neighbors on ragged case {name} is bitwise its "
                 "plain version")
     return len(cases)
@@ -416,20 +370,20 @@ def check_gather_rows(table, ids):
     import torch
 
     from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
-    k, p = gather_rows(table, ids), gather_rows_plain(table, ids)
-    require(torch.equal(k, p), f"gather_rows at {[*table.shape]} by "
+    c = compare_gather_rows(table, ids)
+    require(c.ok, f"gather_rows at {[*table.shape]} by "
             f"{ids.shape[0]} ids is bitwise its plain version")
     # each distinct valid row read once (ids may repeat), every output
     # row written once
     row_bytes = table.shape[1] * table.element_size()
     distinct = int(torch.unique(ids[ids >= 0]).numel())
     idx = ids.clamp(min=0).long()
-    return k, {"shape": [*table.shape, ids.shape[0]],
+    return c.out, {"shape": [*table.shape, ids.shape[0]],
                "dtype": str(table.dtype).split(".")[-1],
                "valid_ids": int((ids >= 0).sum()),
                **bound(4 * ids.numel() + (distinct + ids.numel()) * row_bytes,
                        0),
-               "max_abs_err": float((k.float() - p.float()).abs().max()),
+               "max_abs_err": c.max_abs_err,
                "ms": time_ms(lambda: gather_rows(table, ids)),
                "plain_ms": time_ms(lambda: gather_rows_plain(table, ids)),
                "library_ms": time_ms(
@@ -463,7 +417,8 @@ def check_k2(h_t, pos, mask, g, norm):
     magnitudes. Backward in float32 within 1e-5 of the summed magnitudes
     of the terms scattered into each element (atomics add in any order),
     and in bf16, as the step runs it, within 8e-3 of them (both sides
-    round an f32 sum once). Returns the forward's and the backward's
+    round an f32 sum once): ``compare_k2_forward`` and
+    ``compare_k2_backward``. Returns the forward's and the backward's
     record; the backward's holds ``parts_ms``: the zero fill, the scatter
     kernel and the cast pass timed apart."""
     import torch
@@ -477,31 +432,16 @@ def check_k2(h_t, pos, mask, g, norm):
     what = f"K2 at {[p, f, s, d]} {h_t.dtype}"
     fwd_err, bwd_err = {}, {}
     for nm in NORMS:
-        k = gathered_masked_mean(h_t, pos, mask, nm).float()
-        pl = gathered_masked_mean_plain(h_t, pos, mask, nm).float()
+        c = compare_k2_forward(h_t, pos, mask, nm)
+        require(c.ok, f"{what}: forward, norm {nm}, within tolerance")
+        fwd_err[nm] = c.max_abs_err
+        c = compare_k2_backward(g.float(), pos, mask, s, nm, torch.float32)
+        require(c.ok, f"{what}: backward, norm {nm}, within 1e-5 in f32")
+        bwd_err[nm] = c.max_abs_err
         if low:
-            tol = 8e-3 * pl.abs() + 1e-3
-        else:
-            tol = 1e-5 * gathered_masked_mean_plain(h_t.abs(), pos, mask, nm)
-        require(bool(((k - pl).abs() <= tol).all()),
-                f"{what}: forward, norm {nm}, within tolerance")
-        fwd_err[nm] = float((k - pl).abs().max())
-        g32 = g.float()
-        kb = gathered_masked_mean_backward(g32, pos, mask, s, nm,
-                                           torch.float32)
-        pb = gathered_masked_mean_backward_plain(g32, pos, mask, s, nm,
-                                                 torch.float32)
-        mag = gathered_masked_mean_backward_plain(g32.abs(), pos, mask, s, nm,
-                                                  torch.float32)
-        require(bool(((kb - pb).abs() <= 1e-5 * mag).all()),
-                f"{what}: backward, norm {nm}, within 1e-5 in f32")
-        bwd_err[nm] = float((kb - pb).abs().max())
-        if low:
-            kl = gathered_masked_mean_backward(g, pos, mask, s, nm).float()
-            require(bool(((kl - gathered_masked_mean_backward_plain(
-                g, pos, mask, s, nm).float()).abs() <= 8e-3 * mag).all()),
-                f"{what}: backward, norm {nm}, within 8e-3 in bf16")
-        del k, pl, tol, g32, kb, pb, mag
+            require(compare_k2_backward(g, pos, mask, s, nm).ok,
+                    f"{what}: backward, norm {nm}, within 8e-3 in bf16")
+        del c
     slots = int(mask.sum())
     rows = int(torch.unique(pos[mask]).numel())
     shape = {"shape": [p, f, s, d], "dtype": str(h_t.dtype).split(".")[-1],
@@ -546,14 +486,13 @@ def check_k2(h_t, pos, mask, g, norm):
     return fwd, bwd
 
 
-def bf16_err(k, p, what):
-    """Within 1 bf16 ulp relative (8e-3) plus 1e-3 absolute: kernel and
-    plain version sum in f32 in different orders, which can flip one bf16
-    rounding. Returns the largest absolute difference."""
-    k, p = k.float(), p.float()
-    excess = ((k - p).abs() - (8e-3 * p.abs() + 1e-3)).max()
-    require(float(excess) <= 0, f"{what} within bf16 tolerance")
-    return float((k - p).abs().max())
+def compared(c, what):
+    """Requires a ``bench_kernels.compare_*`` result within its kernel's
+    tolerance (bf16: 1 bf16 ulp relative, 8e-3, plus 1e-3 absolute, since
+    kernel and plain version sum in f32 in different orders, which can
+    flip one bf16 rounding). Returns the largest absolute difference."""
+    require(c.ok, f"{what} within tolerance")
+    return c.max_abs_err
 
 
 def bag_index(num_rows, rows, mask):
@@ -604,10 +543,8 @@ def check_identity_mean(x, m1, off):
             **bound(slots1 * d1 * x.element_size() + m1.numel()
                     + m1.shape[0] * d1 * 2, slots1 * d1),
             "library_ms": library_bag(x, idx, pad, "mean"),
-            "max_abs_err": bf16_err(
-                identity_masked_mean(x, m1, off, "mean", torch.bfloat16),
-                identity_masked_mean_plain(x, m1, off, "mean",
-                                           torch.bfloat16),
+            "max_abs_err": compared(
+                compare_identity_mean(x, m1, off),
                 f"identity_masked_mean at {[*m1.shape, *x.shape]}"),
             "ms": time_ms(lambda: identity_masked_mean(x, m1, off)),
             "plain_ms": time_ms(
@@ -710,8 +647,7 @@ def k2_fill_case():
     require(torch.equal(torch.isnan(k), torch.isnan(pl)),
             "K2 forward gives NaN in exactly the plain version's rows")
     ok = ~torch.isnan(pl).any(1)
-    require(bool(((k[ok].float() - pl[ok].float()).abs()
-                  <= 8e-3 * pl[ok].float().abs() + 1e-3).all()),
+    require(within_bf16(k[ok], pl[ok]),
             "K2 forward's finite rows within bf16 tolerance")
     g = torch.randn((p, d), generator=gen, device=dev)
     kb = gathered_masked_mean_backward(g, pos, mask, s, "mean", torch.float32)
@@ -719,8 +655,7 @@ def k2_fill_case():
                                              torch.float32)
     mag = gathered_masked_mean_backward_plain(g.abs(), pos, mask, s, "mean",
                                               torch.float32)
-    require(bool(torch.isfinite(kb).all())
-            and bool(((kb - pb).abs() <= 1e-5 * mag).all()),
+    require(bool(torch.isfinite(kb).all()) and within_f32(kb, pb, mag),
             "K2 backward drops the slots past the rows as its plain version")
     return {"nan_rows": nan_rows, "finite_rows": int(ok.sum()),
             "bwd_max_abs_err": float((kb - pb).abs().max())}
@@ -792,22 +727,11 @@ def check_grouped_masked_sum(x, mask, off):
     gen = torch.Generator(device=x.device).manual_seed(11)
     w = torch.randn((p, d), generator=gen, device=x.device)
 
-    def f32_close(k, pl, mag, what):
-        require(bool(((k - pl).abs() <= 1e-5 * mag + 1e-30).all()),
-                f"grouped_masked_sum {what} within 1e-5 of the magnitudes")
-        return float((k - pl).abs().max())
-
-    def bf16_close(k, pl, what):
-        k, pl = k.float(), pl.float()
-        require(float(((k - pl).abs() - (8e-3 * pl.abs() + 1e-3)).max()) <= 0,
-                f"grouped_masked_sum {what} within bf16 tolerance")
-        return float((k - pl).abs().max())
-
     rec = {"shape": [p, f, d]}
-    k, pl = grouped_masked_sum(x2, mask, f), grouped_masked_sum_plain(
-        x2, mask, f)
-    rec["max_abs_err"] = f32_close(
-        k, pl, grouped_masked_sum_plain(x2.abs(), mask, f), "forward")
+    c = compare_grouped_sum(x2, mask, f)
+    rec["max_abs_err"] = compared(
+        c, "grouped_masked_sum forward (1e-5 of the magnitudes)")
+    pl = grouped_masked_sum_plain(x2, mask, f)
     grads = []
     for fn in (grouped_masked_sum, grouped_masked_sum_plain):
         xg = x2.clone().requires_grad_(True)
@@ -819,26 +743,25 @@ def check_grouped_masked_sum(x, mask, off):
             "version's (each element one product)")
     del grads
     xb = x2.to(torch.bfloat16)
-    rec["bf16_max_abs_err"] = bf16_close(
-        grouped_masked_sum(xb, mask, f),
-        grouped_masked_sum_plain(xb, mask, f), "bf16")
+    rec["bf16_max_abs_err"] = compared(compare_grouped_sum(xb, mask, f),
+                                       "grouped_masked_sum bf16")
     # width 47 and float weights: no 16-byte loads, a multiply per slot
     xo = x2[:, :47].contiguous()
     wm = mask * (0.5 + torch.rand(mask.shape, generator=gen,
                                   device=x.device))
-    rec["odd_f32_max_abs_err"] = f32_close(
-        grouped_masked_sum(xo, wm, f), grouped_masked_sum_plain(xo, wm, f),
-        grouped_masked_sum_plain(xo.abs(), wm, f), "at width 47")
+    rec["odd_f32_max_abs_err"] = compared(
+        compare_grouped_sum(xo, wm, f),
+        "grouped_masked_sum at width 47 (1e-5 of the magnitudes)")
     xob = xo.to(torch.bfloat16)[1:-(f - 1)]     # a 2-byte-aligned start
-    rec["odd_bf16_max_abs_err"] = bf16_close(
-        grouped_masked_sum(xob, wm[:-1], f),
-        grouped_masked_sum_plain(xob, wm[:-1], f), "bf16 at width 47")
+    rec["odd_bf16_max_abs_err"] = compared(
+        compare_grouped_sum(xob, wm[:-1], f),
+        "grouped_masked_sum bf16 at width 47")
     del xb, xo, xob
     mf = mask.to(x2.dtype)
     x3 = x2.view(p, f, d)
     lib = torch.einsum("pfd,pf->pd", x3, mf)
     rec["library_max_abs_err"] = float((lib - pl).abs().max())
-    del lib, k, pl
+    del lib, c, pl
     rec.update(
         bound(x2.numel() * x2.element_size() + mask.numel()
               + p * d * x2.element_size(), 2 * x2.numel()),
@@ -2431,7 +2354,6 @@ def with_peak_rss(fn, period=0.01):
 def per_step(launches, train_steps, eval_steps):
     """Launches per step as exact fractions: the backward kernel's per
     train step, every other kernel's per train or eval step."""
-    from fractions import Fraction
     return {name: Fraction(n, train_steps + (
         0 if name == "gathered_masked_mean_backward" else eval_steps))
         for name, n in launches.items()}
@@ -2621,6 +2543,107 @@ def ogb_products(kernels, results, smi, main_rec):
     return launches
 
 
+BENCH_STEPS = 40          # the in-process variants' steps (3 passes each)
+BENCH_CLI_TIMEOUT = 420
+
+
+def bench_phase(kernels, smi, data, main_rec):
+    """The benchmark entry point (``legion_tpu_torch.bench``) on phase 2's
+    graph. (a) In this process, its measuring function ``run_variant`` at
+    full width for ``BENCH_STEPS`` steps (a warm-up pass and two timed
+    trials) for each variant: ``fanout`` must launch per step exactly what
+    the main path launches per step (K1, K2 forward and backward, K3
+    once, the sampling kernel twice, K5 never) and ``coo_segment`` K3
+    once and the sampling kernel twice, no K1 or K2; finite losses. (b)
+    The graph saved under a fresh ``--cache-dir`` and ``python -m
+    legion_tpu_torch.bench --cache-dir <dir>`` run twice at its defaults:
+    exactly one stdout line each, with bench.py's keys, finite positive
+    ``value`` and ``step_ms``, ``kernel_gate`` "pass"; the first run
+    probes and measures the baseline, the second reads both memos.
+    Returns each variant's launches over its run."""
+    import torch
+
+    from legion_tpu_torch import bench
+    from legion_tpu_torch.data.format import save_dataset
+    want = {"fanout": {"identity_masked_mean": 1, "gathered_masked_mean": 1,
+                       "gathered_masked_mean_backward": 1, "gather_rows": 1,
+                       "sample_neighbors": 2, "grouped_masked_sum": 0},
+            "coo_segment": {"identity_masked_mean": 0,
+                            "gathered_masked_mean": 0,
+                            "gathered_masked_mean_backward": 0,
+                            "gather_rows": 1, "sample_neighbors": 2,
+                            "grouped_masked_sum": 0}}
+    main_per_step = per_step(main_rec["launches"], *main_rec["steps"])
+    require(main_per_step == want["fanout"],
+            f"the main path's launches per step {main_per_step}")
+    os.makedirs(os.path.join(REPO, ".bench_cache"), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="bench_phase_",
+                             dir=os.path.join(REPO, ".bench_cache"))
+    try:
+        args = bench.parse_args(["--steps", str(BENCH_STEPS), "--cache-dir",
+                                 os.path.join(cache, "in_process")])
+        setup = bench.prepare(args, data, log=stderr_log)
+        by_variant, variants = {}, {}
+        for agg in ("fanout", "coo_segment"):
+            reset_launches(kernels)
+            rec = bench.run_variant(agg, setup, log=stderr_log)
+            launches = read_launches(kernels)
+            got = {n: Fraction(c, 3 * setup.steps)
+                   for n, c in launches.items()}
+            require(got == want[agg],
+                    f"bench variant {agg} launches per step {got}")
+            require(all(math.isfinite(v) for v in rec["losses"]),
+                    f"bench variant {agg}: finite losses")
+            by_variant[f"bench_{agg}"] = launches
+            variants[agg] = {**rec, "launches": launches}
+        caps = setup.caps
+        del setup
+        torch.cuda.empty_cache()
+
+        cli_cache = os.path.join(cache, "cli")
+        t0 = time.perf_counter()
+        save_dataset(data, bench.graph_dir(cli_cache, args.nodes, args.deg))
+        save_s = time.perf_counter() - t0
+        lines, run_s = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "legion_tpu_torch.bench",
+                 "--cache-dir", cli_cache], cwd=REPO, capture_output=True,
+                text=True, timeout=BENCH_CLI_TIMEOUT)
+            run_s.append(time.perf_counter() - t0)
+            stderr_log(res.stderr)
+            require(res.returncode == 0,
+                    f"bench run {i} exits 0 (got {res.returncode})")
+            out = res.stdout.splitlines()
+            require(len(out) == 1, f"bench run {i} prints one stdout line")
+            rec = json.loads(out[0])
+            require(tuple(rec) == bench.KEYS,
+                    f"bench run {i} prints bench.py's keys: {list(rec)}")
+            for k in ("value", "step_ms"):
+                require(math.isfinite(rec[k]) and rec[k] > 0,
+                        f"bench run {i}: {k} finite and > 0")
+            require(rec["kernel_gate"] == "pass",
+                    f"bench run {i}: kernel_gate {rec['kernel_gate']}")
+            memo = ("observed caps from cache" in res.stderr,
+                    "[coo_segment] baseline from cache" in res.stderr)
+            require(memo == ((False, False) if i == 0 else (True, True)),
+                    f"bench run {i}: memos read {memo}")
+            lines.append(out[0])
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    emit({"phase": "bench", "nvidia_smi": smi, "caps": list(caps),
+          "in_process_steps": BENCH_STEPS,
+          "in_process": {agg: {k: v[k] for k in (
+              "edges_per_s", "step_ms", "trials_ms_per_step",
+              "edges_per_step", "losses", "launches")}
+              for agg, v in variants.items()},
+          "graph_save_s": save_s, "cli_s": run_s})
+    for line in lines:     # the entry point's own lines, as it printed them
+        print(line, flush=True)
+    return by_variant
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -2640,8 +2663,6 @@ def main():
                                          TrainConfig)
     from legion_tpu_torch.data.synthetic import (bench_graph,
                                                  random_power_law_graph)
-    from legion_tpu_torch.ops.identity_agg import (identity_masked_mean,
-                                                   identity_masked_mean_plain)
     from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.train.cached_driver import run_cached_training
     from legion_tpu_torch.train.loop import Trainer
@@ -2708,9 +2729,8 @@ def main():
     x, m1, off = k3, blk0.nbr_mask, blk0.identity_offset
     results["identity_masked_mean"].update(
         check_identity_mean(x, m1, off),
-        sqrt_max_abs_err=bf16_err(       # GCN's norm
-            identity_masked_mean(x, m1, off, "sqrt", torch.bfloat16),
-            identity_masked_mean_plain(x, m1, off, "sqrt", torch.bfloat16),
+        sqrt_max_abs_err=compared(       # GCN's norm
+            compare_identity_mean(x, m1, off, "sqrt"),
             "identity_masked_mean with norm sqrt"))
     h_t, pos, m0, gd = layer1_inputs(tr, batch, x)
     # K2 at the shapes the full-width paths give it: SAGE's layer 1 in bf16
@@ -2775,9 +2795,14 @@ def main():
                 "edges_per_s": epochs[-1]["edges_per_s"]}
     del tr
     torch.cuda.empty_cache()
+    by_path = {"main_path": launches}
+    # the benchmark's entry point on the same graph: its two variants in
+    # this process, then its command line twice
+    announce("bench")
+    by_path.update(bench_phase(kernels, smi, data, main_rec))
+    torch.cuda.empty_cache()
     # GCN at the same width on the same graph: bf16 (K1 "sqrt", K2 "sum")
     # and float32 (K5)
-    by_path = {"main_path": launches}
     for dtype in ("bfloat16", "float32"):
         announce(f"gcn_{dtype}")
         by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)

@@ -1,6 +1,8 @@
 """Presampling hotness measurement (port of
 ``legion_tpu/cache/hotness.py``): ``presample_hotness``,
-``observed_caps`` and ``host_frontier_probe``.
+``observed_caps`` and ``host_frontier_probe``, and
+``probe_frontier_maxima``, the device probe that the ``Trainer`` and the
+bench size their caps from.
 
 The reference dedicates a profiling epoch before training: sampling runs
 without feature extraction while per-node access counters accumulate
@@ -96,6 +98,27 @@ def observed_caps(max_per_hop, slack: float = 1.2, align: int = 8,
     if last_exact_fanout is not None:
         caps[-1] = caps[-2] * (1 + last_exact_fanout)
     return tuple(int(c) for c in caps)
+
+
+def probe_frontier_maxima(graph: DeviceGraph, seed_batches, fanouts,
+                          loose: Sequence[int],
+                          generator: torch.Generator) -> np.ndarray:
+    """Per-level maxima of the realized frontier sizes (the seeds, then
+    each hop's ``num_src``) over ``seed_batches``, each sampled at the
+    ``loose`` caps with ``generator`` under no_grad: the counts that
+    ``observed_caps`` tightens the caps to. ``seed_batches`` yields
+    (seeds, num_seeds) int32 device tensors. Reads the counts on the
+    host: a set-up sync a batch."""
+    fanouts = tuple(fanouts)
+    mx = np.zeros(len(fanouts) + 1, np.int64)
+    with torch.no_grad():
+        for seeds, num in seed_batches:
+            batch = sample_batch(graph, seeds, num, torch.zeros_like(seeds),
+                                 fanouts, loose, generator=generator)
+            counts = torch.stack([batch.num_seeds] + [
+                blk.num_src for blk in batch.blocks]).tolist()
+            mx = np.maximum(mx, counts)
+    return mx
 
 
 def host_frontier_probe(indptr, indices, seed_batches, fanouts, caps,

@@ -10,6 +10,14 @@ Mixed precision as in the reference: parameters stay float32 and are cast
 to the compute dtype at each ``F.linear``; aggregation sums in float32
 inside the kernels. The dense products stay ``F.linear``, as the JAX
 package leaves them to XLA.
+
+``agg`` picks the aggregator, as in the reference's ``AGGREGATORS``:
+``"fanout"`` (default) runs K1 on an identity block and K2 on a gathered
+one; ``"coo_segment"`` is the scatter-based SpMM over the COO edge list
+(``ops/segment.py::segment_mean_coo``, ``index_add_`` in the compute
+dtype) on every block, with no transform-first and the features cast to
+the compute dtype before layer 0. It is the benchmark's baseline and a
+cross-check of the fanout path; the parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ from torch import nn
 
 from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
                                                identity_masked_mean)
-from legion_tpu_torch.ops.segment import fanout_gather_mean
+from legion_tpu_torch.ops.segment import fanout_gather_mean, segment_mean_coo
 from legion_tpu_torch.sampling.block import Block
+
+AGGREGATORS = ("fanout", "coo_segment")
 
 
 def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
@@ -35,12 +45,19 @@ def _lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator]):
                           generator=generator)
 
 
+def _check_agg(agg: str) -> None:
+    if agg not in AGGREGATORS:
+        raise ValueError(f"agg must be one of {AGGREGATORS}, got {agg!r}")
+
+
 class SAGEConv(nn.Module):
     def __init__(self, in_dim: int, out_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, agg: str = "fanout"):
         super().__init__()
+        _check_agg(agg)
         self.out_dim = out_dim
         self.dtype = dtype
+        self.agg = agg
         self.fc_self = nn.Linear(in_dim, out_dim, bias=True)
         self.fc_neigh = nn.Linear(in_dim, out_dim, bias=False)
 
@@ -56,7 +73,10 @@ class SAGEConv(nn.Module):
 
     def forward(self, block: Block, h_src: torch.Tensor) -> torch.Tensor:
         h_dst = h_src[: block.dst_cap]
-        if block.identity_offset is not None:
+        if self.agg == "coo_segment":
+            h_neigh = self._dense(self.fc_neigh,
+                                  segment_mean_coo(h_src, block))
+        elif block.identity_offset is not None:
             # K1: contiguous slot rows, summed in f32, emitted in the
             # compute dtype in the same pass
             agg = identity_masked_mean(h_src, block.nbr_mask,
@@ -91,14 +111,18 @@ class SAGE(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int = 2, dropout: float = 0.5,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 agg: str = "fanout"):
         super().__init__()
+        _check_agg(agg)
         self.num_layers = num_layers
         self.dropout = dropout
         self.dtype = dtype
+        self.agg = agg
         dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.layers = nn.ModuleList(
-            SAGEConv(dims[i], dims[i + 1], dtype) for i in range(num_layers))
+            SAGEConv(dims[i], dims[i + 1], dtype, agg)
+            for i in range(num_layers))
         for layer in self.layers:
             layer.reset_parameters(generator)
 
@@ -113,7 +137,9 @@ class SAGE(nn.Module):
             raise ValueError("dropout needs a generator")
         # An identity first block feeds K1 the raw features, which casts
         # only what it emits: no whole-array cast of the largest tensor.
-        h = x if blocks[0].identity_offset is not None else x.to(self.dtype)
+        # The baseline casts them all, as the reference does.
+        h = (x if self.agg == "fanout"
+             and blocks[0].identity_offset is not None else x.to(self.dtype))
         for i, (layer, block) in enumerate(zip(self.layers, blocks)):
             h = layer(block, h)
             if i != self.num_layers - 1:

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from legion_tpu_torch.cache.hotness import observed_caps
+from legion_tpu_torch.cache.hotness import (observed_caps,
+                                            probe_frontier_maxima)
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.data.format import GraphData, pad_feature_dim
 from legion_tpu_torch.models import build_model
@@ -317,22 +318,20 @@ class Trainer:
         fanouts = tuple(cfg.sampler.fanouts)
         loose = frontier_caps(b, fanouts)
         rng = np.random.default_rng(cfg.train.seed * 7919 + 1)
-        gen = torch.Generator(device=self.device).manual_seed(1000)
         ids = np.asarray(self.shards_train[0])
-        mx = np.zeros(len(fanouts) + 1, np.int64)
-        labels = torch.zeros((b,), dtype=torch.int32, device=self.device)
-        with torch.no_grad():
+
+        def seed_batches():
             for _ in range(cfg.sampler.probe_caps_batches):
                 seeds = rng.permutation(ids)[:b].astype(np.int32)
                 n = len(seeds)
                 seeds = np.pad(seeds, (0, b - n), constant_values=-1)
-                batch = sample_batch(
-                    self.graph, torch.from_numpy(seeds).to(self.device),
-                    torch.tensor(n, dtype=torch.int32, device=self.device),
-                    labels, fanouts, loose, generator=gen)
-                counts = torch.stack([batch.num_seeds] + [
-                    blk.num_src for blk in batch.blocks]).tolist()
-                mx = np.maximum(mx, counts)
+                yield (torch.from_numpy(seeds).to(self.device),
+                       torch.tensor(n, dtype=torch.int32,
+                                    device=self.device))
+
+        mx = probe_frontier_maxima(
+            self.graph, seed_batches(), fanouts, loose,
+            torch.Generator(device=self.device).manual_seed(1000))
         caps = list(observed_caps(mx, cfg.sampler.observed_cap_slack,
                                   align=128))
         caps = [min(c, lo) for c, lo in zip(caps, loose)]

@@ -1,7 +1,8 @@
 """The port must not load JAX: importing legion_tpu_torch and its sampling,
 ops, models, cache, data, train (its command line included), parallel,
-utils and tools modules in a fresh interpreter leaves jax, flax, optax and
-orbax out of sys.modules."""
+utils and tools modules and its benchmark in a fresh interpreter leaves
+jax, flax, optax and orbax out of sys.modules, and bench.py and the root
+tools/ too."""
 
 import os
 import subprocess
@@ -69,11 +70,16 @@ import legion_tpu_torch.tools.partition_cell
 import legion_tpu_torch.data.ogb
 import legion_tpu_torch.tools.parity_ogb
 import legion_tpu_torch.tools.products_cell
+import legion_tpu_torch.bench
+import legion_tpu_torch.tools.bench_kernels
+import legion_tpu_torch.tools.sol_model
 loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
                 if m in sys.modules)
 print("LOADED", loaded)
 print("REFERENCE", sorted(m for m in sys.modules
                           if m.split(".")[0] == "legion_tpu"))
+print("ROOT", sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("bench", "tools")))
 """
 
 
@@ -93,6 +99,13 @@ def test_port_imports_no_jax():
 def test_port_imports_nothing_of_the_reference_package():
     out = _probe()
     assert "REFERENCE []" in out, out
+
+
+def test_port_imports_neither_bench_py_nor_the_root_tools():
+    """The port's benchmark and its tools are its own: bench.py and the
+    root tools/ (whose bench_kernels imports JAX) stay out."""
+    out = _probe()
+    assert "ROOT []" in out, out
 
 
 def test_chip_smoke_imports_only_the_port():
