@@ -41,14 +41,17 @@ exits non-zero:
    K2 on a tiny block with a position past its rows (NaN in exactly the
    plain version's rows, the slot dropped backward);
 4. main path: two training epochs and a validation pass through the
-   ``Trainer``; every kernel's launch count over that run must be > 0
-   but K5's, which SAGE does not reach. Then GCN at the same width on
+   ``Trainer``, whose train and eval steps are captured as CUDA graphs
+   and replayed (``train/graphed.py``; a replay adds the launches its
+   capture recorded to each wrapper's count); every kernel's launch count
+   over that run must be > 0 but K5's, which SAGE does not reach. Then GCN at the same width on
    the same graph, one epoch and a validation pass each in bf16 and in
    float32: finite losses, no cap overflow, one batch's logits against
    the plain versions on the CPU, and exact launch counts (bf16: K1 once
    per train and eval step, K2 forward once per step and backward once
    per train step, K5 never; float32: K5 once per train and eval step,
-   K1 never);
+   K1 never), held again in a ``torch.profiler`` trace of 5 replays of
+   the captured step (each kernel by name);
 5. learning: the reference's verify recipe (50k-node planted-label
    graph, 2 epochs) must reach validation accuracy > 0.15 (7x chance),
    one batch's logits from the kernels must match the plain versions on
@@ -186,6 +189,21 @@ exits non-zero:
    ``tools/bench_kernels.py``, whose ``time_ms`` and ``bound`` this script
    shares), the second reading the caps and baseline memos the first
    wrote. Both lines are printed after the phase's own.
+
+17. captured against eager steps (``"graphed"``, right after phase 4, on
+   its ``Trainer``): beside it a second ``Trainer`` of the same
+   configuration, stepped eagerly (``fns.train_step``). One eager train
+   and eval step under ``torch.cuda.set_sync_debug_mode("error")``; from
+   one state, an epoch (24 steps) both ways with ``edges``, ``frontier``
+   and ``cap_overflow`` equal step for step, losses within 1e-3
+   relative, each parameter tensor within 5e-2 of the distance it moved
+   (two eager runs' difference printed beside it),
+   and equal validation counts from the captured and the eager eval on
+   the same weights; equal launch counts, and 5 replays traced by
+   ``torch.profiler`` showing each kernel as often as 5 eager steps do;
+   then eager against graphed ms/step in alternating trials of 48 steps
+   (median of 3), the host's enqueue time per step, the capture's
+   seconds and the graph pool's bytes.
 
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
@@ -771,6 +789,319 @@ def check_grouped_masked_sum(x, mask, off):
     return rec
 
 
+# the kernel each wrapper launches, by the name a trace of the card shows
+# (K2's backward: its scatter kernel; bf16 adds one cast pass after it)
+TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
+               "gathered_masked_mean": "gathered_agg_kernel",
+               "gathered_masked_mean_backward": "scatter_rows_kernel",
+               "gather_rows": "gather_rows_kernel",
+               "sample_neighbors": "sample_neighbors_kernel",
+               "grouped_masked_sum": "grouped_masked_sum_kernel"}
+
+
+def traced_launches(kernels, fn):
+    """Run ``fn()`` under ``torch.profiler`` (CUDA activity): each wrapper's
+    kernel counted by name among the device events of the trace, the
+    wrappers' own counts over the same call, and the trace's device
+    events in all. Late in a long process the profiler dropped the first
+    device records of its window (the first 22 of 5 replays, every time,
+    in the ``ogb_products`` phase; a 10 ms spin ahead of them did not
+    help), so ``fn`` runs twice in the window: the first run takes what
+    is lost, a spin kernel marks its end, and only the records after the
+    mark, and the launches the wrappers count there, are compared."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1_000_000)              # the mark
+        reset_launches(kernels)
+        fn()
+        torch.cuda.synchronize()
+    counted = read_launches(kernels)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    mark = max(i for i, e in enumerate(events) if "spin_kernel" in e.name)
+    names = [e.name for e in events[mark + 1:]]
+    traced = {k: sum(TRACE_NAMES[k] in n for n in names) for k in kernels}
+    stderr_log(f"traced: {mark} device records before the mark, "
+               f"{len(names)} after it")
+    return traced, counted, len(names)
+
+
+def seed_rows(ids, rows, batch, seed):
+    """(rows, batch) int32 seeds, each row ``batch`` ids of a permutation
+    of ``ids`` (a numpy array) drawn from a CPU generator seeded ``seed``."""
+    import torch
+    ids = torch.as_tensor(ids)
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([ids[torch.randperm(len(ids), generator=gen)[:batch]]
+                        for _ in range(rows)]).int()
+
+
+def trainer_scan(tr, n):
+    """``n`` steps of ``tr``'s ``epoch_scan``, on ``n`` rows of seeds."""
+    seeds = seed_rows(tr.shards_train[0], n, tr.cfg.sampler.batch_size,
+                      seed=17).numpy()
+    return lambda: tr._train_steps(seeds, None)
+
+
+def replays_traced(kernels, scan, n, per_train_step, what):
+    """``n`` replays of a captured train step under the profiler:
+    ``scan()`` runs ``n`` steps of an ``epoch_scan``, once untraced (it
+    captures there if its graph does not serve it yet) and once traced.
+    Every wrapper's kernel must show ``n`` times its launches per eager
+    step (``per_train_step``) in the trace, and the wrappers' bookkeeping
+    must say the same."""
+    scan()
+    traced, counted, events = traced_launches(kernels, scan)
+    want = {k: n * c for k, c in per_train_step.items()}
+    require(traced == want and counted == want,
+            f"{what}: {n} replays traced {traced} and counted {counted} "
+            f"launches, want {want}")
+    return {"replays": n, "traced": traced, "counted": counted,
+            "device_events": events}
+
+
+GRAPHED_TRIAL_STEPS = 48       # steps of each timed trial of the phase
+GRAPHED_TRIALS = 3
+# K2 backward's atomics add in an order that changes from run to run, and
+# bf16 rounds the sums: from one state, with equal sampled edges, a
+# captured and an eager epoch parted by 1.7 % of the distance layer 0's
+# weights moved, and two eager epochs by 1.8 % (26 steps of batch 3000 on
+# the H100); the phase prints both
+GRAPHED_LOSS_RTOL = 1e-3
+GRAPHED_PARAM_RTOL = 5e-2      # of the distance each tensor moved (L2)
+
+
+def graphed(kernels, smi, tr, data):
+    """Phase "graphed": the main path's ``Trainer`` (phase 4's, captured)
+    against a second ``Trainer`` of the same configuration stepped eagerly
+    (``fns.train_step``, one op at a time), at full width.
+
+    (a) One eager train step and one eager eval step under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync.
+    (b) Both trainers from the same state (parameters, Adam's state,
+    generator, step), an epoch of the same seeds: per step ``edges``,
+    ``frontier`` and ``cap_overflow`` exactly equal (the same random
+    stream), losses within ``GRAPHED_LOSS_RTOL`` relative, and every
+    parameter tensor's difference within ``GRAPHED_PARAM_RTOL`` of the
+    distance it moved over the epoch (both L2). Then one validation pass
+    of the captured eval step against the eager eval loop on the same
+    weights: equal (correct, valid) counts.
+    (c) The wrappers' launch counts over the captured epoch equal the
+    eager epoch's; 5 replays traced by ``torch.profiler`` show each
+    kernel 5 times its launches per eager step, as the bookkeeping says.
+    (d) Eager and graphed ms/step in alternating trials of
+    ``GRAPHED_TRIAL_STEPS`` steps (median of ``GRAPHED_TRIALS``), the
+    host's enqueue time per step, the capture's seconds and the graph
+    pool's bytes."""
+    import copy
+    import statistics
+
+    import torch
+
+    from legion_tpu_torch.train.loop import Trainer
+    from legion_tpu_torch.train.train_state import load_optimizer_in_place
+    cfg, dev = tr.cfg, tr.device
+    b = cfg.sampler.batch_size
+    t0 = time.perf_counter()
+    eager = Trainer(cfg, data, device="cuda")
+    init_s = time.perf_counter() - t0
+    require(eager.caps == tr.caps, f"both trainers probe the same caps, "
+            f"{eager.caps} and {tr.caps}")
+
+    def snapshot(t):
+        return (copy.deepcopy(t.model.state_dict()),
+                copy.deepcopy(t.state.optimizer.state_dict()),
+                t.state.generator.get_state(), t.state.step)
+
+    def load(t, snap):
+        t.model.load_state_dict(snap[0])
+        load_optimizer_in_place(t.state.optimizer, copy.deepcopy(snap[1]))
+        t.state.generator.set_state(snap[2])
+        t.state.step = snap[3]
+
+    labels_all = torch.as_tensor(data.labels).int()
+
+    def labels_of(s):
+        return torch.where(s >= 0, labels_all[s.clamp(min=0).long()], -1)
+
+    seeds = seed_rows(tr.shards_train[0], tr.plan.train_steps, b, seed=5)
+    sd, ld = seeds.to(dev), labels_of(seeds).to(dev)
+    seeds = seeds.numpy()
+    nb = torch.tensor(b, dtype=torch.int32, device=dev)
+    vs, vc = (x[0] for x in tr._eval_seeds("valid"))
+    vsd, vcd = torch.as_tensor(vs).to(dev), torch.as_tensor(vc).to(dev)
+    vld = labels_of(torch.as_tensor(vs)).to(dev)
+
+    # (a) no host sync in an eager train or eval step
+    start = snapshot(tr)
+    load(eager, start)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.fns.train_step(eager.state, eager.graph, eager.features, sd[0],
+                             nb, ld[0])
+        eager.fns_eval.eval_step(eager.model, eager.graph, eager.features,
+                                 vsd[0], vcd[0], vld[0],
+                                 generator=eager.eval_generator)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # (b) an epoch both ways from the same state, and eagerly twice: two
+    # eager runs differ by what K2 backward's atomics leave, the floor of
+    # the captured run's difference
+    steps = len(seeds)
+    p0 = start[0]
+
+    def eager_epoch():
+        load(eager, start)
+        reset_launches(kernels)
+        ms = [eager.fns.train_step(eager.state, eager.graph, eager.features,
+                                   sd[i], nb, ld[i]) for i in range(steps)]
+        launches = read_launches(kernels)
+        ms = torch.stack([torch.stack([m[k].double() for k in (
+            "loss", "edges", "frontier", "cap_overflow")])
+            for m in ms]).cpu()
+        return ms, launches, {k: v.detach().clone() for k, v in
+                              eager.model.state_dict().items()}
+
+    eager_m, eager_launches, want = eager_epoch()
+    eager2_m, _, want2 = eager_epoch()
+    reset_launches(kernels)
+    graph_m = tr._train_steps(seeds, None).cpu()
+    graph_launches = read_launches(kernels)
+    got = tr.model.state_dict()
+    require(steps >= 20, f"at least 20 steps compared, got {steps}")
+    for col, name in ((1, "edges"), (2, "frontier"), (3, "cap_overflow")):
+        require(torch.equal(graph_m[:, col], eager_m[:, col])
+                and torch.equal(eager2_m[:, col], eager_m[:, col]),
+                f"captured and eager {name} equal step for step: "
+                f"{graph_m[:, col].tolist()} / {eager_m[:, col].tolist()}")
+
+    def loss_diff(m):
+        return ((m[:, 0] - eager_m[:, 0]).abs()
+                / eager_m[:, 0].abs()).max().item()
+
+    def param_diff(ps):
+        return {k: (ps[k] - want[k]).norm().item()
+                / max((want[k] - p0[k]).norm().item(), 1e-30) for k in p0}
+
+    loss_rel, loss_rel_eager = loss_diff(graph_m), loss_diff(eager2_m)
+    require(loss_rel <= GRAPHED_LOSS_RTOL,
+            f"losses within {GRAPHED_LOSS_RTOL} relative, worst {loss_rel}")
+    param_rel, param_rel_eager = param_diff(got), param_diff(want2)
+    worst_param = max(param_rel.values())
+    require(worst_param <= GRAPHED_PARAM_RTOL,
+            f"parameters within {GRAPHED_PARAM_RTOL} of the distance they "
+            f"moved: {param_rel} (two eager runs: {param_rel_eager})")
+    require(graph_launches == eager_launches,
+            f"the captured epoch's launches {graph_launches} are the eager "
+            f"epoch's {eager_launches}")
+    per_step = {k: Fraction(n, steps) for k, n in eager_launches.items()}
+    require(all(v.denominator == 1 for v in per_step.values()),
+            f"whole launches per eager step: {per_step}")
+    per_step = {k: int(v) for k, v in per_step.items()}
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12345)
+    acc = torch.zeros(2, dtype=torch.float32, device=dev)
+    for t in range(vs.shape[0]):
+        a, c = tr.fns_eval.eval_step(tr.model, tr.graph, tr.features, vsd[t],
+                                     vcd[t], vld[t], generator=gen)
+        acc += torch.stack([a.float(), c.float()])
+    eager_counts = acc.tolist()
+    graph_counts = tr._eval_counts(vs, vc, 12345, None).tolist()
+    require(graph_counts == eager_counts,
+            f"captured eval counts {graph_counts} equal the eager loop's "
+            f"{eager_counts}")
+
+    # (c) 5 replays under the profiler
+    traced = replays_traced(kernels, trainer_scan(tr, 5), 5, per_step,
+                            "main path")
+    eager_traced, _, eager_events = traced_launches(kernels, lambda: [
+        eager.fns.train_step(eager.state, eager.graph, eager.features, sd[i],
+                             nb, ld[i]) for i in range(5)])
+    require(eager_traced == traced["traced"],
+            f"5 eager steps traced {eager_traced}, 5 replays "
+            f"{traced['traced']}")
+
+    # (d) eager against graphed ms/step, same call, alternating trials
+    tseeds = seed_rows(tr.shards_train[0], GRAPHED_TRIAL_STEPS, b, seed=6)
+    tsd, tld = tseeds.to(dev), labels_of(tseeds).to(dev)
+    scan = tr.fns.epoch_scan
+    reserved0 = torch.cuda.memory_reserved()
+    scan(tr.state, tr.graph, tr.features, tsd, tld)   # rows 48 > 24: capture
+    torch.cuda.synchronize()
+    run = scan.runs[False]
+    pool = run.step.pool.handle
+    segments = torch.cuda.memory_snapshot()
+    pool_bytes = sum(s["total_size"] for s in segments
+                     if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+    graph_pools_bytes = sum(s["total_size"] for s in segments
+                            if tuple(s.get("segment_pool_id", (0, 0)))
+                            != (0, 0))
+
+    def eager_trial():
+        t = time.perf_counter()
+        for i in range(GRAPHED_TRIAL_STEPS):
+            eager.fns.train_step(eager.state, eager.graph, eager.features,
+                                 tsd[i], nb, tld[i])
+        host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return host, time.perf_counter() - t
+
+    def graph_trial():
+        t = time.perf_counter()
+        for i in range(GRAPHED_TRIAL_STEPS):
+            run.step()
+        host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return host, time.perf_counter() - t
+
+    run.seeds.copy_(tsd)
+    run.labels.copy_(tld)
+    eager_trial()                                      # warm
+    trials = {"eager": [], "graphed": []}
+    for _ in range(GRAPHED_TRIALS):
+        for name, fn in (("eager", eager_trial), ("graphed", graph_trial)):
+            run.counter.zero_()
+            host, wall = fn()
+            trials[name].append((1e3 * host / GRAPHED_TRIAL_STEPS,
+                                 1e3 * wall / GRAPHED_TRIAL_STEPS))
+    timing = {name: {"ms_per_step": [w for _, w in t],
+                     "median_ms_per_step": statistics.median(
+                         w for _, w in t),
+                     "host_enqueue_ms_per_step": [h for h, _ in t]}
+              for name, t in trials.items()}
+    rec = {"phase": "graphed", "nvidia_smi": smi, "caps": list(tr.caps),
+           "eager_trainer_init_s": init_s, "steps": steps,
+           "edges_equal": True, "frontier_equal": True,
+           "overflow_equal": True, "loss_worst_rel_diff": loss_rel,
+           "loss_rtol": GRAPHED_LOSS_RTOL,
+           "loss_worst_rel_diff_two_eager": loss_rel_eager,
+           "param_worst_rel_to_moved": worst_param,
+           "param_rel_to_moved": param_rel,
+           "param_rel_to_moved_two_eager": param_rel_eager,
+           "param_rtol": GRAPHED_PARAM_RTOL,
+           "eval_counts": graph_counts, "eager_eval_counts": eager_counts,
+           "launches_per_step": per_step, "epoch_launches": graph_launches,
+           "replays_traced": traced, "eager_steps_traced": eager_traced,
+           "eager_device_events": eager_events,
+           "trial_steps": GRAPHED_TRIAL_STEPS, "timing": timing,
+           "capture_s": run.step.capture_s,
+           "pool_bytes": pool_bytes, "graph_pools_bytes": graph_pools_bytes,
+           "reserved_delta_bytes": torch.cuda.memory_reserved() - reserved0,
+           "losses": graph_m[:, 0].tolist(),
+           "eager_losses": eager_m[:, 0].tolist()}
+    emit(rec)
+    del eager
+    return rec
+
+
 def gcn_path(kernels, data, dtype):
     """GCN at full width on the main path's graph through the Trainer: one
     epoch and a validation pass, the launch counts of both, and one eval
@@ -818,6 +1149,10 @@ def gcn_path(kernels, data, dtype):
                 f"{eval_launches[name]}")
     err, scale = logits_vs_cpu(tr, cfg, data.valid_ids[:512],
                                3e-2 if bf16 else 1e-4)
+    # 5 replays of the captured step traced: K1 or K5 as the dtype picks
+    traced = replays_traced(kernels, trainer_scan(tr, 5), 5, {
+        "sample_neighbors": 2, "gather_rows": 1,
+        **{k: nt // t for k, (nt, _) in want.items()}}, f"GCN {dtype}")
     launches = {k: train_launches[k] + eval_launches[k] for k in kernels}
     emit({"phase": f"gcn_{dtype}", "trainer_init_s": init_s,
           "caps": list(tr.caps), "steps": t, "eval_steps": e,
@@ -826,6 +1161,7 @@ def gcn_path(kernels, data, dtype):
           "edges_per_s": rec["edges_per_s"], "valid_acc": valid_acc,
           "train_launches": train_launches, "eval_launches": eval_launches,
           "logits_vs_cpu_max_abs_err": err, "logits_max_abs": scale,
+          "replays_traced": traced,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return launches
 
@@ -1093,8 +1429,10 @@ def mesh_dp(kernels, results, data, smi):
 def cli_runs(smi):
     """Phase "cli": ``python -m legion_tpu_torch.train`` as a user runs it
     on the card, four times: the reference's verify recipe (50k-node
-    planted-label graph, 2 epochs, batch 1024) must reach validation
-    accuracy > 0.15 and print the test line; ``--topology host`` with no
+    planted-label graph, 2 epochs, batch 1024, ``--profile-dir``) must
+    reach validation accuracy > 0.15, print the test line and write epoch
+    0's trace, which must hold kernels and graph launches (the epoch's
+    first step, its capture and the replays of the others); ``--topology host`` with no
     budget (the repaired case) must warn, finish, and report both caches
     empty; ``--devices 2`` on this one-card machine must exit non-zero
     naming the card count; and ``--partitioned --devices 1`` on the
@@ -1113,15 +1451,31 @@ def cli_runs(smi):
         return r, time.perf_counter() - t0
 
     out = {}
-    r, secs = run("--synthetic", "50000", "--epochs", "2", "--batch-size",
-                  "1024")
-    require(r.returncode == 0, f"the verify recipe exits 0: {r.stderr[-2000:]}")
+    os.makedirs(os.path.join(REPO, ".bench_cache"), exist_ok=True)
+    prof_dir = tempfile.mkdtemp(prefix="cli_profile_",
+                                dir=os.path.join(REPO, ".bench_cache"))
+    try:
+        r, secs = run("--synthetic", "50000", "--epochs", "2",
+                      "--batch-size", "1024", "--profile-dir", prof_dir)
+        trace = os.path.join(prof_dir, "epoch_0.pt.trace.json")
+        require(r.returncode == 0 and os.path.exists(trace),
+                f"the verify recipe exits 0 and writes its trace: "
+                f"{r.stderr[-2000:]}")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    profile = {"kernels": sum(e.get("cat") == "kernel" for e in events),
+               "graph_launches": sum("cudaGraphLaunch" in e.get("name", "")
+                                     for e in events)}
+    require(profile["kernels"] > 0 and profile["graph_launches"] > 0,
+            f"epoch 0's trace holds kernels and graph launches: {profile}")
     accs = [float(a) for a in re.findall(r"Val Acc: ([0-9.]+)", r.stdout)]
     require(len(accs) == 2 and accs[-1] > 0.15,
             f"the verify recipe reaches Val Acc > 0.15, got {accs}")
     require("Accuracy on test data" in r.stdout,
             "the verify recipe prints the test line")
-    out["verify"] = {"valid_acc": accs, "seconds": secs,
+    out["verify"] = {"valid_acc": accs, "seconds": secs, "profile": profile,
                      "test_line": r.stdout.strip().splitlines()[-1]}
     r, secs = run("--synthetic", "20000", "--topology", "host", "--epochs",
                   "1", "--batch-size", "1024")
@@ -2483,6 +2837,9 @@ def ogb_products(kernels, results, smi, main_rec):
                     f"against {want_rate}")
             checks = trainer_kernel_checks(tr, data.labels, seed=11)
             record_kernel_checks(results, "ogb_products", checks)
+            # its captured step's replays run what the bookkeeping says
+            traced = replays_traced(kernels, trainer_scan(tr, 5), 5, {
+                k: int(v) for k, v in want_rate.items()}, "ogb_products")
             caps = list(tr.caps)
             del tr, data
             torch.cuda.empty_cache()
@@ -2537,7 +2894,7 @@ def ogb_products(kernels, results, smi, main_rec):
           "train_steps": t_steps, "eval_steps": e_steps,
           "launches": launches, "setup_launches": setup,
           "launches_per_step": {k: str(v) for k, v in got_rate.items()},
-          "kernel_checks": checks,
+          "kernel_checks": checks, "replays_traced": traced,
           "cli": {"seconds": cli_s, "losses": losses,
                   "test_line": r.stdout.strip().splitlines()[-1]}})
     return launches
@@ -2554,8 +2911,10 @@ def bench_phase(kernels, smi, data, main_rec):
     trials) for each variant: ``fanout`` must launch per step exactly what
     the main path launches per step (K1, K2 forward and backward, K3
     once, the sampling kernel twice, K5 never) and ``coo_segment`` K3
-    once and the sampling kernel twice, no K1 or K2; finite losses. (b)
-    The graph saved under a fresh ``--cache-dir`` and ``python -m
+    once and the sampling kernel twice, no K1 or K2; finite losses; and
+    5 replays of a fresh variant's captured step traced: the profiler's
+    kernel counts and the bookkeeping must both be 5 times those launches
+    per step. (b) The graph saved under a fresh ``--cache-dir`` and ``python -m
     legion_tpu_torch.bench --cache-dir <dir>`` run twice at its defaults:
     exactly one stdout line each, with bench.py's keys, finite positive
     ``value`` and ``step_ms``, ``kernel_gate`` "pass"; the first run
@@ -2583,7 +2942,7 @@ def bench_phase(kernels, smi, data, main_rec):
         args = bench.parse_args(["--steps", str(BENCH_STEPS), "--cache-dir",
                                  os.path.join(cache, "in_process")])
         setup = bench.prepare(args, data, log=stderr_log)
-        by_variant, variants = {}, {}
+        by_variant, variants, traced = {}, {}, {}
         for agg in ("fanout", "coo_segment"):
             reset_launches(kernels)
             rec = bench.run_variant(agg, setup, log=stderr_log)
@@ -2596,6 +2955,14 @@ def bench_phase(kernels, smi, data, main_rec):
                     f"bench variant {agg}: finite losses")
             by_variant[f"bench_{agg}"] = launches
             variants[agg] = {**rec, "launches": launches}
+            state, fns = bench.build_variant(agg, setup)
+            traced[agg] = replays_traced(
+                kernels, lambda: fns.epoch_scan(
+                    state, setup.graph, setup.feats, setup.seeds[:5],
+                    setup.labels[:5]),
+                5, {k: int(v) for k, v in want[agg].items()},
+                f"bench {agg}")
+            del state, fns
         caps = setup.caps
         del setup
         torch.cuda.empty_cache()
@@ -2638,6 +3005,7 @@ def bench_phase(kernels, smi, data, main_rec):
               "edges_per_s", "step_ms", "trials_ms_per_step",
               "edges_per_step", "losses", "launches")}
               for agg, v in variants.items()},
+          "replays_traced": traced,
           "graph_save_s": save_s, "cli_s": run_s})
     for line in lines:     # the entry point's own lines, as it printed them
         print(line, flush=True)
@@ -2793,9 +3161,12 @@ def main():
                 "ms_per_step": 1e3 * epochs[-1]["epoch_s"]
                 / epochs[-1]["steps"],
                 "edges_per_s": epochs[-1]["edges_per_s"]}
+    # the same Trainer's captured steps against eager ones
+    announce("graphed")
+    by_path = {"main_path": launches,
+               "graphed": graphed(kernels, smi, tr, data)["epoch_launches"]}
     del tr
     torch.cuda.empty_cache()
-    by_path = {"main_path": launches}
     # the benchmark's entry point on the same graph: its two variants in
     # this process, then its command line twice
     announce("bench")

@@ -10,13 +10,15 @@ batch 8000, bf16 compute with float32 parameters, Adam at lr 0.003, on
 ``data/synthetic.py::bench_graph`` (2,449,029 nodes, ~122M edges, 100
 features padded to 128, 47 classes). The whole step is measured: neighbor
 sampling, dedup and renumbering, the feature gather, forward, backward
-and Adam, each step through ``train/loop.py::make_step_fns``.
+and Adam, every step through ``train/loop.py::make_step_fns``'
+``epoch_scan``: on the card the step is captured once as a CUDA graph
+and replayed, as bench.py times ``jax.jit(epoch_scan)``.
 
 Stage 1 probes the realized frontier sizes on 3 batches at loose caps and
 tightens the static caps to ``--slack`` times the maxima (aligned to 128;
 the last cap is the identity append's exact extent). Stage 2 runs the
-``--steps`` steps once to warm up, then twice timed, and keeps the faster
-trial. A trial's window ends in its one device-to-host fetch; its edges
+``--steps`` steps once to warm up (the capture happens there), then twice
+timed, and keeps the faster trial. A trial's window ends in its one device-to-host fetch; its edges
 are summed as int64 on the host, and a step whose frontier overflowed its
 cap fails the run.
 
@@ -64,6 +66,7 @@ from legion_tpu_torch.data.synthetic import bench_graph
 from legion_tpu_torch.models.sage import SAGE
 from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.sampler import DeviceGraph
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import StepFns, make_step_fns
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 create_train_state)
@@ -76,7 +79,7 @@ DEFAULT_CACHE = os.path.join(os.path.dirname(PACKAGE), ".bench_cache")
 # shared_code_hash list): its memo is stale when one of them changes
 BASELINE_PATH = (
     "bench.py", "sampling/sampler.py", "sampling/block.py", "train/loop.py",
-    "train/train_state.py", "models/sage.py", "ops/segment.py",
+    "train/graphed.py", "train/train_state.py", "models/sage.py", "ops/segment.py",
     "ops/identity_agg.py", "ops/gather.py", "ops/sample.py", "ops/_build.py",
     "csrc/legion_kernels.cu", "cache/hotness.py")
 KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms", "roof_ms",
@@ -238,7 +241,8 @@ def prepare(args: argparse.Namespace, data: Optional[GraphData] = None,
 
 def build_variant(agg: str, setup: Setup) -> Tuple[TrainState, StepFns]:
     """A fresh SAGE with aggregator ``agg`` (weights from ``seed``), its
-    Adam state and the step functions at the probed caps."""
+    Adam state and the step functions at the probed caps, whose scans
+    capture in a pool of their own."""
     cfg = setup.cfg
     model = SAGE(setup.feats.shape[1], cfg.model.hidden_dim,
                  cfg.dataset.num_classes, cfg.model.num_layers,
@@ -247,22 +251,21 @@ def build_variant(agg: str, setup: Setup) -> Tuple[TrainState, StepFns]:
                  agg=agg).to(setup.device)
     state = create_train_state(model, cfg.train.learning_rate, setup.seed,
                                setup.device)
-    return state, make_step_fns(cfg, setup.caps)
+    return state, make_step_fns(cfg, setup.caps,
+                                pool=GraphPool(setup.device))
 
 
 def run_steps(fns: StepFns, state: TrainState,
               setup: Setup) -> torch.Tensor:
-    """Every step of the seeds matrix; returns (last loss, cap overflow,
-    edges of each step) as one float64 host tensor: the window's only
-    device-to-host read. Each step's edges (< 2^24) ride exactly."""
-    num = torch.tensor(setup.seeds.shape[1], dtype=torch.int32,
-                       device=setup.device)
-    per = [fns.train_step(state, setup.graph, setup.feats, setup.seeds[i],
-                          num, setup.labels[i]) for i in range(setup.steps)]
-    overflow = torch.stack([m["cap_overflow"] for m in per]).sum()
-    return torch.cat([
-        torch.stack([per[-1]["loss"].double(), overflow.double()]),
-        torch.stack([m["edges"] for m in per]).double()]).cpu()
+    """Every step of the seeds matrix through ``epoch_scan`` (on the card,
+    a replay of the captured step each, after the first call's capture);
+    returns (last loss, cap overflow, edges of each step) as one float64
+    host tensor: the window's only device-to-host read. Each step's edges
+    (< 2^24) ride exactly."""
+    m = fns.epoch_scan(state, setup.graph, setup.feats, setup.seeds,
+                       setup.labels)
+    return torch.cat([torch.stack([m[-1, 0], m[:, 3].sum()]),
+                      m[:, 1]]).cpu()
 
 
 def run_variant(agg: str, setup: Setup,

@@ -19,8 +19,10 @@ Which path reads each field:
   exchange of ``parallel/feature_exchange.py``).
 * ``sampler``, ``model``: every driver. ``train``: every driver;
   ``pipeline_depth`` the cached trainers (single-device and striped),
-  ``profile_dir`` the ``Trainer`` (epoch 0 under ``torch.profiler``; the
-  other drivers accept it and do not read it, as in the reference).
+  ``profile_dir`` the ``Trainer`` (epoch 0 under ``torch.profiler``: on a
+  card its first step, run eagerly as the capture's warm-up, the capture
+  and the replays of the other steps; the other drivers accept it and do
+  not read it, as in the reference).
 * ``cache``: ``enabled`` the dispatch; ``budget_bytes`` and
   ``cost_model_granularity`` the cost model of the cached, hybrid and
   striped drivers; ``presample_steps`` their presample. ``group_size``:
@@ -126,7 +128,8 @@ class TrainConfig:
     # an epoch.
     checkpoint_every_steps: int = 0
     # When set, the Trainer runs epoch 0 under torch.profiler and writes
-    # its trace into this directory.
+    # its trace into this directory (on a card: its first step, the
+    # capture, then the replays of the other steps).
     profile_dir: Optional[str] = None
 
 

@@ -48,7 +48,13 @@ class MeshTrainer(Trainer):
     (``parallel.feature_exchange.sharded_row_fetch_stats``, at the
     probe-free owner cap), whose capped requests count in
     ``cap_overflow``. On a cache axis of one the stripe is the whole
-    table and the exchange runs through a group of one rank."""
+    table and the exchange runs through a group of one rank.
+
+    Its steps run eagerly, never captured: the gradient's all-reduce (and
+    the striped exchange) cannot be captured over gloo, and a NCCL capture
+    is not ported yet."""
+
+    capture_steps = False
 
     def __init__(self, cfg: Config, data: GraphData,
                  device: torch.device | str, mesh: Optional[Mesh] = None):

@@ -21,8 +21,9 @@ fitted to the step's own time, so the model can disagree with the step:
 They are measured by ``python -m legion_tpu_torch.tools.sol_model
 --measure`` and written below by hand, with the card and the run.
 ``python -m legion_tpu_torch.tools.sol_model --trace`` holds the roof
-against steady steps of the bench under ``torch.profiler``: each stage's
-roof must not exceed the device time of that stage's kernels a step.
+against steady steps of the bench (replays of its captured step) under
+``torch.profiler``: each stage's roof must not exceed the device time of
+that stage's kernels a step.
 
 The stages are the port's step, not the TPU's: draws as index reads on
 a plain CSR (no line descriptors), hop 1's sort dedup (the ``cummax``
@@ -275,34 +276,39 @@ def measure_rates(nodes: int = 2_449_029, batch: int = 8000,
 
 
 def trace_step(cache_dir: str, steps: int = 5, warmup: int = 20) -> Dict:
-    """The bench's main variant under ``torch.profiler`` after ``warmup``
-    steps: each stage's device time per step (the mean of ``steps``)
-    beside its roof at the bench's caps. The graph and caps memos of
+    """The bench's main variant under ``torch.profiler``: ``steps``
+    replays of the captured step (``epoch_scan`` over a ``steps``-row
+    seeds matrix), after ``warmup`` steps whose first scan captures; each
+    stage's device time per step beside its roof at the bench's caps, and
+    the replays' device time by CUDA events; raises when the trace holds
+    no kernel of a stage. The graph and caps memos of
     ``legion_tpu_torch.bench`` in ``cache_dir`` are used or made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from legion_tpu_torch import bench
-    args = bench.parse_args(["--cache-dir", cache_dir,
-                             "--steps", str(warmup + steps)])
+    args = bench.parse_args(["--cache-dir", cache_dir, "--steps", str(steps)])
     setup = bench.prepare(args)
     state, fns = bench.build_variant("fanout", setup)
-    num = torch.tensor(args.batch, dtype=torch.int32, device=setup.device)
 
-    def step(i):
-        return fns.train_step(state, setup.graph, setup.feats,
-                              setup.seeds[i], num, setup.labels[i])["edges"]
+    def scan():
+        return fns.epoch_scan(state, setup.graph, setup.feats, setup.seeds,
+                              setup.labels)[:, 1]
 
-    for i in range(warmup):
-        step(i)
+    for _ in range(-(-warmup // steps)):
+        scan()
     torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        edges = [step(i) for i in range(warmup, warmup + steps)]
+    with profile(activities=acts) as prof:
+        ev[0].record()
+        edges = scan()
+        ev[1].record()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    edges_per_step = float(torch.stack(edges).double().mean())
+    replay_ms = ev[0].elapsed_time(ev[1]) / steps
+    edges_per_step = float(edges.mean())
     by_kernel: Dict[str, float] = {}
     for e in prof.events():
         # device kernels, copies and fills; not the annotations of ranges
@@ -311,8 +317,8 @@ def trace_step(cache_dir: str, steps: int = 5, warmup: int = 20) -> Dict:
                 and not e.is_user_annotation):
             by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                                  + e.time_range.elapsed_us() / 1e3 / steps)
-    if not by_kernel:
-        raise RuntimeError("the trace holds no device time")
+    if not any(stage_of(n) != "elementwise" for n in by_kernel):
+        raise RuntimeError("the replays' trace holds no kernel of a stage")
     traced = {s: 0.0 for s in STAGES}
     for name, ms in by_kernel.items():
         traced[stage_of(name)] += ms
@@ -326,6 +332,7 @@ def trace_step(cache_dir: str, steps: int = 5, warmup: int = 20) -> Dict:
     return {"nvidia_smi": smi(), "caps": list(setup.caps),
             "traced_steps": steps, "edges_per_step": edges_per_step,
             "wall_ms_per_step_traced": wall_ms,
+            "replay_ms_per_step": replay_ms,
             "busy_ms_per_step": sum(by_kernel.values()),
             "stages": {s: {"roof_ms": roof[s], "traced_ms": traced[s],
                            "floor_holds": roof[s] <= traced[s]}

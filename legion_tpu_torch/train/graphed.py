@@ -1,0 +1,320 @@
+"""Captured steps: the port's counterpart of ``jax.jit(epoch_scan)`` and
+``jax.jit(eval_scan)`` in ``legion_tpu/train/loop.py`` (``:220-267``,
+jitted at ``:320-323``).
+
+The reference runs an epoch as one compiled program, a ``lax.scan`` over
+its train step. Here the step is captured once as a CUDA graph and the
+epoch replays it: one graph launch a step in place of the ~231 kernel
+launches PyTorch makes when it dispatches the step op by op.
+
+* **Static inputs.** ``EpochScan`` copies the epoch's seeds and labels
+  once into a static ``(rows, batch)`` buffer (the scan's ``xs``); a
+  device step counter picks the row inside the graph. Uniforms that a
+  test passes are copied into static ``(cap_k, fanout_k)`` buffers before
+  each replay.
+* **Static outputs.** Each step writes its (loss, edges, frontier,
+  cap_overflow) into row ``counter`` of a ``(rows, 4)`` float64 device
+  tensor, so the epoch still has one device->host read.
+* **The warm-up is the first step.** The capturing call runs its step
+  once on a side stream, as PyTorch's whole-network capture recipe warms
+  up: that builds the kernels, makes Adam's state and sets up cuBLAS, and
+  writes the step's row and advances the counter, the generators and
+  Adam as that step should. The capture that follows executes nothing,
+  and replays serve the steps after it.
+* **Randomness.** The generators the step draws from are registered with
+  the graph, so the capture draws nothing from them and each replay
+  advances them as the eager step does.
+* **One pool.** A trainer's train and eval graphs share one memory pool
+  (``GraphPool``): they never run at once, and what outlives a replay
+  (parameters, Adam's state, the static buffers) lives outside it.
+* **Never stale.** A graph belongs to the tensors it was captured on. A
+  scan called on other ones (another state, weights or optimizer tensors
+  that were replaced, another graph or table) drops it and captures anew.
+* **No fallback.** A capture that fails raises.
+* **Off the card** (``GraphPool.captures`` False: the CPU, or no pool)
+  the same static-buffer step runs eagerly, without capture, so the CPU
+  tests run the code that the graph records.
+
+Launch counts: each kernel wrapper counts its Python calls, and a replay
+makes none. A capture records how many launches of each wrapper the step
+holds, takes them back off the counts, and each replay adds them; the
+warm-up's are those of the step it runs, so the counts remain those of
+the steps that ran.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from legion_tpu_torch.ops.gather import gather_rows
+from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
+                                               gathered_masked_mean_backward,
+                                               identity_masked_mean)
+from legion_tpu_torch.ops.sample import sample_neighbors
+from legion_tpu_torch.ops.spmm import grouped_masked_sum
+from legion_tpu_torch.train.train_state import TrainState, state_tensors
+
+# what a train step reports, in the columns of the epoch's metrics
+METRICS = ("loss", "edges", "frontier", "cap_overflow")
+
+# every kernel wrapper; each counts its launches in ``.launches``
+COUNTED = (identity_masked_mean, gathered_masked_mean,
+           gathered_masked_mean_backward, gather_rows, sample_neighbors,
+           grouped_masked_sum)
+
+
+class GraphPool:
+    """The memory pool that a trainer's captured steps share. Capture
+    happens on a CUDA device only (``captures``); elsewhere the steps run
+    eagerly on the same static buffers."""
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self.captures = self.device.type == "cuda"
+        self.handle = torch.cuda.graph_pool_handle() if self.captures else None
+
+
+def warm_up(body: Callable[[], None], device: torch.device) -> None:
+    """One run of ``body`` on a side stream, as PyTorch's capture recipe
+    warms a step up before capturing it."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+def capture(body: Callable[[], None], generators: Sequence[torch.Generator],
+            pool: GraphPool) -> torch.cuda.CUDAGraph:
+    """``body`` captured into a graph in ``pool``, with ``generators``
+    registered so that each replay advances them."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, pool=pool.handle):
+        body()
+    return graph
+
+
+class GraphedStep:
+    """``body()``, a step that reads and writes only tensors that outlive
+    it: its first call runs it (the warm-up) and captures it, every later
+    call replays the capture. ``generators`` are those it draws from.
+    Without a capturing pool every call runs ``body`` eagerly."""
+
+    def __init__(self, body: Callable[[], None], pool: Optional[GraphPool],
+                 generators: Sequence[torch.Generator] = ()):
+        self.body = body
+        self.pool = pool
+        self.generators = tuple(generators)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: List[int] = []     # of each COUNTED wrapper a replay
+        self.capture_s: Optional[float] = None
+
+    @property
+    def captures(self) -> bool:
+        return self.pool is not None and self.pool.captures
+
+    def __call__(self) -> None:
+        if not self.captures:
+            self.body()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            for fn, n in zip(COUNTED, self.launches):
+                fn.launches += n
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        warm_up(self.body, self.pool.device)       # this call's step
+        before = [fn.launches for fn in COUNTED]
+        try:
+            graph = capture(self.body, self.generators, self.pool)
+        finally:
+            self.launches = [fn.launches - b
+                             for fn, b in zip(COUNTED, before)]
+            for fn, b in zip(COUNTED, before):
+                fn.launches = b
+        torch.cuda.synchronize(self.pool.device)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+
+def _row(buf: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """Row ``counter`` of a static buffer, selected on the device (a 0-d
+    tensor used as an index would be read back by the host)."""
+    return buf.index_select(0, counter)[0]
+
+
+def _addresses(tensors) -> Tuple:
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+class _Run:
+    """One scan's static buffers, its step and what it was captured on."""
+
+    def __init__(self, rows: int, batch: int, step: GraphedStep, **buffers):
+        self.rows, self.batch, self.step = rows, batch, step
+        self.ties: Optional[Tuple] = None
+        for name, buf in buffers.items():
+            setattr(self, name, buf)
+
+    def serves(self, steps: int, batch: int, ties: Tuple) -> bool:
+        return steps <= self.rows and batch == self.batch and ties == self.ties
+
+
+def _uniform_buffers(shapes, uniforms, device):
+    if uniforms is None:
+        return None
+    return [torch.empty(s, dtype=torch.float32, device=device)
+            for s in shapes]
+
+
+class _Scan:
+    """What both scans share: a run for steps with and without given
+    uniforms, each kept while it serves the call."""
+
+    def __init__(self, step_fn: Callable, pool: Optional[GraphPool],
+                 uniform_shapes: Sequence[Tuple[int, int]]):
+        self.step_fn = step_fn
+        self.pool = pool
+        self.uniform_shapes = tuple(uniform_shapes)
+        self.runs: Dict[bool, _Run] = {}      # uniforms given? -> run
+
+    def _run(self, uniforms, steps: int, width: int, ties: Tuple,
+             build: Callable[[int], _Run]) -> _Run:
+        key = uniforms is not None
+        run = self.runs.pop(key, None)
+        # valid and test differ in steps: a run serves up to its rows
+        rows = steps if run is None else max(steps, run.rows)
+        if run is not None and not run.serves(steps, width, ties):
+            run = None                # its graph goes before the next capture
+        if run is None:
+            run = build(rows)
+        self.runs[key] = run
+        return run
+
+
+class EpochScan(_Scan):
+    """``epoch_scan(state, graph, feats, seeds_epoch, labels_epoch,
+    uniforms=None)``: every step of the epoch's ``(steps, batch)`` seeds
+    and labels through the train step (``step_fn``, without the host's
+    step count), as the reference's ``epoch_scan``. Updates ``state`` in
+    place, ``state.step`` included, and returns the steps' (loss, edges,
+    frontier, cap_overflow) as a ``(steps, 4)`` float64 device tensor.
+    ``uniforms(step, hop)`` replaces the generator's sampling draws
+    (parity tests; ``step`` is the state's global step), each of shape
+    ``uniform_shapes[hop]``."""
+
+    @staticmethod
+    def _ties(state: TrainState, graph, feats) -> Tuple:
+        hyper = [sorted((k, repr(v)) for k, v in g.items() if k != "params")
+                 for g in state.optimizer.param_groups]
+        return (id(state), id(state.generator), hyper,
+                _addresses(state_tensors(state)),
+                _addresses((graph.indptr, graph.indices, feats)))
+
+    def _build(self, state, graph, feats, rows, batch, uniforms) -> _Run:
+        dev = feats.device
+        seeds = torch.empty((rows, batch), dtype=torch.int32, device=dev)
+        labels = torch.empty_like(seeds)
+        num = torch.full((), batch, dtype=torch.int32, device=dev)
+        counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        metrics = torch.zeros((rows, len(METRICS)), dtype=torch.float64,
+                              device=dev)
+        ubufs = _uniform_buffers(self.uniform_shapes, uniforms, dev)
+        train_step = self.step_fn
+
+        def body():
+            m = train_step(state, graph, feats, _row(seeds, counter), num,
+                           _row(labels, counter), uniforms=ubufs)
+            row = torch.stack([m[k].to(torch.float64) for k in METRICS])
+            metrics.index_copy_(0, counter, row[None])
+            counter.add_(1)
+
+        step = GraphedStep(body, self.pool, (state.generator,))
+        return _Run(rows, batch, step, seeds=seeds, labels=labels,
+                    counter=counter, metrics=metrics, ubufs=ubufs)
+
+    def __call__(self, state: TrainState, graph, feats: torch.Tensor,
+                 seeds_epoch: torch.Tensor, labels_epoch: torch.Tensor,
+                 uniforms: Optional[Callable] = None) -> torch.Tensor:
+        steps, batch = seeds_epoch.shape
+        run = self._run(uniforms, steps, batch,
+                        self._ties(state, graph, feats),
+                        lambda rows: self._build(state, graph, feats, rows,
+                                                 batch, uniforms))
+        run.seeds[:steps].copy_(seeds_epoch)
+        run.labels[:steps].copy_(labels_epoch)
+        run.counter.zero_()
+        for _ in range(steps):
+            if uniforms is not None:
+                for k, buf in enumerate(run.ubufs):
+                    buf.copy_(uniforms(state.step, k))
+            run.step()
+            state.step += 1
+        run.ties = self._ties(state, graph, feats)   # Adam's state exists now
+        return run.metrics[:steps].clone()
+
+
+class EvalScan(_Scan):
+    """``eval_scan(model, graph, feats, seeds_epoch, counts, labels_epoch,
+    generator, uniforms=None)``: every eval step (``step_fn``) of the
+    ``(steps, cap)`` seeds, ``(steps,)`` valid counts and labels, summed
+    as the reference's ``eval_scan`` sums them; returns the (a, b) sums
+    as a (2,) float32 device tensor. ``generator`` draws the samples (the
+    caller seeds it); ``uniforms(step, hop)`` replaces those draws."""
+
+    @staticmethod
+    def _ties(model, graph, feats, generator) -> Tuple:
+        return (id(model), id(generator), _addresses(model.parameters()),
+                _addresses((graph.indptr, graph.indices, feats)))
+
+    def _build(self, model, graph, feats, generator, rows, cap,
+               uniforms) -> _Run:
+        dev = feats.device
+        seeds = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+        labels = torch.empty_like(seeds)
+        counts = torch.empty((rows,), dtype=torch.int32, device=dev)
+        counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+        acc = torch.zeros((2,), dtype=torch.float32, device=dev)
+        ubufs = _uniform_buffers(self.uniform_shapes, uniforms, dev)
+        eval_step = self.step_fn
+
+        def body():
+            a, b = eval_step(model, graph, feats, _row(seeds, counter),
+                             _row(counts, counter), _row(labels, counter),
+                             generator=generator, uniforms=ubufs)
+            acc.add_(torch.stack([a.float(), b.float()]))
+            counter.add_(1)
+
+        step = GraphedStep(body, self.pool, (generator,))
+        return _Run(rows, cap, step, seeds=seeds, labels=labels,
+                    counts=counts, counter=counter, acc=acc, ubufs=ubufs)
+
+    def __call__(self, model, graph, feats: torch.Tensor,
+                 seeds_epoch: torch.Tensor, counts: torch.Tensor,
+                 labels_epoch: torch.Tensor, generator: torch.Generator,
+                 uniforms: Optional[Callable] = None) -> torch.Tensor:
+        steps, cap = seeds_epoch.shape
+        run = self._run(uniforms, steps, cap,
+                        self._ties(model, graph, feats, generator),
+                        lambda rows: self._build(model, graph, feats,
+                                                 generator, rows, cap,
+                                                 uniforms))
+        run.seeds[:steps].copy_(seeds_epoch)
+        run.labels[:steps].copy_(labels_epoch)
+        run.counts[:steps].copy_(counts)
+        run.counter.zero_()
+        run.acc.zero_()
+        for t in range(steps):
+            if uniforms is not None:
+                for k, buf in enumerate(run.ubufs):
+                    buf.copy_(uniforms(t, k))
+            run.step()
+        run.ties = self._ties(model, graph, feats, generator)
+        return run.acc.clone()

@@ -1,15 +1,20 @@
 """End-to-end training driver (port of ``legion_tpu/train/loop.py``, the
 single-device path with every array in device memory).
 
-The reference fuses a whole epoch into one ``lax.scan``; here an epoch is
-a Python loop of ``train_step`` calls. Nothing inside a step reads a
-device value on the host: the loss, edge count and cap overflow of every
-step stay on the device and are fetched once per epoch, so the host runs
-ahead of the device and a later change can capture the step as a CUDA
-graph.
+The reference fuses a whole epoch into one ``lax.scan`` under
+``jax.jit``; here ``make_step_fns`` returns the same two functions,
+``epoch_scan`` and ``eval_scan`` (``train/graphed.py``), beside the
+eager ``train_step`` and ``eval_step``. On a CUDA device the ``Trainer``
+captures its train and eval steps as CUDA graphs and replays them, one
+graph launch a step. Nothing inside a step reads a device value on the
+host: the loss, edge count and cap overflow of every step stay on the
+device and are fetched once per epoch.
 
 With ``train.profile_dir`` set, epoch 0 runs under ``torch.profiler`` and
-its trace is written into that directory.
+its trace is written into that directory. On a CUDA device that trace
+holds the epoch's first step (run eagerly, as the capture's warm-up), the
+capture and the replays of the other steps, as the reference's epoch-0
+trace holds the compile of its jitted epoch.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from legion_tpu_torch.sampling.sampler import (DeviceGraph, gather_features,
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
+from legion_tpu_torch.train.graphed import EpochScan, EvalScan, GraphPool
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 create_train_state,
                                                 restore_checkpoint,
@@ -111,13 +117,19 @@ class StepFns(NamedTuple):
     """Step functions built by make_step_fns."""
     train_step: Callable
     eval_step: Callable
+    epoch_scan: EpochScan
+    eval_scan: EvalScan
 
 
 def make_step_fns(cfg: Config, caps: Sequence[int],
                   reducer: Optional[Callable] = None,
                   feature_fetch: Optional[Callable] = None,
-                  sampler: Optional[Callable] = None) -> StepFns:
-    """Build (train_step, eval_step) for static frontier caps.
+                  sampler: Optional[Callable] = None,
+                  pool: Optional[GraphPool] = None) -> StepFns:
+    """Build (train_step, eval_step, epoch_scan, eval_scan) for static
+    frontier caps. The scans run every step of an epoch from static
+    buffers (``train/graphed.py``): captured as CUDA graphs in ``pool``
+    where it captures, eagerly otherwise (no pool, or the CPU).
 
     Randomness comes from ``state.generator`` (train) or the given
     ``generator`` (eval); parity tests pass per-hop ``uniforms`` instead
@@ -156,11 +168,11 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
                             else generator,
                             uniforms=uniforms)
 
-    def train_step(state: TrainState, graph: DeviceGraph, feats, seeds,
-                   num_seeds, labels,
-                   uniforms=None) -> Dict[str, torch.Tensor]:
-        """One sampled mini-batch: forward, backward and an Adam update of
-        ``state`` in place. Returns the step's metrics as device tensors."""
+    def device_step(state: TrainState, graph: DeviceGraph, feats, seeds,
+                    num_seeds, labels,
+                    uniforms=None) -> Dict[str, torch.Tensor]:
+        """``train_step`` on the device alone: the step the scan captures
+        (the host counts ``state.step``)."""
         batch = sample(graph, seeds, num_seeds, labels, state.generator,
                        uniforms)
         x, fetch_overflow = features(feats, batch.frontier)
@@ -172,7 +184,6 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         if reducer is not None:
             reducer(state.model)
         state.optimizer.step()
-        state.step += 1
         edges = torch.stack([b.num_edges() for b in batch.blocks]).sum(
             dtype=torch.int32)
         # Static caps drop frontier ids beyond capacity, silently thinning
@@ -186,6 +197,16 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         return {"loss": loss.detach(), "edges": edges,
                 "frontier": batch.num_frontier, "cap_overflow": overflow}
 
+    def train_step(state: TrainState, graph: DeviceGraph, feats, seeds,
+                   num_seeds, labels,
+                   uniforms=None) -> Dict[str, torch.Tensor]:
+        """One sampled mini-batch: forward, backward and an Adam update of
+        ``state`` in place. Returns the step's metrics as device tensors."""
+        metrics = device_step(state, graph, feats, seeds, num_seeds, labels,
+                              uniforms)
+        state.step += 1
+        return metrics
+
     @torch.no_grad()
     def eval_step(model, graph: DeviceGraph, feats, seeds, num_seeds, labels,
                   generator=None, uniforms=None):
@@ -197,7 +218,10 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         out = model(tuple(reversed(batch.blocks)), x, deterministic=True)
         return counts_of(out, batch)
 
-    return StepFns(train_step=train_step, eval_step=eval_step)
+    shapes = [(c, f) for c, f in zip(caps, fanouts)]
+    return StepFns(train_step=train_step, eval_step=eval_step,
+                   epoch_scan=EpochScan(device_step, pool, shapes),
+                   eval_scan=EvalScan(eval_step, pool, shapes))
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -229,6 +253,9 @@ class Trainer:
     the saved epoch."""
 
     log_suffix = ""                 # appended to each epoch's log line
+    # the steps are captured as CUDA graphs on a CUDA device (MeshTrainer's
+    # gradient all-reduce is not captured: it runs them eagerly)
+    capture_steps = True
 
     def __init__(self, cfg: Config, data: GraphData,
                  device: torch.device | str, num_shards: int = 1):
@@ -292,12 +319,17 @@ class Trainer:
         if cfg.train.checkpoint_dir:
             restore_checkpoint(cfg.train.checkpoint_dir, self.state,
                                rank=rank, world=world)
+        # the train and eval graphs share one pool; eval draws from a
+        # generator of its own, seeded at each evaluation
+        pool = GraphPool(self.device) if self.capture_steps else None
         self.fns = make_step_fns(
             cfg, self.caps,
             reducer=make_reducer(self.model) if make_reducer else None,
-            feature_fetch=self.feature_fetch)
+            feature_fetch=self.feature_fetch, pool=pool)
         self.fns_eval = make_step_fns(cfg, self.eval_caps,
-                                      feature_fetch=self.feature_fetch)
+                                      feature_fetch=self.feature_fetch,
+                                      pool=pool)
+        self.eval_generator = torch.Generator(device=self.device)
         self.history: list[Dict] = []
 
     # the frontier's rows come from the whole table on the device
@@ -346,26 +378,15 @@ class Trainer:
 
     def _train_steps(self, seeds: np.ndarray,
                      uniforms: Optional[Callable]) -> torch.Tensor:
-        """Train on (steps, batch) seeds; returns the steps' (loss, edges,
-        frontier, cap_overflow) as a (steps, 4) float64 device tensor.
-        ``uniforms(step, hop)`` replaces the generator's sampling draws
-        (parity tests); ``step`` is the state's global step."""
+        """Train on (steps, batch) seeds through ``epoch_scan``; returns
+        the steps' (loss, edges, frontier, cap_overflow) as a (steps, 4)
+        float64 device tensor. ``uniforms(step, hop)`` replaces the
+        generator's sampling draws (parity tests); ``step`` is the state's
+        global step."""
         labels = np.asarray(self.data.labels, np.int32)[seeds]
-        dev = self.device
-        seeds_d = torch.from_numpy(seeds).to(dev)
-        labels_d = torch.from_numpy(labels).to(dev)
-        nb = torch.tensor(self.plan.train_batch, dtype=torch.int32, device=dev)
-        hops = range(len(self.cfg.sampler.fanouts))
-        per_step = []
-        for i in range(self.plan.train_steps):
-            u = (None if uniforms is None
-                 else [uniforms(self.state.step, k) for k in hops])
-            per_step.append(self.fns.train_step(
-                self.state, self.graph, self.features, seeds_d[i], nb,
-                labels_d[i], uniforms=u))
-        return torch.stack([torch.stack([m[k] for m in per_step]).to(
-            torch.float64) for k in ("loss", "edges", "frontier",
-                                     "cap_overflow")], dim=1)
+        return self.fns.epoch_scan(self.state, self.graph, self.features,
+                                   torch.from_numpy(seeds),
+                                   torch.from_numpy(labels), uniforms)
 
     def _epoch_record(self, epoch: int, metrics: torch.Tensor,
                       dt: float) -> Dict:
@@ -416,28 +437,17 @@ class Trainer:
 
     def _eval_counts(self, seeds: np.ndarray, counts: np.ndarray, seed: int,
                      uniforms: Optional[Callable]) -> torch.Tensor:
-        """(correct, valid) summed over (steps, cap) eval seeds, as a
-        float32 device pair; for ``lp_sage`` the (LP loss sum, pairs)."""
+        """(correct, valid) summed over (steps, cap) eval seeds through
+        ``eval_scan``, as a float32 device pair; for ``lp_sage`` the (LP
+        loss sum, pairs). The eval generator restarts from ``seed``."""
         labels_all = np.asarray(self.data.labels)
         lab = np.where(seeds >= 0, labels_all[np.clip(seeds, 0, None)],
                        -1).astype(np.int32)
-        dev = self.device
-        seeds_d = torch.from_numpy(seeds).to(dev)
-        counts_d = torch.from_numpy(counts).to(dev)
-        lab_d = torch.from_numpy(lab).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        hops = range(len(self.cfg.sampler.fanouts))
-        correct = torch.zeros((), dtype=torch.float32, device=dev)
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in range(seeds.shape[0]):
-            u = None if uniforms is None else [uniforms(t, k) for k in hops]
-            a, b = self.fns_eval.eval_step(self.model, self.graph,
-                                           self.features, seeds_d[t],
-                                           counts_d[t], lab_d[t],
-                                           generator=gen, uniforms=u)
-            correct += a
-            total += b
-        return torch.stack([correct, total])
+        self.eval_generator.manual_seed(seed)
+        return self.fns_eval.eval_scan(
+            self.model, self.graph, self.features, torch.from_numpy(seeds),
+            torch.from_numpy(counts), torch.from_numpy(lab),
+            self.eval_generator, uniforms)
 
     def _eval_seeds(self, which: str):
         """Every shard's (seeds, counts) of the valid or test set, in the

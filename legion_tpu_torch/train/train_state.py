@@ -9,6 +9,12 @@ epoch counters, the generator's state) round-trips through ``torch.save``
 into ``<dir>/step_<n>``, so a run killed after a save resumes exactly
 where the saved state stood. A data-parallel run saves every rank's
 generator state (``generators``), and each rank restores its own.
+
+On a CUDA device Adam is ``capturable``: its step counts and bias
+corrections live on the device, so a captured step (``train/graphed.py``)
+replays the whole update. A restore loads into the tensors the state
+already holds wherever their shapes allow, so that a graph captured
+before it goes on reading live buffers.
 """
 
 from __future__ import annotations
@@ -33,9 +39,12 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, learning_rate: float,
                        seed: int, device: torch.device | str) -> TrainState:
     """Adam with optax.adam's update rule (b1 0.9, b2 0.999, eps 1e-8,
-    bias-corrected), the reference optimizer at lr 0.003 by default."""
+    bias-corrected), the reference optimizer at lr 0.003 by default;
+    ``capturable`` on a CUDA device (the same rule, computed on the
+    device)."""
     opt = torch.optim.Adam(model.parameters(), lr=learning_rate,
-                           betas=(0.9, 0.999), eps=1e-8)
+                           betas=(0.9, 0.999), eps=1e-8,
+                           capturable=torch.device(device).type == "cuda")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrainState(model=model, optimizer=opt, generator=gen)
@@ -93,12 +102,43 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, rank: int = 0,
     if len(generators) != world:
         raise ValueError(f"{path} holds the generator states of "
                          f"{len(generators)} rank(s); this run has {world}")
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
-    state.generator.set_state(generators[rank].cpu())
+    state.model.load_state_dict(payload["model"])     # copies in place
+    load_optimizer_in_place(state.optimizer, payload["optimizer"])
+    state.generator.set_state(generators[rank].cpu())  # in place
     state.step = int(payload["step"])
     state.epoch = int(payload["epoch"])
     return state
+
+
+def load_optimizer_in_place(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """``opt.load_state_dict(saved)``, keeping each state tensor ``opt``
+    already holds where the loaded one has its shape, type and device
+    (the value is copied into it), and keeping ``opt``'s own
+    ``capturable`` flag: a checkpoint written with or without it loads
+    into either (the step count goes where the flag wants it)."""
+    saved = dict(saved, param_groups=[
+        dict(g, capturable=cur.get("capturable", False))
+        for g, cur in zip(saved["param_groups"], opt.param_groups)])
+    held = {p: dict(s) for p, s in opt.state.items()}
+    opt.load_state_dict(saved)
+    with torch.no_grad():
+        for p, s in opt.state.items():
+            for k, new in s.items():
+                old = held.get(p, {}).get(k)
+                if (torch.is_tensor(old) and torch.is_tensor(new)
+                        and old.shape == new.shape and old.dtype == new.dtype
+                        and old.device == new.device):
+                    old.copy_(new)
+                    s[k] = old
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor a train step updates in place: the parameters and
+    the optimizer's state (Adam's moments and step counts, once its first
+    step has made them)."""
+    return [*state.model.parameters(),
+            *(v for s in state.optimizer.state.values() for v in s.values()
+              if torch.is_tensor(v))]
 
 
 def maybe_checkpoint_step(train_cfg, state: TrainState, step_index: int,

@@ -127,6 +127,36 @@ def test_code_hash_moves_with_each_file_on_the_path(tmp_path, rel):
     assert bench.code_hash(str(tmp_path)) != before
 
 
+@pytest.mark.parametrize("agg", ["fanout", "coo_segment"])
+def test_run_steps_is_the_eager_step(tmp_path, agg):
+    """``run_steps`` goes through ``epoch_scan`` (on the card a replay of
+    the captured step each): on the CPU its steps are bitwise a loop of
+    the eager ``train_step`` from the same weights and seeds, and a second
+    call reuses the first one's static buffers (on the card, its graph)."""
+    args = bench.parse_args([*TINY, "--cache-dir", str(tmp_path)])
+    setup = bench.prepare(args, log=lambda s: None)
+    state, fns = bench.build_variant(agg, setup)
+    twin, twin_fns = bench.build_variant(agg, setup)
+    assert fns.epoch_scan.pool.device == setup.device
+    got = bench.run_steps(fns, state, setup)
+    num = torch.tensor(setup.seeds.shape[1], dtype=torch.int32)
+    per = [twin_fns.train_step(twin, setup.graph, setup.feats, setup.seeds[i],
+                               num, setup.labels[i])
+           for i in range(setup.steps)]
+    want = torch.cat([
+        torch.stack([per[-1]["loss"].double(),
+                     torch.stack([m["cap_overflow"] for m in per]).sum()
+                     .double()]),
+        torch.stack([m["edges"] for m in per]).double()])
+    assert torch.equal(got, want)
+    for a, b in zip(state.model.parameters(), twin.model.parameters()):
+        assert torch.equal(a, b)
+    run = fns.epoch_scan.runs[False]
+    bench.run_steps(fns, state, setup)
+    assert fns.epoch_scan.runs[False] is run
+    assert state.step == 2 * setup.steps
+
+
 def test_cap_overflow_fails_the_run(tmp_path):
     args = bench.parse_args([*TINY, "--cache-dir", str(tmp_path)])
     setup = bench.prepare(args, log=lambda s: None)

@@ -107,6 +107,50 @@ def test_checkpoint_of_the_one_generator_format_restores(tmp_path):
         restore_checkpoint(ck, _stepped_state(steps=0), rank=1, world=2)
 
 
+def test_a_capturable_checkpoint_round_trips(tmp_path):
+    """On the card Adam is ``capturable`` and its checkpoint says so (and
+    holds each step count as a float32 tensor). Such a file restores into
+    a state whose optimizer is not capturable, as on the CPU, and a
+    non-capturable one into a capturable optimizer: the flag stays the
+    restoring optimizer's, every value round-trips, and the restored
+    state goes on stepping as the saved one does."""
+    ck = str(tmp_path / "ck")
+    state = _stepped_state()
+    path = save_checkpoint(ck, state)
+    payload = torch.load(path, weights_only=True)
+    for g in payload["optimizer"]["param_groups"]:
+        g["capturable"] = True
+    for moments in payload["optimizer"]["state"].values():
+        moments["step"] = torch.as_tensor(moments["step"],
+                                          dtype=torch.float32)
+    torch.save(payload, path)
+    fresh = _stepped_state(seed=5, steps=1)
+    restore_checkpoint(ck, fresh)
+    assert not any(g["capturable"] for g in fresh.optimizer.param_groups)
+    want, got = (s.optimizer.state_dict()["state"] for s in (state, fresh))
+    for i, moments in want.items():
+        for name, v in moments.items():
+            assert torch.equal(torch.as_tensor(got[i][name]),
+                               torch.as_tensor(v)), (i, name)
+    for s in (state, fresh):
+        loss = sum((p * p).sum() for p in s.model.parameters())
+        s.optimizer.zero_grad()
+        loss.backward()
+        s.optimizer.step()
+    for a, b in zip(state.model.parameters(), fresh.model.parameters()):
+        assert torch.equal(a, b)
+    # the other way: a plain checkpoint into a capturable optimizer
+    save_checkpoint(ck, state)
+    cap = _stepped_state(seed=5, steps=0)
+    for g in cap.optimizer.param_groups:
+        g["capturable"] = True
+    restore_checkpoint(ck, cap)
+    assert all(g["capturable"] for g in cap.optimizer.param_groups)
+    for moments in cap.optimizer.state.values():     # 2 steps, then 1
+        assert moments["step"].dtype == torch.float32
+        assert float(moments["step"]) == 3.0
+
+
 def test_latest_checkpoint_takes_the_highest_step(tmp_path):
     ck = str(tmp_path / "ck")
     assert latest_checkpoint(ck) is None             # no directory

@@ -41,6 +41,7 @@ import legion_tpu_torch.train.train_state
 import legion_tpu_torch.sampling.sampler
 import legion_tpu_torch.sampling.seeds
 import legion_tpu_torch.train.loop
+import legion_tpu_torch.train.graphed
 import legion_tpu_torch.config
 import legion_tpu_torch.data.synthetic
 import legion_tpu_torch.tools.ab_trainer
