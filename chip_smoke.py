@@ -205,6 +205,31 @@ exits non-zero:
    (median of 3), the host's enqueue time per step, the capture's
    seconds and the graph pool's bytes.
 
+18. the mesh paths' captured steps (``captured_vs_eager``), run inside
+   ``"mesh_dp"``, the ``hbm_sharded`` part of ``"mesh_striped"`` and
+   ``"mesh_partitioned"`` (exact exchange, then a trainer of the same
+   model and state through the psum exchange, whose 3 all-gathers and 3
+   reduce-scatters a step run through NCCL), each at world size 1 on a
+   NCCL group, whose steps replay CUDA graphs with their collectives
+   inside: the eager twin is the same trainer's ``fns.train_step`` from
+   the same state (loaded in place): one eager train and eval step under
+   ``set_sync_debug_mode("error")``; edges, frontier, cap and halo
+   overflow equal step for step, losses and parameters within phase 17's
+   limits, equal eval counts and launches; the collectives counted after
+   the replays equal to the eager steps' and to the closed forms (one
+   all-reduce of the parameter bytes a step; ``hbm_sharded``: two
+   all-to-alls of ``exact_exchange_bytes``); 5 replays traced, each
+   kernel as bookkept, their NCCL kernels as 5 eager steps' (NCCL runs
+   no kernel on one rank: its collectives there are copies, or nothing
+   for an all-reduce in place; the device-to-device copies are printed,
+   since a graph may run a copy as a kernel); eager and
+   captured ms/step (median of 3 alternating trials of the epoch's
+   steps), host enqueue, capture seconds and pool bytes; and a
+   ``torch.profiler`` trace of 5 steady replays: the device's busy time,
+   idle share and busy time by stage (``replay_profile``). The
+   partitioned record adds the share of the last hop's frontier cap the
+   sampled frontier leaves as padding.
+
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
 pointed at a row no valid slot reads, given as ``padding_idx``; the
@@ -802,13 +827,14 @@ TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
 def traced_launches(kernels, fn):
     """Run ``fn()`` under ``torch.profiler`` (CUDA activity): each wrapper's
     kernel counted by name among the device events of the trace, the
-    wrappers' own counts over the same call, and the trace's device
-    events in all. Late in a long process the profiler dropped the first
-    device records of its window (the first 22 of 5 replays, every time,
-    in the ``ogb_products`` phase; a 10 ms spin ahead of them did not
-    help), so ``fn`` runs twice in the window: the first run takes what
-    is lost, a spin kernel marks its end, and only the records after the
-    mark, and the launches the wrappers count there, are compared."""
+    wrappers' own counts over the same call, and the names of the
+    trace's device events. Late in a long process the profiler dropped
+    the first device records of its window (the first 22 of 5 replays,
+    every time, in the ``ogb_products`` phase; a 10 ms spin ahead of them
+    did not help), so ``fn`` runs twice in the window: the first run
+    takes what is lost, a spin kernel marks its end, and only the records
+    after the mark, and the launches the wrappers count there, are
+    compared."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -827,7 +853,7 @@ def traced_launches(kernels, fn):
     traced = {k: sum(TRACE_NAMES[k] in n for n in names) for k in kernels}
     stderr_log(f"traced: {mark} device records before the mark, "
                f"{len(names)} after it")
-    return traced, counted, len(names)
+    return traced, counted, names
 
 
 def seed_rows(ids, rows, batch, seed):
@@ -855,13 +881,22 @@ def replays_traced(kernels, scan, n, per_train_step, what):
     step (``per_train_step``) in the trace, and the wrappers' bookkeeping
     must say the same."""
     scan()
-    traced, counted, events = traced_launches(kernels, scan)
+    traced, counted, names = traced_launches(kernels, scan)
     want = {k: n * c for k, c in per_train_step.items()}
     require(traced == want and counted == want,
             f"{what}: {n} replays traced {traced} and counted {counted} "
             f"launches, want {want}")
     return {"replays": n, "traced": traced, "counted": counted,
-            "device_events": events}
+            "device_events": len(names), **collective_events(names)}
+
+
+def collective_events(names):
+    """What the collectives leave in a trace: NCCL's kernels, and the
+    device-to-device copies (NCCL's one-rank collectives are copies, or
+    nothing for an all-reduce in place; a graph may run a copy as a
+    kernel)."""
+    return {"nccl_kernels": sum("nccl" in n.lower() for n in names),
+            "memcpy_dtod": sum("Memcpy DtoD" in n for n in names)}
 
 
 GRAPHED_TRIAL_STEPS = 48       # steps of each timed trial of the phase
@@ -1022,9 +1057,10 @@ def graphed(kernels, smi, tr, data):
     # (c) 5 replays under the profiler
     traced = replays_traced(kernels, trainer_scan(tr, 5), 5, per_step,
                             "main path")
-    eager_traced, _, eager_events = traced_launches(kernels, lambda: [
+    eager_traced, _, eager_names = traced_launches(kernels, lambda: [
         eager.fns.train_step(eager.state, eager.graph, eager.features, sd[i],
                              nb, ld[i]) for i in range(5)])
+    eager_events = len(eager_names)
     require(eager_traced == traced["traced"],
             f"5 eager steps traced {eager_traced}, 5 replays "
             f"{traced['traced']}")
@@ -1101,6 +1137,315 @@ def graphed(kernels, smi, tr, data):
     del eager
     return rec
 
+
+MESH_TRIALS = 3               # alternating eager / captured trials
+
+
+def _union_ms(events):
+    """Milliseconds of the device covered by ``events`` (overlaps once)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def replay_profile(run, n):
+    """``n`` replays of the captured step of a scan's ``run`` (n <= its
+    rows; the row counter is reset first) under ``torch.profiler``, run
+    twice in one window and read after a spin-kernel mark (as
+    ``traced_launches``): the device's busy ms a step (the union of its
+    records' spans), the replays' ms a step by CUDA events, the idle
+    share between them, and the busy time by stage of
+    ``tools/sol_model.py`` with the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from legion_tpu_torch.tools.sol_model import stage_of
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    require(n <= run.rows, f"{n} replays fit the run's {run.rows} rows")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run.counter.zero_()
+        for _ in range(n):
+            run.step()
+        run.counter.zero_()
+        torch.cuda._sleep(1_000_000)              # the mark
+        ev[0].record()
+        for _ in range(n):
+            run.step()
+        ev[1].record()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    mark = max(i for i, e in enumerate(events) if "spin_kernel" in e.name)
+    events = events[mark + 1:]
+    busy = _union_ms(events) / n
+    replay = ev[0].elapsed_time(ev[1]) / n
+    by_kernel, stages = {}, {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3 / n
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
+        st = stage_of(e.name)
+        stages[st] = stages.get(st, 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {"replays": n, "busy_ms_per_step": busy,
+            "replay_ms_per_step": replay,
+            "idle_share": 1.0 - busy / replay, "stages_ms": stages,
+            "device_records_per_step": len(events) / n,
+            "top_kernels_ms": [[k[:120], v] for k, v in top]}
+
+
+def captured_vs_eager(kernels, what, fns, fns_eval, state, graph, feats,
+                      seeds, labels, evals, comm_per_step, overflow=None):
+    """The captured train and eval steps of a mesh path (NCCL, world size
+    1) against the same steps run eagerly from the same state. ``fns`` /
+    ``fns_eval``: the path's train and eval ``StepFns`` (their scans
+    capture); ``seeds`` / ``labels``: (steps, b) int32 on the card;
+    ``evals``: (seeds, counts, labels) of a few eval steps;
+    ``comm_per_step``: the closed forms' (calls, bytes) by op kind a
+    train step; ``overflow``: a () device tensor the step adds to (the
+    partitioned path's halo overflow).
+
+    (a) One eager train and one eager eval step under
+    ``torch.cuda.set_sync_debug_mode("error")``.
+    (b) The eager twin: the epoch captured (replays of the scan's graph,
+    or its warm-up and capture first) and eagerly (``fns.train_step``)
+    twice, each from the same state (loaded in place): ``edges``,
+    ``frontier``, ``cap_overflow`` and ``overflow`` equal step for step,
+    losses within ``GRAPHED_LOSS_RTOL``, parameters within
+    ``GRAPHED_PARAM_RTOL`` of the distance they moved (the floor: two
+    eager runs), the launch counts equal, and the collectives counted
+    after the replays equal the eager steps' and the closed forms; the
+    captured eval counts equal the eager loop's.
+    (c) 5 replays traced as ``replays_traced`` checks them (each
+    kernel's traced launches equal to the bookkeeping), their NCCL
+    kernels and device copies equal to 5 eager steps', and the
+    collectives the bookkeeping adds for them equal to 5 steps' closed
+    forms.
+    (d) Eager against captured ms/step in ``MESH_TRIALS`` alternating
+    trials of the epoch's steps, the host's enqueue time, the capture's
+    seconds and the pool's bytes; (e) ``replay_profile`` of 5 replays."""
+    import copy
+    import statistics
+
+    import torch
+
+    from legion_tpu_torch.train.train_state import load_optimizer_in_place
+    from legion_tpu_torch.utils import comm
+    dev = feats.device
+    steps, b = seeds.shape
+    nb = torch.tensor(b, dtype=torch.int32, device=dev)
+    model = state.model
+    vs, vc, vl = evals
+    calls_per_step, bytes_per_step = comm_per_step
+
+    def snapshot():
+        return ({k: v.detach().clone()
+                 for k, v in model.state_dict().items()},
+                copy.deepcopy(state.optimizer.state_dict()),
+                state.generator.get_state(), state.step)
+
+    def load(snap):
+        model.load_state_dict(snap[0])
+        load_optimizer_in_place(state.optimizer, copy.deepcopy(snap[1]))
+        state.generator.set_state(snap[2])
+        state.step = snap[3]
+        if overflow is not None:
+            overflow.zero_()
+
+    def eager_rows(rows):
+        return [fns.train_step(state, graph, feats, seeds[i], nb, labels[i])
+                for i in range(rows)]
+
+    # (a) no host sync in an eager train or eval step
+    start = snapshot()
+    gen = torch.Generator(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager_rows(1)
+        fns_eval.eval_step(model, graph, feats, vs[0], vc[0], vl[0],
+                           generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # (b) captured, eager, eager, each from the same state
+    def epoch(captured):
+        load(start)
+        reset_launches(kernels)
+        comm.reset_counts()
+        if captured:
+            m = fns.epoch_scan(state, graph, feats, seeds, labels)
+        else:
+            m = torch.stack([torch.stack([r[k].double() for k in (
+                "loss", "edges", "frontier", "cap_overflow")])
+                for r in eager_rows(steps)])
+        ov = None if overflow is None else int(overflow)
+        return (m.cpu(), read_launches(kernels),
+                (comm.read_calls(), comm.read_counts()), ov,
+                {k: v.detach().clone() for k, v in model.state_dict().items()})
+
+    graph_m, graph_launches, graph_comm, graph_ov, got = epoch(True)
+    eager_m, eager_launches, eager_comm, eager_ov, want = epoch(False)
+    eager2_m, _, _, _, want2 = epoch(False)
+    for col, name in ((1, "edges"), (2, "frontier"), (3, "cap_overflow")):
+        require(torch.equal(graph_m[:, col], eager_m[:, col])
+                and torch.equal(eager2_m[:, col], eager_m[:, col]),
+                f"{what}: captured and eager {name} equal step for step: "
+                f"{graph_m[:, col].tolist()} / {eager_m[:, col].tolist()}")
+    require(graph_ov == eager_ov,
+            f"{what}: captured and eager overflow {graph_ov} / {eager_ov}")
+    p0 = start[0]
+
+    def loss_diff(m):
+        return ((m[:, 0] - eager_m[:, 0]).abs()
+                / eager_m[:, 0].abs()).max().item()
+
+    def param_diff(ps):
+        return {k: (ps[k] - want[k]).float().norm().item()
+                / max((want[k] - p0[k]).float().norm().item(), 1e-30)
+                for k in p0}
+
+    loss_rel, loss_rel_eager = loss_diff(graph_m), loss_diff(eager2_m)
+    require(loss_rel <= GRAPHED_LOSS_RTOL,
+            f"{what}: losses within {GRAPHED_LOSS_RTOL} relative, worst "
+            f"{loss_rel}")
+    param_rel, param_rel_eager = param_diff(got), param_diff(want2)
+    worst_param = max(param_rel.values())
+    require(worst_param <= GRAPHED_PARAM_RTOL,
+            f"{what}: parameters within {GRAPHED_PARAM_RTOL} of the "
+            f"distance they moved: {param_rel} (two eager: "
+            f"{param_rel_eager})")
+    require(graph_launches == eager_launches,
+            f"{what}: captured launches {graph_launches}, eager "
+            f"{eager_launches}")
+    want_comm = ({k: steps * n for k, n in calls_per_step.items()},
+                 {k: steps * n for k, n in bytes_per_step.items()})
+    require(graph_comm == eager_comm == want_comm,
+            f"{what}: collectives after {steps} steps captured {graph_comm}, "
+            f"eager {eager_comm}, closed forms {want_comm}")
+    per_step = {k: Fraction(n, steps) for k, n in eager_launches.items()}
+    require(all(v.denominator == 1 for v in per_step.values()),
+            f"{what}: whole launches per eager step: {per_step}")
+    per_step = {k: int(v) for k, v in per_step.items()}
+    gen.manual_seed(12345)
+    acc = torch.zeros(2, dtype=torch.float32, device=dev)
+    for t in range(vs.shape[0]):
+        a, c = fns_eval.eval_step(model, graph, feats, vs[t], vc[t], vl[t],
+                                  generator=gen)
+        acc += torch.stack([a.float(), c.float()])
+    eager_counts = acc.tolist()
+    gen.manual_seed(12345)
+    graph_counts = fns_eval.eval_scan(model, graph, feats, vs, vc, vl,
+                                      gen).tolist()
+    require(graph_counts == eager_counts,
+            f"{what}: captured eval counts {graph_counts}, eager "
+            f"{eager_counts}")
+
+    # (c) 5 replays traced, beside 5 eager steps
+    def five():
+        comm.reset_counts()
+        fns.epoch_scan(state, graph, feats, seeds[:5], labels[:5])
+
+    traced = replays_traced(kernels, five, 5, per_step, what)
+    five_comm = (comm.read_calls(), comm.read_counts())
+    want_five = ({k: 5 * n for k, n in calls_per_step.items()},
+                 {k: 5 * n for k, n in bytes_per_step.items()})
+    eager_traced, _, eager_names = traced_launches(kernels,
+                                                   lambda: eager_rows(5))
+    eager_coll = collective_events(eager_names)
+    require(five_comm == want_five,
+            f"{what}: 5 replays bookkept collectives {five_comm}, want "
+            f"{want_five}")
+    # a graph may run a device-to-device copy as a kernel: the copies
+    # are printed, not compared
+    require(eager_traced == traced["traced"]
+            and traced["nccl_kernels"] == eager_coll["nccl_kernels"],
+            f"{what}: 5 eager steps traced {eager_traced} and {eager_coll}, "
+            f"5 replays {traced}")
+
+    # (d) eager against captured ms/step, alternating trials
+    run = fns.epoch_scan.runs[False]
+    rows = min(run.rows, steps)
+    run.seeds[:rows].copy_(seeds[:rows])
+    run.labels[:rows].copy_(labels[:rows])
+
+    def trial(captured):
+        run.counter.zero_()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(rows):
+            if captured:
+                run.step()
+            else:
+                fns.train_step(state, graph, feats, seeds[i], nb, labels[i])
+        host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return 1e3 * host / rows, 1e3 * (time.perf_counter() - t) / rows
+
+    trial(False)                                       # warm
+    trials = {"eager": [], "graphed": []}
+    for _ in range(MESH_TRIALS):
+        for name in ("eager", "graphed"):
+            trials[name].append(trial(name == "graphed"))
+    timing = {name: {"ms_per_step": [w for _, w in t],
+                     "median_ms_per_step": statistics.median(
+                         w for _, w in t),
+                     "host_enqueue_ms_per_step": [h for h, _ in t]}
+              for name, t in trials.items()}
+    pool = run.step.pool.handle
+    pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                     if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+    profile = replay_profile(run, 5)
+    load(start)
+    return {"steps": steps, "edges_equal": True, "frontier_equal": True,
+            "overflow_equal": True, "overflow": graph_ov,
+            "loss_worst_rel_diff": loss_rel,
+            "loss_worst_rel_diff_two_eager": loss_rel_eager,
+            "loss_rtol": GRAPHED_LOSS_RTOL,
+            "param_worst_rel_to_moved": worst_param,
+            "param_worst_rel_to_moved_two_eager": max(
+                param_rel_eager.values()),
+            "param_rtol": GRAPHED_PARAM_RTOL,
+            "eval_counts": graph_counts, "eager_eval_counts": eager_counts,
+            "launches_per_step": per_step,
+            "collectives_per_step": {"calls": calls_per_step,
+                                     "bytes": bytes_per_step},
+            "epoch_collectives": graph_comm,
+            "replays_traced": traced,
+            "eager_steps_traced": {**eager_coll, "kernels": eager_traced},
+            "five_replays_collectives": five_comm,
+            "trial_steps": rows, "timing": timing,
+            "capture_s": run.step.capture_s, "pool_bytes": pool_bytes,
+            "replay_profile": profile,
+            "losses": graph_m[:, 0].tolist(),
+            "eager_losses": eager_m[:, 0].tolist(),
+            "frontier": graph_m[:, 2].tolist()}
+
+
+def mesh_trainer_captured(kernels, what, tr, data, comm_per_step):
+    """``captured_vs_eager`` on a ``MeshTrainer``: an epoch's worth of
+    seed rows of its shard and 3 steps of its validation seeds."""
+    import torch
+    dev = tr.device
+    labels_all = torch.as_tensor(data.labels).int()
+    seeds = seed_rows(tr.shards_train[0], tr.plan.train_steps,
+                      tr.cfg.sampler.batch_size, seed=5)
+    vs, vc = (torch.as_tensor(x[0][:3]) for x in tr._eval_seeds("valid"))
+    vl = torch.where(vs >= 0, labels_all[vs.clamp(min=0).long()], -1)
+    return captured_vs_eager(
+        kernels, what, tr.fns, tr.fns_eval, tr.state, tr.graph, tr.features,
+        seeds.to(dev), labels_all[seeds.long()].to(dev),
+        (vs.to(dev), vc.to(dev), vl.to(dev)), comm_per_step)
 
 def gcn_path(kernels, data, dtype):
     """GCN at full width on the main path's graph through the Trainer: one
@@ -1373,6 +1718,9 @@ def mesh_dp(kernels, results, data, smi):
             buf = torch.zeros(pb // 4, dtype=torch.float32, device="cuda")
             allreduce_ms = time_ms(lambda: dist.all_reduce(buf))
             steady = tr.train_one_epoch(1)
+            captured = mesh_trainer_captured(
+                kernels, "mesh_dp", tr, data,
+                ({"all_reduce": 1}, {"all_reduce": pb}))
         finally:
             dist.destroy_process_group()
     t, e = rec["steps"], tr.plan.valid_steps
@@ -1420,7 +1768,7 @@ def mesh_dp(kernels, results, data, smi):
           "param_bytes": pb, "allreduce_ms": allreduce_ms,
           "step_counts": step_counts, "epoch_counts": epoch_counts,
           "train_launches": train_launches, "eval_launches": eval_launches,
-          "kernel_checks": checks,
+          "kernel_checks": checks, "captured": captured,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return ({k: train_launches[k] + eval_launches[k] for k in kernels},
             rec["losses"], 1e3 * steady["epoch_s"] / t)
@@ -2043,6 +2391,13 @@ def mesh_sharded(kernels, data, dp_losses, dp_ms):
                 generator=torch.Generator(device=dev).manual_seed(6))
             k3 = check_exchange(tr.features, batch.frontier, tr.mesh.group)
             backend = dist.get_backend()
+            a2a_step = comm.exact_exchange_bytes(
+                tr.caps[-1], 1, tr.features.shape[1])["all_to_all"]
+            captured = mesh_trainer_captured(
+                kernels, "mesh_striped hbm_sharded", tr, data,
+                ({"all_reduce": 1, "all_to_all": 2},
+                 {"all_reduce": comm.param_bytes(tr.model),
+                  "all_to_all": a2a_step}))
         finally:
             dist.destroy_process_group()
     t = rec["steps"]
@@ -2066,7 +2421,8 @@ def mesh_sharded(kernels, data, dp_losses, dp_ms):
             "ms_per_step": 1e3 * steady["epoch_s"] / t,
             "mesh_dp_ms_per_step": dp_ms, "epoch_counts": counts,
             "epoch_calls": calls, "launches": launches,
-            "kernel_checks": {"gather_rows": k3}}, launches
+            "kernel_checks": {"gather_rows": k3},
+            "captured": captured}, launches
 
 
 def _phase_log(lines):
@@ -2477,6 +2833,8 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
             px = psum.fetch(shard.feat_rows, pbatch.frontier)
             torch.cuda.synchronize()
             psum_counts = comm.read_counts()
+            # the captured steps against eager ones, through both exchanges
+            captured = partitioned_captured(kernels, res, data, cfg, psum)
         finally:
             dist.destroy_process_group()
     rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
@@ -2581,6 +2939,7 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
           "num_frontier": num_frontier,
           "psum_counts": psum_counts,
           "logits_vs_cpu_max_abs_err": logit_err, "logits_max_abs": scale,
+          "captured": captured,
           "kernel_checks": {"sample_neighbors_hops": hops, "gather_rows": k3,
                             "k2_layer1": {"forward": fwd, "backward": bwd},
                             "k2_layer0_shape_not_on_path": {
@@ -2588,6 +2947,56 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
           "peak_mem_gb": peak, "peak_host_rss_gb": rss_gb})
     return launches
 
+
+def partitioned_captured(kernels, res, data, cfg, psum_path):
+    """``captured_vs_eager`` on the partitioned run ``res`` (the exact
+    exchange, one rank: the gradient's all-reduce is its one collective
+    a step) and on a trainer of the same model and state through the
+    psum exchange ``psum_path`` (its all-gathers and reduce-scatters, 3
+    each a step, through NCCL), each on ``pa_cell.STEPS`` rows of train
+    seeds and 3 steps of the validation schedule; with the share of the
+    last hop's frontier cap that the sampled frontier fills (the rest is
+    padding the step carries)."""
+    import torch
+
+    from legion_tpu_torch.parallel.multihost import PartitionedTrainer
+    from legion_tpu_torch.tools import pa_cell
+    from legion_tpu_torch.train.graphed import GraphPool
+    from legion_tpu_torch.train.partitioned_driver import eval_chunks
+    from legion_tpu_torch.utils import comm
+    tr, state = res["trainer"], res["state"]
+    shard = tr.path.shard
+    dev = shard.owned_ids.device
+    labels_all = torch.as_tensor(data.labels).int()
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, cfg.sampler.batch_size,
+                      seed=7)
+    vs, vc, _ = eval_chunks(data.valid_ids, res["partition"], 1,
+                            cfg.sampler.eval_batch_size)
+    vs, vc = torch.as_tensor(vs[0][:3]), torch.as_tensor(vc[0][:3])
+    vl = torch.where(vs >= 0, labels_all[vs.clamp(min=0).long()], -1)
+    args = (state, shard, shard.feat_rows, seeds.to(dev),
+            labels_all[seeds.long()].to(dev),
+            (vs.to(dev), vc.to(dev), vl.to(dev)))
+    pb = comm.param_bytes(state.model)
+    d = shard.feat_rows.shape[1]
+    exact = captured_vs_eager(kernels, "mesh_partitioned", tr.fns,
+                              tr.fns_eval, *args,
+                              ({"all_reduce": 1}, {"all_reduce": pb}),
+                              overflow=tr.path.overflow)
+    ptr = PartitionedTrainer(cfg, state.model, psum_path, tr.caps,
+                             tr.eval_caps, GraphPool(dev))
+    per = comm.psum_exchange_bytes(tr.caps[-1], 1, d)
+    for c, f in zip(tr.caps, cfg.sampler.fanouts):
+        per = {k: v + per[k]
+               for k, v in comm.psum_exchange_bytes(c, 1, f).items()}
+    psum = captured_vs_eager(
+        kernels, "mesh_partitioned psum", ptr.fns, ptr.fns_eval, *args,
+        ({"all_reduce": 1, "all_gather": 3, "reduce_scatter": 3},
+         {"all_reduce": pb, **per}), overflow=psum_path.overflow)
+    fill = [f / tr.caps[-1] for f in exact["frontier"]]
+    return {"exact": exact, "psum": psum,
+            "last_hop_frontier_fill": fill,
+            "last_hop_padding_share": 1.0 - sum(fill) / len(fill)}
 
 def mesh_partitioned_k2(smi):
     """Phase "mesh_partitioned_k2": ``legion_tpu_torch.tools.partition_cell``

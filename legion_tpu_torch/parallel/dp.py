@@ -13,16 +13,30 @@ buffer, sums it over the ranks in one ``all_reduce`` through the counting
 wrapper, divides by the world size and copies the result back.
 ``DistributedDataParallel`` is not used: its buckets decide the number of
 all-reduces.
+
+``make_dp_epoch_fns`` builds a rank's step functions, the counterpart of
+the reference's ``make_dp_train_step`` and ``make_dp_epoch_fns``: where
+the reference compiles each epoch into one ``jit(shard_map(lax.scan))``
+program, the port captures the step, the gradient's all-reduce inside
+it, as a CUDA graph on a NCCL group and replays it
+(``train/graphed.py``). ``GradMean``'s flat buffer and its views are
+allocated once, outside the step, and the gradients in the graph's pool.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from legion_tpu_torch.parallel.feature_exchange import stripe_rows
+from legion_tpu_torch.config import Config
+from legion_tpu_torch.parallel.feature_exchange import (
+    sharded_row_fetch_stats, stripe_rows)
 from legion_tpu_torch.parallel.mesh import Mesh
+from legion_tpu_torch.train.graphed import GraphPool
+from legion_tpu_torch.train.loop import StepFns, make_step_fns
 from legion_tpu_torch.train.train_state import TrainState, save_checkpoint
 from legion_tpu_torch.utils import comm
 
@@ -68,3 +82,24 @@ class GradMean:
         self.flat.div_(self.world)
         for p, v in zip(self.params, self.views):
             p.grad.copy_(v)
+
+
+def make_dp_epoch_fns(cfg: Config, model: torch.nn.Module,
+                      caps: Sequence[int], mesh: Mesh,
+                      sharded_features: bool = False,
+                      pool: Optional[GraphPool] = None) -> StepFns:
+    """This rank's step functions at ``caps`` (``train.loop.StepFns``):
+    the train step averages ``model``'s gradients over the ranks
+    (``GradMean``), and with ``sharded_features`` every step fetches the
+    frontier's rows from the table striped over ``mesh``'s cache group
+    (``sharded_row_fetch_stats`` at the probe-free owner cap, its capped
+    requests counted in ``cap_overflow``). ``epoch_scan`` and
+    ``eval_scan`` are the reference's ``jit_epoch`` and
+    ``jit_eval_scan``: captured in ``pool`` where it captures
+    (``parallel.mesh.captures_steps``), eager otherwise."""
+    fetch = None
+    if sharded_features:
+        def fetch(feats, frontier):
+            return sharded_row_fetch_stats(feats, frontier, mesh.group)
+    return make_step_fns(cfg, caps, reducer=GradMean(model),
+                         feature_fetch=fetch, pool=pool)

@@ -24,6 +24,11 @@ asked for by name (``share_device=True``): every rank takes ``cuda:0``,
 the group runs gloo, and ``utils.comm`` stages each collective's CUDA
 tensors through host memory. It shows behaviour across ranks, not speed;
 NCCL is never used in it.
+
+``captures_steps`` says whether a rank's steps, collectives and all, are
+captured as CUDA graphs (``train/graphed.py``): on a NCCL group only.
+Gloo cannot be captured, so CPU ranks and the share-device mode run the
+same steps eagerly.
 """
 
 from __future__ import annotations
@@ -95,6 +100,13 @@ def backend_for(device_type: str, share_device: bool = False) -> str:
         return "gloo"
     raise ValueError(f"device type must be 'cuda' or 'cpu', got "
                      f"{device_type!r}")
+
+
+def captures_steps(device: torch.device | str) -> bool:
+    """Whether this rank captures its steps: its device is a CUDA device
+    and its process group runs NCCL (the share-device mode runs gloo)."""
+    return (torch.device(device).type == "cuda"
+            and dist.get_backend() == "nccl")
 
 
 def check_world(world: int, device_type: str,

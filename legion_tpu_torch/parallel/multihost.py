@@ -18,6 +18,15 @@ The draw grid is the reference's: each rank draws one (k * M, fanout)
 float32 grid a hop (M the hop's frontier cap) from its state's generator
 in training and from a generator of its own in eval; parity tests hand
 the grids in instead (``uniforms``).
+
+An epoch and an eval pass run through the step functions' ``epoch_scan``
+and ``eval_scan`` (``make_partitioned_epoch_fns``, the counterpart of the
+reference's ``make_partitioned_train_step`` / ``make_partitioned_epoch_fns``
+and its ``_partitioned_step_fns``' scans): on a NCCL group each step is
+captured as a CUDA graph, its collectives inside, and replayed
+(``train/graphed.py``); under gloo the same static-buffer step runs
+eagerly. ``HaloPath.overflow`` is added to in place inside the step, so
+replays keep accumulating it.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from legion_tpu_torch.parallel.halo import (
     partitioned_sample_hop, partitioned_sample_hop_exact)
 from legion_tpu_torch.sampling.block import SampledBatch
 from legion_tpu_torch.sampling.sampler import grow_frontier
-from legion_tpu_torch.train.loop import make_step_fns
+from legion_tpu_torch.train.graphed import GraphPool
+from legion_tpu_torch.train.loop import StepFns, make_step_fns
 from legion_tpu_torch.utils import comm
 
 
@@ -122,50 +132,60 @@ class HaloPath:
         return x
 
 
+def make_partitioned_epoch_fns(cfg: Config, model: torch.nn.Module,
+                               path: HaloPath, caps: Sequence[int],
+                               pool: Optional[GraphPool] = None) -> StepFns:
+    """The partitioned path's step functions at the frontier caps ``caps``
+    (``train.loop.StepFns``): ``path``'s sampler and feature fetch, and
+    ``dp.GradMean`` averaging ``model``'s gradients in the train step.
+    ``epoch_scan`` and ``eval_scan`` are the reference's ``jit_epoch`` and
+    ``jit_eval_scan``, each hop's uniforms a (k * cap, fanout) grid:
+    captured in ``pool`` where it captures
+    (``parallel.mesh.captures_steps``), eager otherwise."""
+    fanouts = tuple(cfg.sampler.fanouts)
+    return make_step_fns(cfg, caps, reducer=GradMean(model),
+                         feature_fetch=path.fetch,
+                         sampler=path.sampler(fanouts, caps), pool=pool,
+                         uniform_shapes=[(path.k * c, f)
+                                         for c, f in zip(caps, fanouts)])
+
+
+def _int32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
 class PartitionedTrainer:
     """The train and eval steps of the partitioned path over ``path``'s
-    ranks (``dp.GradMean`` averaging ``model``'s gradients), at the loose
-    frontier caps ``caps`` (train) and ``eval_caps``."""
+    ranks (``make_partitioned_epoch_fns``), at the loose frontier caps
+    ``caps`` (train) and ``eval_caps``, captured in ``pool`` where it
+    captures."""
 
     def __init__(self, cfg: Config, model: torch.nn.Module, path: HaloPath,
-                 caps: Sequence[int], eval_caps: Sequence[int]):
-        fanouts = tuple(cfg.sampler.fanouts)
+                 caps: Sequence[int], eval_caps: Sequence[int],
+                 pool: Optional[GraphPool] = None):
         self.path = path
-        self.hops = range(len(fanouts))
         self.caps, self.eval_caps = tuple(caps), tuple(eval_caps)
-        self.fns = make_step_fns(cfg, caps, reducer=GradMean(model),
-                                 feature_fetch=path.fetch,
-                                 sampler=path.sampler(fanouts, caps))
-        self.fns_eval = make_step_fns(cfg, eval_caps,
-                                      feature_fetch=path.fetch,
-                                      sampler=path.sampler(fanouts, eval_caps))
+        self.fns = make_partitioned_epoch_fns(cfg, model, path, caps, pool)
+        self.fns_eval = make_partitioned_epoch_fns(cfg, model, path,
+                                                   eval_caps, pool)
 
     def run_epoch(self, state, seeds: np.ndarray, labels: np.ndarray,
                   uniforms: Optional[Callable] = None) -> Dict:
-        """Train this rank's (steps, b) seeds in lockstep with the others.
-        ``uniforms(step, hop)`` gives the grids (``step`` the state's
-        global step). Returns the figures of all ranks: per-step mean
-        loss, the epoch's edges, frontier-cap and halo overflow."""
-        dev = self.path.shard.owned_ids.device
+        """Train this rank's (steps, b) seeds in lockstep with the others
+        through ``epoch_scan``. ``uniforms(step, hop)`` gives the grids
+        (``step`` the state's global step). Returns the figures of all
+        ranks: per-step mean loss, the epoch's edges, frontier-cap and
+        halo overflow."""
         shard = self.path.shard
-        seeds_d = torch.from_numpy(np.ascontiguousarray(seeds)).to(dev)
-        labels_d = torch.from_numpy(
-            np.ascontiguousarray(labels, np.int32)).to(dev)
-        nb = torch.tensor(seeds.shape[1], dtype=torch.int32, device=dev)
         self.path.overflow.zero_()
-        per_step = []
-        for i in range(seeds.shape[0]):
-            u = (None if uniforms is None
-                 else [uniforms(state.step, h) for h in self.hops])
-            per_step.append(self.fns.train_step(
-                state, shard, shard.feat_rows, seeds_d[i], nb, labels_d[i],
-                uniforms=u))
-        steps = len(per_step)
-        m = torch.stack([torch.stack([s[key] for s in per_step]).to(
-            torch.float64) for key in ("loss", "edges", "cap_overflow")], 1)
-        # the epoch's one device -> host read, summed over the ranks
+        m = self.fns.epoch_scan(state, shard, shard.feat_rows, _int32(seeds),
+                                _int32(labels), uniforms)
+        steps = m.shape[0]
+        # loss, edges and cap_overflow of every step, and the epoch's halo
+        # overflow: the epoch's one device -> host read, summed over ranks
         packed = comm.all_reduce(torch.cat([
-            m.reshape(-1), self.path.overflow.to(torch.float64)[None]])).cpu()
+            m[:, [0, 1, 3]].reshape(-1),
+            self.path.overflow.to(torch.float64)[None]])).cpu()
         m = packed[:-1].reshape(steps, 3)
         losses = (m[:, 0] / self.path.k).to(torch.float32).numpy()
         return {"losses": losses.tolist(), "steps": steps,
@@ -180,26 +200,15 @@ class PartitionedTrainer:
                     uniforms: Optional[Callable] = None):
         """(correct, valid, halo overflow) of this rank's (steps, cap) eval
         seeds, summed over the ranks (``lp_sage``: LP loss sum and valid
-        pairs). ``uniforms(step, hop)`` gives the grids."""
-        dev = self.path.shard.owned_ids.device
+        pairs). ``uniforms(step, hop)`` gives the grids. Through
+        ``eval_scan``, which sums in float32 as the reference's does."""
         shard = self.path.shard
-        seeds_d = torch.from_numpy(np.ascontiguousarray(seeds)).to(dev)
-        counts_d = torch.from_numpy(
-            np.ascontiguousarray(counts, np.int32)).to(dev)
-        labels_d = torch.from_numpy(
-            np.ascontiguousarray(labels, np.int32)).to(dev)
         self.path.overflow.zero_()
-        acc = torch.zeros(2, dtype=torch.float64, device=dev)
-        for t in range(seeds.shape[0]):
-            u = (None if uniforms is None
-                 else [uniforms(t, h) for h in self.hops])
-            a, b = self.fns_eval.eval_step(model, shard, shard.feat_rows,
-                                           seeds_d[t], counts_d[t],
-                                           labels_d[t], generator=generator,
-                                           uniforms=u)
-            acc += torch.stack([a, b]).to(torch.float64)
+        acc = self.fns_eval.eval_scan(model, shard, shard.feat_rows,
+                                      _int32(seeds), _int32(counts),
+                                      _int32(labels), generator, uniforms)
         c, n, ov = comm.all_reduce(torch.cat([
-            acc, self.path.overflow.to(torch.float64)[None]])).tolist()
+            acc, self.path.overflow[None]]).to(torch.float64)).tolist()
         return c, n, int(ov)
 
 

@@ -13,8 +13,9 @@ command line uses). Each rank draws its own batch of
 lockstep seed plan, trains it, and ``dp.GradMean`` averages the gradients
 in one all-reduce a step. The caps are the loose ``frontier_caps``, as in
 the reference (no probe). Rank r's generator draws its own stream
-(``train.loop.rank_seed``: rank 0's is the ``Trainer``'s). The step's
-metrics stay on the device; one small all-reduce an epoch sums them over
+(``train.loop.rank_seed``: rank 0's is the ``Trainer``'s). The step
+functions are ``dp.make_dp_epoch_fns``'. The step's metrics stay on the
+device; one small all-reduce an epoch sums them over
 the ranks (the loss is then divided by the world size), and one more an
 evaluation sums the eval counts.
 """
@@ -29,12 +30,12 @@ import torch
 
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.data.format import GraphData
-from legion_tpu_torch.parallel.dp import (GradMean, put_striped_features,
+from legion_tpu_torch.parallel.dp import (make_dp_epoch_fns,
+                                          put_striped_features,
                                           save_every_rank)
-from legion_tpu_torch.parallel.feature_exchange import sharded_row_fetch_stats
-from legion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from legion_tpu_torch.parallel.mesh import Mesh, captures_steps, make_mesh
 from legion_tpu_torch.sampling.seeds import epoch_train_seeds
-from legion_tpu_torch.train.loop import Trainer, rank_seed
+from legion_tpu_torch.train.loop import StepFns, Trainer, rank_seed
 from legion_tpu_torch.utils import comm
 
 
@@ -50,11 +51,18 @@ class MeshTrainer(Trainer):
     ``cap_overflow``. On a cache axis of one the stripe is the whole
     table and the exchange runs through a group of one rank.
 
-    Its steps run eagerly, never captured: the gradient's all-reduce (and
-    the striped exchange) cannot be captured over gloo, and a NCCL capture
-    is not ported yet."""
+    On a NCCL group its train and eval steps are captured as CUDA graphs
+    with their collectives inside (the gradient's all-reduce, the
+    exchange's two all-to-alls), and every later step replays them, as
+    the reference runs each epoch as one ``jit(shard_map(scan))``
+    program (``make_dp_epoch_fns``); under gloo (the CPU, the
+    share-device mode) the same static-buffer steps run eagerly. The
+    epoch's metrics all-reduce and the eval counts' run outside the
+    graphs, one each."""
 
-    capture_steps = False
+    @property
+    def capture_steps(self) -> bool:
+        return captures_steps(self.device)
 
     def __init__(self, cfg: Config, data: GraphData,
                  device: torch.device | str, mesh: Optional[Mesh] = None):
@@ -66,13 +74,14 @@ class MeshTrainer(Trainer):
         self.mesh = mesh
         self.sharded_features = (
             cfg.dataset.feature_placement == "hbm_sharded")
-        if self.sharded_features:
-            self.feature_fetch = lambda feats, frontier: (
-                sharded_row_fetch_stats(feats, frontier, mesh.group))
         self.rank = mesh.rank
         self.log_suffix = f" [mesh {mesh.shape}]"
         self._setup(cfg, data, device, mesh.world, probe=False,
-                    rank=mesh.rank, world=mesh.world, make_reducer=GradMean)
+                    rank=mesh.rank, world=mesh.world)
+
+    def _step_fns(self, caps, pool) -> StepFns:
+        return make_dp_epoch_fns(self.cfg, self.model, caps, self.mesh,
+                                 self.sharded_features, pool)
 
     def _place_features(self, feats: np.ndarray) -> torch.Tensor:
         if self.sharded_features:

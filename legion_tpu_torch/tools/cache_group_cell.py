@@ -39,6 +39,7 @@ from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
                                      SamplerConfig, TrainConfig)
 from legion_tpu_torch.data.synthetic import random_power_law_graph
 from legion_tpu_torch.parallel import mesh
+from legion_tpu_torch.parallel.feature_exchange import sharded_row_fetch_stats
 from legion_tpu_torch.parallel.trainer import MeshTrainer
 from legion_tpu_torch.sampling.sampler import sample_batch
 from legion_tpu_torch.train.striped_driver import run_striped_training
@@ -159,8 +160,8 @@ def run_rank(device: torch.device, out_path: str, small: bool) -> None:
                                 "seconds": time.perf_counter() - t0}
         batch = _one_batch(data, mt.graph, cfgs["sharded"], mt.caps, device)
         comm.reset_counts()
-        x_by_k["sharded"][k] = mt.feature_fetch(mt.features,
-                                                batch.frontier)[0].cpu()
+        x_by_k["sharded"][k] = sharded_row_fetch_stats(
+            mt.features, batch.frontier, m.group)[0].cpu()
         bytes_by_k[("sharded", k)] = (
             comm.read_counts(), comm.exact_exchange_bytes(
                 batch.frontier.shape[0], k, mt.features.shape[1],

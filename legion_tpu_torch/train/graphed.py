@@ -39,7 +39,17 @@ Launch counts: each kernel wrapper counts its Python calls, and a replay
 makes none. A capture records how many launches of each wrapper the step
 holds, takes them back off the counts, and each replay adds them; the
 warm-up's are those of the step it runs, so the counts remain those of
-the steps that ran.
+the steps that ran. The collectives' bytes and calls (``utils/comm.py``)
+are kept the same way.
+
+Collectives inside a step (the data-parallel and partitioned paths,
+``parallel/``) are captured on a NCCL group only
+(``parallel.mesh.captures_steps``): the warm-up makes the step's NCCL
+communicators, on its side stream, before anything is captured, and
+``torch.cuda.graph`` synchronizes the device before it captures, so no
+NCCL work from before the capture is pending. The default (global)
+capture mode serves: NCCL's watchdog thread does not break it, also
+right after eager NCCL work. Over gloo the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
 from legion_tpu_torch.ops.sample import sample_neighbors
 from legion_tpu_torch.ops.spmm import grouped_masked_sum
 from legion_tpu_torch.train.train_state import TrainState, state_tensors
+from legion_tpu_torch.utils import comm
 
 # what a train step reports, in the columns of the epoch's metrics
 METRICS = ("loss", "edges", "frontier", "cap_overflow")
@@ -112,6 +123,7 @@ class GraphedStep:
         self.generators = tuple(generators)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: List[int] = []     # of each COUNTED wrapper a replay
+        self.comm = ({}, {})              # collectives (bytes, calls) a replay
         self.capture_s: Optional[float] = None
 
     @property
@@ -127,11 +139,13 @@ class GraphedStep:
             self.graph.replay()
             for fn, n in zip(COUNTED, self.launches):
                 fn.launches += n
+            comm.add(self.comm)
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
         warm_up(self.body, self.pool.device)       # this call's step
         before = [fn.launches for fn in COUNTED]
+        counts = comm.snapshot()
         try:
             graph = capture(self.body, self.generators, self.pool)
         finally:
@@ -139,6 +153,8 @@ class GraphedStep:
                              for fn, b in zip(COUNTED, before)]
             for fn, b in zip(COUNTED, before):
                 fn.launches = b
+            self.comm = comm.since(counts)
+            comm.restore(counts)
         torch.cuda.synchronize(self.pool.device)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
@@ -152,6 +168,13 @@ def _row(buf: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
 
 def _addresses(tensors) -> Tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _graph_tensors(graph) -> Tuple[torch.Tensor, ...]:
+    """The tensors of a step's graph: a ``DeviceGraph``'s CSR, or every
+    field of a rank's ``HostShard``."""
+    fields = graph if isinstance(graph, tuple) else vars(graph).values()
+    return tuple(t for t in fields if isinstance(t, torch.Tensor))
 
 
 class _Run:
@@ -216,7 +239,7 @@ class EpochScan(_Scan):
                  for g in state.optimizer.param_groups]
         return (id(state), id(state.generator), hyper,
                 _addresses(state_tensors(state)),
-                _addresses((graph.indptr, graph.indices, feats)))
+                _addresses(_graph_tensors(graph) + (feats,)))
 
     def _build(self, state, graph, feats, rows, batch, uniforms) -> _Run:
         dev = feats.device
@@ -272,7 +295,7 @@ class EvalScan(_Scan):
     @staticmethod
     def _ties(model, graph, feats, generator) -> Tuple:
         return (id(model), id(generator), _addresses(model.parameters()),
-                _addresses((graph.indptr, graph.indices, feats)))
+                _addresses(_graph_tensors(graph) + (feats,)))
 
     def _build(self, model, graph, feats, generator, rows, cap,
                uniforms) -> _Run:

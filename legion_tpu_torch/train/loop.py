@@ -125,7 +125,8 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
                   reducer: Optional[Callable] = None,
                   feature_fetch: Optional[Callable] = None,
                   sampler: Optional[Callable] = None,
-                  pool: Optional[GraphPool] = None) -> StepFns:
+                  pool: Optional[GraphPool] = None,
+                  uniform_shapes: Optional[Sequence] = None) -> StepFns:
     """Build (train_step, eval_step, epoch_scan, eval_scan) for static
     frontier caps. The scans run every step of an epoch from static
     buffers (``train/graphed.py``): captured as CUDA graphs in ``pool``
@@ -144,7 +145,8 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
     ``sampler(graph, seeds, num_seeds, labels, generator, uniforms)``
     replaces ``sample_batch`` (the edge-partitioned path's, whose
     ``graph`` is the rank's shard); it is handed the generator or the
-    uniforms, whichever the step was given."""
+    uniforms, whichever the step was given, and ``uniform_shapes`` are
+    then its uniforms' shapes (default: ``(cap, fanout)`` a hop)."""
     fanouts = tuple(cfg.sampler.fanouts)
     dedup_last = cfg.sampler.dedup_last
     caps = tuple(caps)
@@ -218,7 +220,7 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
         out = model(tuple(reversed(batch.blocks)), x, deterministic=True)
         return counts_of(out, batch)
 
-    shapes = [(c, f) for c, f in zip(caps, fanouts)]
+    shapes = uniform_shapes or [(c, f) for c, f in zip(caps, fanouts)]
     return StepFns(train_step=train_step, eval_step=eval_step,
                    epoch_scan=EpochScan(device_step, pool, shapes),
                    eval_scan=EvalScan(eval_step, pool, shapes))
@@ -253,8 +255,8 @@ class Trainer:
     the saved epoch."""
 
     log_suffix = ""                 # appended to each epoch's log line
-    # the steps are captured as CUDA graphs on a CUDA device (MeshTrainer's
-    # gradient all-reduce is not captured: it runs them eagerly)
+    # the steps are captured as CUDA graphs on a CUDA device (MeshTrainer:
+    # on a NCCL group only)
     capture_steps = True
 
     def __init__(self, cfg: Config, data: GraphData,
@@ -273,14 +275,12 @@ class Trainer:
         self._setup(cfg, data, device, num_shards, probe=True)
 
     def _setup(self, cfg: Config, data: GraphData, device, num_shards: int,
-               probe: bool, rank: int = 0, world: int = 1,
-               make_reducer: Optional[Callable] = None) -> None:
+               probe: bool, rank: int = 0, world: int = 1) -> None:
         """Graph and whole feature table on ``device``, the shards and
         their seed plan, the caps, the model, a state whose generator
         draws rank ``rank``'s stream (restored from the checkpoint, which
-        ``world`` ranks wrote, when there is one) and the step functions,
-        whose train step runs ``make_reducer(model)`` before the optimizer
-        step when it is given."""
+        ``world`` ranks wrote, when there is one) and the step functions
+        (``_step_fns``)."""
         self.cfg = cfg
         self.data = data
         self.device = torch.device(device)
@@ -322,18 +322,16 @@ class Trainer:
         # the train and eval graphs share one pool; eval draws from a
         # generator of its own, seeded at each evaluation
         pool = GraphPool(self.device) if self.capture_steps else None
-        self.fns = make_step_fns(
-            cfg, self.caps,
-            reducer=make_reducer(self.model) if make_reducer else None,
-            feature_fetch=self.feature_fetch, pool=pool)
-        self.fns_eval = make_step_fns(cfg, self.eval_caps,
-                                      feature_fetch=self.feature_fetch,
-                                      pool=pool)
+        self.fns = self._step_fns(self.caps, pool)
+        self.fns_eval = self._step_fns(self.eval_caps, pool)
         self.eval_generator = torch.Generator(device=self.device)
         self.history: list[Dict] = []
 
-    # the frontier's rows come from the whole table on the device
-    feature_fetch: Optional[Callable] = None
+    def _step_fns(self, caps: Sequence[int],
+                  pool: Optional[GraphPool]) -> StepFns:
+        """The step functions at ``caps``: the frontier's rows come from
+        the whole table on the device."""
+        return make_step_fns(self.cfg, caps, pool=pool)
 
     def _place_features(self, feats: np.ndarray) -> torch.Tensor:
         """The feature table as the steps read it: the whole (padded)

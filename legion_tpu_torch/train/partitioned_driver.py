@@ -9,7 +9,9 @@ neighbors of other ranks' nodes are drawn by their owner and every remote
 feature row is fetched from its owner (``parallel/halo.py``), gradients are
 averaged over the ranks (``parallel/multihost.py``), and the lifecycle is
 the reference's: epochs with a validation pass after each, a test pass at
-the end, checkpoint and resume (rank 0 writes every rank's generator).
+the end, checkpoint and resume (rank 0 writes every rank's generator). On
+a NCCL group the train and eval steps are captured as CUDA graphs and
+replayed (``parallel.mesh.captures_steps``); under gloo they run eagerly.
 
 The exact exchange's per-distance caps are probed on the host before
 training, at the larger of the train and eval shapes, over random train
@@ -38,7 +40,7 @@ from legion_tpu_torch.data.partition import edge_cut_fraction, partition_graph
 from legion_tpu_torch.models import build_model
 from legion_tpu_torch.parallel.dp import save_every_rank
 from legion_tpu_torch.parallel.launch import put_shard_distributed
-from legion_tpu_torch.parallel.mesh import Mesh
+from legion_tpu_torch.parallel.mesh import Mesh, captures_steps
 from legion_tpu_torch.parallel.multihost import (HaloPath, PartitionedTrainer,
                                                  owner_table, probe_dist_caps,
                                                  probe_dist_caps_batches)
@@ -47,6 +49,7 @@ from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint)
@@ -169,10 +172,16 @@ def run_partitioned_training(cfg: Config, data: GraphData,
         log(f"resumed from checkpoint at step {state.step}, "
             f"epoch {state.epoch}")
 
+    # on a NCCL group the steps are captured, their train and eval graphs
+    # in one pool; a restore above loaded in place, before any capture
+    pool = GraphPool(device) if captures_steps(device) else None
     tr = PartitionedTrainer(cfg, model, HaloPath(shard, owner, dist_caps),
-                            caps, eval_caps)
+                            caps, eval_caps, pool)
     labels_all = np.asarray(data.labels)
     vlab, tlab = eval_labels(cfg)
+    # one eval generator, reseeded at each evaluation (a captured eval
+    # step replays on the generator it was captured with)
+    eval_gen = torch.Generator(device=device)
 
     def eval_set(ids: np.ndarray, phase: str) -> float:
         if not len(ids):
@@ -182,8 +191,7 @@ def run_partitioned_training(cfg: Config, data: GraphData,
         lab = np.where(s >= 0, labels_all[np.clip(s, 0, None)], -1)
         c, n, ov = tr.eval_counts(
             model, s, counts_e[rank], lab,
-            torch.Generator(device=device).manual_seed(
-                rank_seed(12345, rank)))
+            eval_gen.manual_seed(rank_seed(12345, rank)))
         if ov > 0:
             log_metrics({"event": "halo_overflow", "phase": phase,
                          "dropped_requests": ov,

@@ -24,13 +24,21 @@ not exist on older torch; the list forms run on both and on NCCL.
 ``parallel.mesh`` (several gloo ranks on one card): each wrapper then
 copies CUDA tensors to host memory, runs the collective there and copies
 the result back, counting the same bytes. Nothing else stages: a CUDA
-tensor handed to a gloo group outside that mode fails in ``dist``.
+tensor handed to a gloo group outside that mode fails in ``dist``. A
+staging copy reads the device on the host, so in that mode a wrapper
+called while the current stream is capturing a CUDA graph raises before
+it breaks the capture.
+
+Counts survive replays of captured steps: a replay makes no Python call,
+so ``train/graphed.py`` takes a ``snapshot`` before a capture, keeps what
+the capture counted (``since``), puts the counts back (``restore``) and
+``add``s that much at every replay.
 """
 
 from __future__ import annotations
 
 import pickle
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -43,6 +51,11 @@ _STAGE = {"on": False}
 def _count(op: str, nbytes: int) -> None:
     _COUNTS[op] = _COUNTS.get(op, 0) + int(nbytes)
     _CALLS[op] = _CALLS.get(op, 0) + 1
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def reset_counts() -> None:
@@ -60,6 +73,33 @@ def read_calls() -> Dict[str, int]:
     return dict(_CALLS)
 
 
+def snapshot() -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(bytes, calls) by op kind as they stand."""
+    return dict(_COUNTS), dict(_CALLS)
+
+
+def since(before: Tuple[Dict[str, int], Dict[str, int]]
+          ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(bytes, calls) counted since ``before`` was taken."""
+    return tuple({op: n - old.get(op, 0) for op, n in now.items()
+                  if n != old.get(op, 0)}
+                 for now, old in zip(snapshot(), before))
+
+
+def restore(before: Tuple[Dict[str, int], Dict[str, int]]) -> None:
+    """The counts put back as ``before`` holds them."""
+    for now, old in zip((_COUNTS, _CALLS), before):
+        now.clear()
+        now.update(old)
+
+
+def add(delta: Tuple[Dict[str, int], Dict[str, int]]) -> None:
+    """``since``'s (bytes, calls) added to the counts."""
+    for now, more in zip((_COUNTS, _CALLS), delta):
+        for op, n in more.items():
+            now[op] = now.get(op, 0) + n
+
+
 def stage_through_host(on: bool) -> None:
     """Set by ``parallel.mesh.init_process``: on only in its share-device
     mode."""
@@ -67,7 +107,13 @@ def stage_through_host(on: bool) -> None:
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
-    return t.cpu() if _STAGE["on"] and t.is_cuda else t
+    if not _STAGE["on"]:
+        return t
+    if _capturing():
+        raise RuntimeError(
+            "a collective of the share-device mode stages through host "
+            "memory and cannot run while a CUDA graph is being captured")
+    return t.cpu() if t.is_cuda else t
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -40,12 +40,16 @@ equal in every case. The ``cuda``-marked legs run on the card
 (``pytest --noconftest -m cuda tests/test_torch_graphed.py``).
 """
 
+import contextlib
 import copy
+import dataclasses
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from legion_tpu_torch import config as port_config
@@ -59,6 +63,7 @@ from legion_tpu_torch.train.loop import Trainer
 from legion_tpu_torch.train.train_state import (restore_checkpoint,
                                                 save_checkpoint,
                                                 state_tensors)
+from legion_tpu_torch.utils import comm
 torch.set_num_threads(2)
 
 BATCH, FANOUTS = 128, (5, 3)      # tests/test_torch_train.py's fanouts
@@ -78,17 +83,19 @@ def _cfg(cm, arch, dtype, num_classes, dropout=0.0, **train):
 
 class _FakeGraph:
     """A CUDA graph's stand-in on the CPU: a replay runs the step again,
-    with the wrappers' launch counts held, as a replay makes no Python
-    call."""
+    with the wrappers' launch counts and the collectives' counts held, as
+    a replay makes no Python call."""
 
     def __init__(self, body):
         self.body = body
 
     def replay(self):
         counts = [fn.launches for fn in graphed.COUNTED]
+        collectives = comm.snapshot()
         self.body()
         for fn, n in zip(graphed.COUNTED, counts):
             fn.launches = n
+        comm.restore(collectives)
 
 
 class _DryRun(TorchDispatchMode):
@@ -136,13 +143,46 @@ class _DryRun(TorchDispatchMode):
         return out
 
 
-@pytest.fixture
-def fake_capture(monkeypatch):
+@contextlib.contextmanager
+def _local_collectives():
+    """A capture runs no collective, so neither does its stand-in: under
+    this each ``torch.distributed`` call the wrappers of ``utils.comm``
+    make fills its result from this rank's own input (any values of the
+    result's shape do, ``_DryRun`` throws them away) and no rank waits
+    for another."""
+    def all_to_all_single(out, src, group=None):
+        out.copy_(src)
+
+    def all_gather(parts, src, group=None):
+        for p in parts:
+            p.copy_(src)
+
+    def reduce_scatter(out, parts, group=None):
+        out.copy_(parts[0])
+
+    def batch_isend_irecv(ops):
+        sent = next(op.tensor for op in ops if op.op is dist.isend)
+        for op in ops:
+            if op.op is dist.irecv:
+                op.tensor.copy_(sent)
+        return []
+
+    with mock.patch.multiple(dist, all_reduce=lambda t, group=None: None,
+                             all_to_all_single=all_to_all_single,
+                             all_gather=all_gather,
+                             reduce_scatter=reduce_scatter,
+                             batch_isend_irecv=batch_isend_irecv):
+        yield
+
+
+@contextlib.contextmanager
+def faked_capture():
     """Capture on the CPU: ``GraphPool`` captures, the warm-up runs the
-    step, and the "capture" runs its Python under ``_DryRun`` with the
-    registered generators' states put back after it, so that, as on the
-    card, it changes nothing and the launches it counts are those a
-    replay adds."""
+    step, and the "capture" runs its Python under ``_DryRun`` and
+    ``_local_collectives`` with the registered generators' states put
+    back after it, so that, as on the card, it changes nothing and the
+    launches and collectives it counts are those a replay adds. Yields
+    the list of captured steps."""
     captures = []
 
     def init(self, device):
@@ -150,18 +190,26 @@ def fake_capture(monkeypatch):
 
     def capture(body, generators, pool):
         states = [g.get_state() for g in generators]
-        with _DryRun():
+        with _DryRun(), _local_collectives():
             body()
         for g, st in zip(generators, states):
             g.set_state(st)
         captures.append(body)
         return _FakeGraph(body)
 
-    monkeypatch.setattr(graphed.GraphPool, "__init__", init)
-    monkeypatch.setattr(graphed, "warm_up", lambda body, device: body())
-    monkeypatch.setattr(graphed, "capture", capture)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    return captures
+    with mock.patch.object(graphed.GraphPool, "__init__", init), \
+            mock.patch.object(graphed, "warm_up",
+                              lambda body, device: body()), \
+            mock.patch.object(graphed, "capture", capture), \
+            mock.patch.object(torch.cuda, "synchronize",
+                              lambda device=None: None):
+        yield captures
+
+
+@pytest.fixture
+def fake_capture():
+    with faked_capture() as captures:
+        yield captures
 
 
 @pytest.fixture(scope="module", params=ARCHS, ids=["-".join(a) for a in ARCHS])
@@ -500,11 +548,54 @@ def test_replays_count_the_launches_their_capture_recorded(
         fn.launches = 0
 
 
-def test_mesh_trainer_never_captures():
-    """MeshTrainer's steps hold a gradient all-reduce, which is not
-    captured: it runs the scans eagerly."""
+def test_mesh_paths_capture_on_nccl_only(small_graph, tmp_path,
+                                        monkeypatch):
+    """The data-parallel and partitioned paths capture their steps, the
+    collectives inside, on a NCCL group of CUDA ranks only
+    (``parallel.mesh.captures_steps``); gloo on the CPU and the
+    share-device mode (CUDA ranks on gloo, collectives staged through
+    host memory) run the same static-buffer steps eagerly.
+    ``MeshTrainer`` and the partitioned driver give their scans a pool
+    exactly when the predicate says so; ``Trainer`` always does."""
+    from legion_tpu_torch.parallel import mesh
+    from legion_tpu_torch.parallel import trainer as mesh_trainer
+    from legion_tpu_torch.train import partitioned_driver as pd
     assert Trainer.capture_steps is True
-    assert MeshTrainer.capture_steps is False
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        # (device, backend, share-device staging) -> captures
+        assert mesh.backend_for("cuda", share_device=True) == "gloo"
+        for (dev, backend, staged), want in {
+                ("cuda", "nccl", False): True,
+                ("cuda", "gloo", False): False,
+                ("cuda", "gloo", True): False,
+                ("cpu", "gloo", False): False,
+                ("cpu", "nccl", False): False}.items():
+            with mock.patch.object(dist, "get_backend",
+                                   lambda group=None: backend):
+                comm.stage_through_host(staged)
+                try:
+                    assert mesh.captures_steps(dev) is want
+                finally:
+                    comm.stage_through_host(False)
+        assert not mesh.captures_steps("cpu")            # the real gloo
+        cfg = _cfg(port_config, "sage", "float32", small_graph.num_classes)
+        pcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, epochs=1))
+        for told in (False, True):
+            monkeypatch.setattr(mesh_trainer, "captures_steps",
+                                lambda device: told)
+            monkeypatch.setattr(pd, "captures_steps", lambda device: told)
+            mt = MeshTrainer(cfg, small_graph, "cpu")
+            assert mt.capture_steps is told
+            part = pd.run_partitioned_training(pcfg, small_graph, "cpu",
+                                               log=lambda s: None)["trainer"]
+            for fns in (mt.fns, mt.fns_eval, part.fns, part.fns_eval):
+                for scan in (fns.epoch_scan, fns.eval_scan):
+                    assert (scan.pool is not None) is told
+    finally:
+        dist.destroy_process_group()
 
 
 def test_the_pool_captures_on_a_cuda_device_only():
