@@ -230,6 +230,25 @@ exits non-zero:
    partitioned record adds the share of the last hop's frontier cap the
    sampled frontier leaves as padding.
 
+19. the staged pipelines' captured device stages (``staged_vs_eager``),
+   under ``"captured"`` in ``"cached_path"``, ``"hybrid_path"`` and the
+   striped cached and striped hybrid parts of ``"mesh_striped"`` (one
+   NCCL rank, the exchanges' collectives inside the graphs): the path's
+   trainer on a capturing pool against its twin on the same tables and
+   model without one. From one state (loaded in place), a captured epoch
+   (the warm-ups and captures), two eager ones and a captured one again:
+   equal figures (hit rate, host bytes, staging and exchange overflow,
+   edges; on the hybrid paths the hot fraction, both host topology
+   meters, fetches = 2 a step + 1 and the trainer's hot and cold counts),
+   losses within 1e-3 relative or the two eager runs' difference if
+   larger, equal launches and collectives, the latter equal to the
+   closed forms on the striped paths; a steady captured epoch traced,
+   each kernel by name as bookkept and as the eager epoch launched it,
+   with the device's busy ms and idle share; eager against captured
+   ms/step in 3 alternating epochs (median), the host's seconds in the
+   stages' calls (enqueue) and in its legs (staging, host sampler,
+   packed reads), the capture's seconds and the pool's bytes.
+
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
 pointed at a row no valid slot reads, given as ``padding_idx``; the
@@ -243,6 +262,7 @@ them, a JSON line with every kernel's numbers, and, last,
 at once and prints no result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -1141,20 +1161,6 @@ def graphed(kernels, smi, tr, data):
 MESH_TRIALS = 3               # alternating eager / captured trials
 
 
-def _union_ms(events):
-    """Milliseconds of the device covered by ``events`` (overlaps once)."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy / 1e3
-
-
 def replay_profile(run, n):
     """``n`` replays of the captured step of a scan's ``run`` (n <= its
     rows; the row counter is reset first) under ``torch.profiler``, run
@@ -1166,6 +1172,7 @@ def replay_profile(run, n):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from legion_tpu_torch.tools.profile_cached import device_busy_ms
     from legion_tpu_torch.tools.sol_model import stage_of
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     require(n <= run.rows, f"{n} replays fit the run's {run.rows} rows")
@@ -1187,7 +1194,7 @@ def replay_profile(run, n):
                     key=lambda e: e.time_range.start)
     mark = max(i for i, e in enumerate(events) if "spin_kernel" in e.name)
     events = events[mark + 1:]
-    busy = _union_ms(events) / n
+    busy = device_busy_ms(events) / n
     replay = ev[0].elapsed_time(ev[1]) / n
     by_kernel, stages = {}, {}
     for e in events:
@@ -1238,6 +1245,7 @@ def captured_vs_eager(kernels, what, fns, fns_eval, state, graph, feats,
 
     import torch
 
+    from legion_tpu_torch.train import graphed as graphed_mod
     from legion_tpu_torch.train.train_state import load_optimizer_in_place
     from legion_tpu_torch.utils import comm
     dev = feats.device
@@ -1402,9 +1410,7 @@ def captured_vs_eager(kernels, what, fns, fns_eval, state, graph, feats,
                          w for _, w in t),
                      "host_enqueue_ms_per_step": [h for h, _ in t]}
               for name, t in trials.items()}
-    pool = run.step.pool.handle
-    pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                     if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+    pool_bytes = graphed_mod.pool_bytes(run.step.pool)
     profile = replay_profile(run, 5)
     load(start)
     return {"steps": steps, "edges_equal": True, "frontier_equal": True,
@@ -1446,6 +1452,279 @@ def mesh_trainer_captured(kernels, what, tr, data, comm_per_step):
         kernels, what, tr.fns, tr.fns_eval, tr.state, tr.graph, tr.features,
         seeds.to(dev), labels_all[seeds.long()].to(dev),
         (vs.to(dev), vc.to(dev), vl.to(dev)), comm_per_step)
+
+STAGED_TRIALS = 3              # alternating eager / captured epochs
+# a hybrid epoch's figures that a captured epoch holds exactly
+HYBRID_FIGURES = ("feat_hit_rate", "staging_overflow", "host_feat_gb",
+                  "host_topo_gb", "host_topo_copied_gb", "topo_hot_fraction",
+                  "fetches", "cap_overflow", "edges")
+# how a staged pipeline's stages draw their randomness: one generator
+# registered with several graphs (probed on torch 2.11 before the design
+# rested on it; ``tests/test_torch_staged_graphed.py``'s cuda leg)
+STAGED_RNG = ("one generator registered with several graphs: the state's "
+              "with the sample, hop, finish and train graphs; eval and "
+              "group generators lend their state to the run's own")
+
+
+@contextlib.contextmanager
+def timed_stages():
+    """The host seconds spent in the device stages' calls (a replay, or
+    the eager dispatch of a stage's ops), summed into the one entry of
+    the list this yields."""
+    from legion_tpu_torch.train import graphed as graphed_mod
+    spent = [0.0]
+    call = graphed_mod.GraphedStep.__call__
+
+    def timed(self):
+        t = time.perf_counter()
+        try:
+            call(self)
+        finally:
+            spent[0] += time.perf_counter() - t
+    graphed_mod.GraphedStep.__call__ = timed
+    try:
+        yield spent
+    finally:
+        graphed_mod.GraphedStep.__call__ = call
+
+
+def stage_steps(tr):
+    """Every captured (or capturable) stage of a staged trainer's runs."""
+    from legion_tpu_torch.train.graphed import GraphedStep, StageGraph
+    out = []
+    for run in tr.runs.values():
+        for v in vars(run).values():
+            for x in v if isinstance(v, list) else [v]:
+                if isinstance(x, StageGraph):
+                    out.append(x.step)
+                elif isinstance(x, GraphedStep):
+                    out.append(x)
+    return out
+
+
+def staged_trace(kernels, fn):
+    """``fn()`` (a steady epoch) under ``torch.profiler``, run twice in one
+    window and read after a spin-kernel mark (as ``traced_launches``):
+    each wrapper's kernel counted by name, the wrappers' own counts, the
+    device's busy ms (the union of its records' spans) and the wall ms
+    between CUDA events around the second run, with the largest
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from legion_tpu_torch.tools.profile_cached import device_busy_ms
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda._sleep(1_000_000)              # the mark
+        reset_launches(kernels)
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+    counted = read_launches(kernels)
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation),
+                    key=lambda e: e.time_range.start)
+    mark = max(i for i, e in enumerate(events) if "spin_kernel" in e.name)
+    events = events[mark + 1:]
+    traced = {k: sum(TRACE_NAMES[k] in e.name for e in events)
+              for k in kernels}
+    by_kernel = {}
+    for e in events:
+        by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return (traced, counted, device_busy_ms(events),
+            ev[0].elapsed_time(ev[1]), [[k[:100], v] for k, v in top])
+
+
+def staged_vs_eager(kernels, what, captured, eager, state, epoch, figures,
+                    comm_epoch=None):
+    """A staged path's captured pipeline (``captured``: its trainer on a
+    capturing pool) against the same pipeline run eagerly (``eager``: the
+    same tables and model, no pool), in this call. ``epoch(tr)`` runs one
+    training epoch of ``tr`` from ``state`` and returns its record;
+    ``figures``: the record's keys that must be equal; ``comm_epoch``: the
+    closed forms' (calls, bytes) of an epoch's collectives, or None.
+
+    (a) From the same state (loaded in place) the captured epoch (its
+    first: warm-ups and captures), two eager ones and the captured again
+    (replays only): the figures and the trainer's host meters (hot, cold,
+    fetches) equal, the losses within ``GRAPHED_LOSS_RTOL`` relative or
+    the two eager runs' difference, if larger (K2 backward's atomics),
+    the launches equal, and the collectives equal to each other and to
+    the closed forms. (b) A steady captured epoch traced: each kernel by
+    name equal to the bookkeeping and to the eager epoch's launches, the
+    device's busy ms and idle share. (c) ``STAGED_TRIALS`` alternating
+    eager / captured epochs from where the state stands: ms/step, the
+    host's seconds a step in the stages' calls (enqueue) and in the host
+    legs; the capture's seconds and the pool's bytes."""
+    import copy
+    import statistics
+
+    import torch
+
+    from legion_tpu_torch.train import graphed as graphed_mod
+    from legion_tpu_torch.train.train_state import load_optimizer_in_place
+    from legion_tpu_torch.utils import comm
+    model = state.model
+    start = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+             copy.deepcopy(state.optimizer.state_dict()),
+             state.generator.get_state(), state.step)
+
+    def load():
+        model.load_state_dict(start[0])
+        load_optimizer_in_place(state.optimizer, copy.deepcopy(start[1]))
+        state.generator.set_state(start[2])
+        state.step = start[3]
+
+    meters = ("hot", "cold", "host_topo_bytes", "host_topo_copied_bytes",
+              "fetches")
+
+    def one(tr):
+        load()
+        reset_launches(kernels)
+        comm.reset_counts()
+        before = dict(getattr(tr, "stats", {}))
+        rec = epoch(tr)
+        after = getattr(tr, "stats", {})
+        return (rec, read_launches(kernels),
+                (comm.read_calls(), comm.read_counts()),
+                {k: after[k] - before[k] for k in meters if k in after})
+
+    first = one(captured)
+    eager1 = one(eager)
+    eager2 = one(eager)
+    steady = one(captured)
+    steps = eager1[0]["steps"]
+
+    def rel(a, b):
+        a, b = torch.tensor(a[0]["losses"]), torch.tensor(b[0]["losses"])
+        return ((a - b).abs() / b.abs()).max().item()
+    floor = rel(eager2, eager1)
+    worst = max(rel(first, eager1), rel(steady, eager1))
+    tol = max(GRAPHED_LOSS_RTOL, floor)
+    require(worst <= tol, f"{what}: captured losses within {tol} relative "
+            f"of the eager ones, worst {worst} (two eager: {floor})")
+    for got, name in ((first, "capturing"), (eager2, "second eager"),
+                      (steady, "steady")):
+        for k in figures:
+            require(got[0][k] == eager1[0][k],
+                    f"{what}: {name} epoch's {k} {got[0][k]} equals the "
+                    f"eager one's {eager1[0][k]}")
+        require(got[3] == eager1[3], f"{what}: {name} epoch's host meters "
+                f"{got[3]} equal the eager one's {eager1[3]}")
+        require(got[1] == eager1[1], f"{what}: {name} epoch's launches "
+                f"{got[1]} equal the eager one's {eager1[1]}")
+        require(got[2] == eager1[2], f"{what}: {name} epoch's collectives "
+                f"{got[2]} equal the eager one's {eager1[2]}")
+    if comm_epoch is not None:
+        require(eager1[2] == comm_epoch, f"{what}: an epoch's collectives "
+                f"{eager1[2]} are the closed forms' {comm_epoch}")
+
+    traced, counted, busy, wall, top = staged_trace(
+        kernels, lambda: epoch(captured))
+    require(traced == counted == eager1[1],
+            f"{what}: a steady epoch's kernels traced {traced}, counted "
+            f"{counted}, eager {eager1[1]}")
+
+    trials = {"eager": [], "graphed": []}
+    for _ in range(STAGED_TRIALS):
+        for name, tr in (("eager", eager), ("graphed", captured)):
+            torch.cuda.synchronize()
+            with timed_stages() as spent:
+                rec = epoch(tr)
+            trials[name].append({
+                "ms_per_step": 1e3 * rec["seconds"] / steps,
+                "enqueue_ms_per_step": 1e3 * spent[0] / steps,
+                **{f"{k}_ms_per_step": 1e3 * rec[k] / steps
+                   for k in ("stage_s", "host_sample_s", "fetch_s")
+                   if k in rec}})
+    timing = {name: {"median_ms_per_step": statistics.median(
+                  t["ms_per_step"] for t in ts), "trials": ts}
+              for name, ts in trials.items()}
+    stages = stage_steps(captured)
+    require(all(st.graph is not None for st in stages),
+            f"{what}: every stage of the captured trainer replays a graph")
+    load()
+    return {"steps": steps, "figures_equal": list(figures),
+            "host_meters": eager1[3],
+            "loss_worst_rel_diff": worst,
+            "loss_rel_diff_two_eager": floor, "loss_rtol": tol,
+            "launches": eager1[1], "collectives": eager1[2],
+            "collectives_closed_forms": comm_epoch,
+            "traced": traced, "device_busy_ms_per_step": busy / steps,
+            "device_wall_ms_per_step": wall / steps,
+            "idle_share": 1.0 - busy / wall, "top_kernels_ms": top,
+            "timing": timing, "graphs": len(stages),
+            "capture_s": sum(st.capture_s for st in stages),
+            "pool_bytes": graphed_mod.pool_bytes(captured.pool),
+            "randomness": STAGED_RNG,
+            "losses": first[0]["losses"], "eager_losses": eager1[0]["losses"]}
+
+
+def striped_cached_comm(tr, steps):
+    """The closed forms' (calls, bytes) of a striped cached epoch at world
+    size 1: a step's two all-to-alls of the feature exchange and its
+    gradient all-reduce, and the epoch's all-reduce of its losses and
+    figures (float64)."""
+    from legion_tpu_torch.utils import comm
+    rows = tr.cache.rows
+    a2a = comm.exact_exchange_bytes(tr.caps[-1], 1, rows.shape[1],
+                                    rows.element_size(),
+                                    cap=tr.cache.owner_cap_rows)
+    return ({"all_to_all": 2 * steps, "all_reduce": steps + 1},
+            {"all_to_all": steps * a2a["all_to_all"],
+             "all_reduce": steps * comm.param_bytes(tr.model)
+             + 8 * (steps + tr.n_stats + 1)})
+
+
+def striped_hybrid_comm(tr, steps):
+    """The closed forms' (calls, bytes) of a striped hybrid epoch at world
+    size 1: two all-to-alls a hot hop (ids with their grid rows, then the
+    draws; hops 1.. of every step, hop 0 of every step and the
+    prologue's), two of the feature exchange and the gradient's
+    all-reduce a step, and the epoch's all-reduce of its losses, counts
+    and host figures (float64)."""
+    from legion_tpu_torch.utils import comm
+    rows = tr.fcache.rows
+    feat = comm.exact_exchange_bytes(tr.caps[-1], 1, rows.shape[1],
+                                     rows.element_size(),
+                                     cap=tr.fcache.owner_cap_rows)
+    hop = [comm.exact_exchange_bytes(tr.caps[k], 1, f, 4,
+                                     cap=tr.topo_owner_caps[k],
+                                     payload=True)["all_to_all"]
+           for k, f in enumerate(tr.fanouts)]
+    hops = len(tr.fanouts)
+    return ({"all_to_all": 2 * (steps * hops + 1) + 2 * steps,
+             "all_reduce": steps + 1},
+            {"all_to_all": (steps + 1) * hop[0] + steps * sum(hop[1:])
+             + steps * feat["all_to_all"],
+             "all_reduce": steps * comm.param_bytes(tr.model)
+             + 8 * (steps + 2 + tr.n_stats + 5)})
+
+
+def labels_of(data, seeds):
+    """The (rows, batch) int32 labels of ``seeds`` (a numpy array)."""
+    import torch
+    return torch.as_tensor(data.labels)[torch.as_tensor(seeds).long()].int(
+        ).numpy()
+
+
+def staged_batch(tr, eager, seeds, count):
+    """One batch of ``seeds`` through a hybrid trainer's own stages (an
+    eval pass of one step on ``eager``, its twin without a pool): the
+    batch and its feature plan, from the run's static buffers."""
+    import torch
+    s = torch.as_tensor(seeds).int()[None].numpy()
+    eager.eval_epoch(tr.model, s, torch.tensor([count]).int().numpy(),
+                     torch.zeros_like(torch.from_numpy(s)).numpy())
+    run = next(r for k, r in eager.runs.items() if k[0] == "eval")
+    return eager._batch(run)
+
 
 def gcn_path(kernels, data, dtype):
     """GCN at full width on the main path's graph through the Trainer: one
@@ -1865,9 +2144,13 @@ def cached_path(kernels, results, dedups):
     """Phase 6: the cached host-feature path at papers100M class."""
     import torch
 
+    from legion_tpu_torch.cache.feature_cache import (FeatureCache,
+                                                      cache_dtype_for)
+    from legion_tpu_torch.cache.pipeline import CachedTrainer
     from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
     from legion_tpu_torch.tools import pa_cell
     from legion_tpu_torch.train.cached_driver import run_cached_training
+    from legion_tpu_torch.train.graphed import GraphPool
     lines = []
 
     def log(s):
@@ -1902,13 +2185,33 @@ def cached_path(kernels, results, dedups):
         require(launches[name] > 0, f"the cached path launched {name}")
     cost = {k: getattr(res["cost"], k) for k in (
         "feat_capacity", "topo_capacity", "alpha", "saved_feat_bytes")}
-    del res
 
-    # one batch at the path's caps: ids past 2^24, and the sampling
-    # kernel on its hop-1 and hop-2 inputs
+    # the driver's trainer rebuilt on its tables and trained state: its
+    # stages captured against the same stages run eagerly
     caps = tuple(h["caps"])
     graph = DeviceGraph.from_host(data.indptr, data.indices, "cuda")
     dev = torch.device("cuda")
+    cache = FeatureCache.build(
+        data.features, res["cost"].feat_order, res["cost"].feat_capacity,
+        miss_cap=h["miss_cap"],
+        dtype=cache_dtype_for(cfg.model.dtype, data.feature_dim)[0],
+        device=dev)
+    state = res["state"]
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                      seed=21).numpy()
+    labels = labels_of(data, seeds)
+    captured = staged_vs_eager(
+        kernels, "cached_path",
+        CachedTrainer(cfg, state.model, caps, graph, cache,
+                      pool=GraphPool(dev)),
+        CachedTrainer(cfg, state.model, caps, graph, cache), state,
+        lambda tr: tr.run_epoch(state, seeds, labels),
+        ("cache_hit_rate", "host_gb", "staging_overflow", "edges"))
+    del res, state, cache
+    torch.cuda.empty_cache()
+
+    # one batch at the path's caps: ids past 2^24, and the sampling
+    # kernel on its hop-1 and hop-2 inputs
     seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
     batch = sample_batch(graph, seeds,
                          torch.tensor(pa_cell.BATCH, dtype=torch.int32,
@@ -1960,7 +2263,7 @@ def cached_path(kernels, results, dedups):
           "sample_neighbors_hops": hops, "k2": {"forward": fwd,
                                                 "backward": bwd},
           "peak_mem_gb": peak,
-          "cost_model": cost})
+          "cost_model": cost, "captured": captured})
     return launches, {
         "losses": [r["losses"] for r in hist], "launches": launches,
         "epochs": [{k: r[k] for k in ("cache_hit_rate", "staging_overflow",
@@ -2103,6 +2406,7 @@ def hybrid_path(kernels, results):
 
     import torch
 
+    from legion_tpu_torch.cache.hybrid import HybridTrainer
     from legion_tpu_torch.tools import hybrid_cell, pa_cell
     from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
     lines = []
@@ -2164,6 +2468,22 @@ def hybrid_path(kernels, results):
                 f"the hybrid path launched {name} {n} times in "
                 f"{train_steps} train and {sum(eval_steps)} eval steps, "
                 f"got {launches[name]}")
+    # the driver's trainer (its stages captured) against its twin on the
+    # same tables without a pool
+    state = res["state"]
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                      seed=22).numpy()
+    labels = labels_of(data, seeds)
+    require(tr.pool is not None and tr.pool.captures,
+            "the hybrid driver's trainer captures")
+    captured = staged_vs_eager(
+        kernels, "hybrid_path", tr,
+        HybridTrainer(cfg, tr.model, tr.caps, tr.topo, tr.host_indptr,
+                      tr.host_indices, tr.fcache), state,
+        lambda t: t.run_epoch(state, seeds, labels, 2), HYBRID_FIGURES)
+    require(captured["host_meters"]["fetches"] == hops * pa_cell.STEPS + 1,
+            f"{hops} reads a step plus one: {captured['host_meters']}")
+    del state
     # one more batch through the per-hop sampler: ids past 2^24
     dev = torch.device("cuda")
     seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
@@ -2276,7 +2596,8 @@ def hybrid_path(kernels, results):
               "gather_rows": {"cached": rec_cached, "staged": rec_staged,
                               "staged_rows": n_miss,
                               "overflowed": int(plan.overflow())}},
-          "peak_mem_gb": peak, "mem_before_gb": mem0 / 2 ** 30})
+          "peak_mem_gb": peak, "mem_before_gb": mem0 / 2 ** 30,
+          "captured": captured})
     return launches, {
         "losses": [r["losses"] for r in hist], "launches": launches,
         "epochs": [{k: r[k] for k in ("topo_hot_fraction", "feat_hit_rate",
@@ -2446,6 +2767,7 @@ def striped_cached(kernels, results, ref):
     import torch
     import torch.distributed as dist
 
+    from legion_tpu_torch.cache.striped_pipeline import StripedCachedTrainer
     from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.tools import pa_cell
     from legion_tpu_torch.train.cached_driver import run_cached_training
@@ -2469,6 +2791,21 @@ def striped_cached(kernels, results, ref):
     want = dict(ref["launches"], gather_rows=ref["launches"]["gather_rows"]
                 + ref["launches"]["gathered_masked_mean"])
     require(launches == want, f"exact launches {launches} (want {want})")
+    # its stages captured on the NCCL group against its twin without a
+    # pool, the collectives inside the graphs
+    require(tr.pool is not None and tr.pool.captures,
+            "the striped driver's trainer captures on NCCL")
+    state = res["state"]
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                      seed=23).numpy()
+    labels = labels_of(data, seeds)
+    captured = staged_vs_eager(
+        kernels, "striped_cached", tr,
+        StripedCachedTrainer(cfg, tr.model, tr.caps, tr.graph, tr.cache),
+        state, lambda t: t.run_epoch(state, seeds, labels),
+        ("cache_hit_rate", "host_gb", "staging_overflow", "edges",
+         "exchange_overflow"), striped_cached_comm(tr, pa_cell.STEPS))
+    del state
     # one batch at the path's caps, through the striped cache
     caps, dev = tr.caps, torch.device("cuda")
     seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
@@ -2513,7 +2850,7 @@ def striped_cached(kernels, results, ref):
                                   for w in ref["epochs"]],
            "cached_again_ms_per_step": [1e3 * w["seconds"] / w["steps"]
                                         for w in again["history"]],
-           "launches": launches,
+           "launches": launches, "captured": captured,
            "kernel_checks": {"sample_neighbors_hops": hops,
                              "gather_rows": k3,
                              "k2": {"forward": fwd, "backward": bwd}}}
@@ -2534,9 +2871,9 @@ def striped_hybrid(kernels, results, ref):
 
     import torch
 
+    from legion_tpu_torch.cache.striped_hybrid import StripedHybridTrainer
     from legion_tpu_torch.parallel.feature_exchange import (owner_cap,
                                                             route_by_owner)
-    from legion_tpu_torch.sampling.block import SampledBatch
     from legion_tpu_torch.tools import hybrid_cell, pa_cell
     from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
     from legion_tpu_torch.train.striped_hybrid_driver import (
@@ -2564,17 +2901,27 @@ def striped_hybrid(kernels, results, ref):
     want = dict(ref["launches"], gather_rows=ref["launches"]["gather_rows"]
                 + ref["launches"]["gathered_masked_mean"])
     require(launches == want, f"exact launches {launches} (want {want})")
+    # its stages captured on the NCCL group against its twin without a
+    # pool, the collectives inside the graphs
+    require(tr.pool is not None and tr.pool.captures,
+            "the striped hybrid driver's trainer captures on NCCL")
+    state = res["state"]
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                      seed=24).numpy()
+    labels = labels_of(data, seeds)
+    eager = StripedHybridTrainer(cfg, tr.model, tr.caps, tr.topo,
+                                 tr.host_indptr, tr.host_indices, tr.fcache,
+                                 tr.mesh, topo_owner_caps=tr.topo_owner_caps)
+    captured = staged_vs_eager(
+        kernels, "striped_hybrid", tr, eager, state,
+        lambda t: t.run_epoch(state, seeds, labels, 2),
+        HYBRID_FIGURES + ("exchange_overflow",),
+        striped_hybrid_comm(tr, pa_cell.STEPS))
+    del state
     # one batch through the trainer's stages
     dev, caps, topo = torch.device("cuda"), tr.caps, tr.topo
-    seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
-    nb = torch.tensor(pa_cell.BATCH, dtype=torch.int32, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    carry, packed0 = tr._prologue(seeds, nb, gen)
-    blocks, frontier, num, plan, _, _, _, _, _ = tr._advance(
-        carry, packed0, 0, 123, gen, 0, seeds, nb)
-    batch = SampledBatch(seeds=seeds, labels=torch.zeros_like(seeds),
-                         num_seeds=nb, frontier=frontier, num_frontier=num,
-                         blocks=tuple(blocks))
+    batch, plan = staged_batch(tr, eager, data.train_ids[:pa_cell.BATCH],
+                               pa_cell.BATCH)
     # the rows the exchange hands the owner for each hop's hits
     rows, hot_share = [], []
     for fr in hop_frontiers(batch, caps):
@@ -2605,7 +2952,7 @@ def striped_hybrid(kernels, results, ref):
         bwd)
     results["gather_rows"]["striped_uk_exchange"] = k3
     results["sample_neighbors"]["striped_uk_hops"] = sub_hops
-    del res, tr, batch, plan, blocks, blk1, h_t, gd
+    del res, tr, eager, batch, plan, blk1, h_t, gd
     torch.cuda.empty_cache()
     # the single-device driver once more (see striped_cached)
     again = run_hybrid_training(cfg, data, "cuda", log=_phase_log(lines))
@@ -2622,7 +2969,7 @@ def striped_hybrid(kernels, results, ref):
                                   for w in ref["epochs"]],
            "hybrid_again_ms_per_step": [1e3 * w["seconds"] / w["steps"]
                                         for w in again["history"]],
-           "launches": launches,
+           "launches": launches, "captured": captured,
            "kernel_checks": {"sample_neighbors_hops": sub_hops,
                              "gather_rows": k3,
                              "k2": {"forward": fwd, "backward": bwd}}}

@@ -142,21 +142,27 @@ class FeatureCache:
             out[invalid] = 0
         return out
 
-    def stage_to(self, device: torch.device,
-                 miss_ids: np.ndarray) -> torch.Tensor:
+    def stage_to(self, device: torch.device, miss_ids: np.ndarray,
+                 out: Optional[torch.Tensor] = None,
+                 host: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Gather the rows of ``miss_ids`` on the host and start their copy
         to ``device``: (miss_cap, D) staged rows, of which the first
         len(miss_ids) are written (a plan reads no other). On CUDA the
         rows are gathered into pinned memory and copied without blocking,
-        so exactly the misses' bytes cross."""
+        so exactly the misses' bytes cross. ``host`` and ``out`` (a staged
+        pipeline's static buffers, (miss_cap, D) each, ``host`` pinned on
+        CUDA) take the gather and the copy; fresh ones otherwise, and on
+        the CPU without ``out`` the host buffer is the result."""
         shape = (self.miss_cap, self.rows.shape[1])
         dtype = self.rows.dtype
         n = len(miss_ids)
         on_cuda = device.type == "cuda"
-        host = torch.empty(shape, dtype=dtype, pin_memory=on_cuda)
+        if host is None:
+            host = torch.empty(shape, dtype=dtype, pin_memory=on_cuda)
         self.stage(miss_ids, out=host[:n])
-        if not on_cuda:
-            return host
-        staged = torch.empty(shape, dtype=dtype, device=device)
-        staged[:n].copy_(host[:n], non_blocking=True)
-        return staged
+        if out is None:
+            if not on_cuda:
+                return host
+            out = torch.empty(shape, dtype=dtype, device=device)
+        out[:n].copy_(host[:n], non_blocking=on_cuda)
+        return out

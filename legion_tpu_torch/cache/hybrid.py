@@ -16,10 +16,19 @@ The host leg costs one device->host read of the packed miss ids and one
 host->device copy of the cold draws per hop, both metered. Hotness caching
 keeps the host leg small: that is what the topology cache's share of the
 cost model's budget buys.
+
+``HybridTrainer``'s device stages are the reference's compiled programs
+(``_j_start``, one ``_j_steps[k]`` per inner hop, ``_j_finish``,
+``_jit_train``, ``_jit_eval``): on a capturing ``GraphPool`` each is a
+CUDA graph (``train/graphed.py``) that replays between the host legs,
+which stay eager: the packed reads, the C++ host sampler, the miss
+gather, and the copies up of the cold draws and of exactly the staged
+rows.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -28,11 +37,14 @@ import torch
 
 from legion_tpu_torch import runtime
 from legion_tpu_torch.cache.feature_cache import FeatureCache
-from legion_tpu_torch.cache.pipeline import _Packed, make_cache_step_fns
+from legion_tpu_torch.cache.pipeline import make_cache_step_fns, run_ties
 from legion_tpu_torch.cache.topo_cache import TopoCache
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.sampling.block import SampledBatch
 from legion_tpu_torch.sampling.sampler import grow_frontier
+from legion_tpu_torch.train.graphed import (GraphedStep, GraphPool, HostRing,
+                                            Run, StageGraph, lend, row_at,
+                                            serving_run, store)
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 maybe_checkpoint_step)
 
@@ -152,11 +164,18 @@ class HybridTrainer:
     event only, never for the stream. Generator order within a step: hops
     1..H-1, the next batch's hop 0, then the train step's dropout.
 
+    The device stages (``_start``, ``_step`` for each inner hop,
+    ``_finish``, the train or eval step) are captured in ``pool`` when it
+    captures (None: eager), one graph each, since one batch is in flight:
+    each stage writes what the next reads into static buffers made
+    outside the pool (``train/graphed.py``'s ``StageGraph``).
+
     The striped trainer (``cache/striped_hybrid.py``) runs this pipeline
-    through its hooks: ``_uniform`` and ``_hot`` (a hop's uniforms and hot
-    draws), ``_plan`` (the feature plan and statistics beyond it),
-    ``_cold_seed`` (the host leg's seed), ``_sum_ranks`` (an epoch's
-    figures over the ranks) and ``save`` (a mid-epoch checkpoint)."""
+    through its hooks: ``_uniform_shape``, ``_draw`` and ``_hot`` (a hop's
+    uniforms and hot draws), ``_plan`` (the feature plan and statistics
+    beyond it), ``_cold_seed`` (the host leg's seed), ``_sum_ranks`` (an
+    epoch's figures over the ranks) and ``save`` (a mid-epoch
+    checkpoint)."""
 
     save: Optional[Callable] = None
 
@@ -165,7 +184,8 @@ class HybridTrainer:
     def __init__(self, cfg: Config, model: torch.nn.Module, caps,
                  topo: TopoCache, host_indptr: np.ndarray,
                  host_indices: np.ndarray, fcache: FeatureCache,
-                 reducer: Optional[Callable] = None):
+                 reducer: Optional[Callable] = None,
+                 pool: Optional[GraphPool] = None):
         self.cfg = cfg
         self.model = model
         self.topo = topo
@@ -175,6 +195,8 @@ class HybridTrainer:
         self.fanouts = tuple(cfg.sampler.fanouts)
         self.caps = tuple(caps)
         self.fcache = fcache
+        self.pool = pool
+        self.runs: Dict = {}
         # host_topo_bytes: the cold draws' bytes (the reference's meter);
         # host_topo_copied_bytes: what the copies up carry, the -1 rows of
         # hot and padding entries included
@@ -185,18 +207,29 @@ class HybridTrainer:
             cfg, combine=lambda rows, plan, staged, frontier:
             fcache.combine(plan, staged, frontier), reducer=reducer)
 
+    def release(self) -> None:
+        """Drop the captured stages and their buffers."""
+        self.runs.clear()
+
     # -- device stages ------------------------------------------------------
 
-    def _uniform(self, source: Uniforms, step: int, hop: int) -> torch.Tensor:
-        shape = (self.caps[hop], self.fanouts[hop])
-        if isinstance(source, torch.Generator):
-            return torch.rand(shape, generator=source, device=self.device,
-                              dtype=torch.float32)
-        u = source(step, hop)
+    def _uniform_shape(self, hop: int):
+        return (self.caps[hop], self.fanouts[hop])
+
+    def _draw(self, gens: Sequence[torch.Generator], hop: int) -> torch.Tensor:
+        """Hop ``hop``'s uniforms drawn on the device from ``gens`` (one
+        generator here)."""
+        return torch.rand(self._uniform_shape(hop), generator=gens[0],
+                          device=self.device, dtype=torch.float32)
+
+    def _given(self, uniforms: Callable, step: int, hop: int) -> torch.Tensor:
+        """``uniforms(step, hop)``, checked against the hop's shape."""
+        u = uniforms(step, hop)
+        shape = self._uniform_shape(hop)
         if tuple(u.shape) != shape or u.dtype != torch.float32:
             raise ValueError(f"uniforms({step}, {hop}) is {u.dtype} "
                              f"{tuple(u.shape)}, want float32 {shape}")
-        return u.to(self.device)
+        return u
 
     def _hot(self, frontier, u, hop: int):
         """Hop ``hop``'s draws for the frontier's cache hits and the hit
@@ -223,7 +256,7 @@ class HybridTrainer:
         return torch.cat([hit.sum(dtype=torch.int32)[None], miss])
 
     def _start(self, seeds, num_seeds, u):
-        """Hop 0's hot half: (carry, packed miss ids still on the device)."""
+        """Hop 0's hot half: (carry, packed miss ids)."""
         frontier = torch.full((self.caps[0],), -1, dtype=torch.int32,
                               device=self.device)
         frontier[: seeds.shape[0]] = seeds
@@ -232,13 +265,14 @@ class HybridTrainer:
                 self._pack_hop(frontier, hit))
 
     def _step(self, k, carry, cold, u):
-        """Close hop k-1 and open hop k (1 <= k < H)."""
+        """Close hop k-1 and open hop k (1 <= k < H): (carry, block,
+        packed miss ids)."""
         frontier, num, nbrs_hot, hit = carry
         frontier, num, blk = grow_frontier(
             frontier, num, _merge(nbrs_hot, cold, hit), self.caps[k])
         nbrs_hot, hit = self._hot(frontier, u, k)
         return ((frontier, num, nbrs_hot, hit), blk,
-                _Packed(self._pack_hop(frontier, hit)))
+                self._pack_hop(frontier, hit))
 
     def _finish(self, carry, cold, seeds_next, num_next, u_next):
         """Close the last hop, plan the feature cache, and open the next
@@ -252,27 +286,166 @@ class HybridTrainer:
             torch.stack([plan.num_hit, plan.num_miss, plan.num_valid,
                          plan.overflow()] + extra),
             plan.miss_ids, next_pack])
-        return frontier, num, blk, plan, nxt, _Packed(packed)
+        return frontier, num, blk, plan, nxt, packed
+
+    def _build(self, rows: int, width: int, gens, consume: Callable,
+               consume_gens, injected: bool, out: torch.Tensor) -> Run:
+        """A pass's static buffers and stages. Rows ``0 .. rows`` of the
+        seeds (the last a copy of the first: the epoch's last finish
+        opens step 0 again); ``run.at`` is the step the consume stage
+        trains or evaluates next, which it advances. The hop-0 carry
+        (``carry0``), which the prologue and every finish write, lives
+        apart from the inner hops' outputs, which the train step of the
+        same batch still reads when the finish opens the next batch. The
+        sampling stages draw from ``gens`` unless the uniforms are given
+        (``ubufs``); ``consume(run)`` from ``consume_gens``. One pinned
+        buffer serves each host leg (``cold_host`` a hop, ``packed`` a
+        stage: start, inner hops, finish; ``staging``): the host writes
+        or reads one only after waiting for a packed array that stream
+        order puts after the last copy out of it."""
+        dev, hops = self.device, len(self.fanouts)
+        i32 = dict(dtype=torch.int32, device=dev)
+        rows_d = self.fcache.rows
+        run = Run(rows, width, None,
+                  seeds=torch.full((rows + 1, width), -1, **i32),
+                  labels=torch.full((rows + 1, width), -1, **i32),
+                  nums=torch.zeros((rows + 1,), **i32),
+                  at=torch.zeros((1,), dtype=torch.int64, device=dev),
+                  ubufs=[torch.empty(self._uniform_shape(k),
+                                     dtype=torch.float32, device=dev)
+                         for k in range(hops)] if injected else None,
+                  gens=gens, carry0=None, fin=None,
+                  cold=[torch.empty((c, f), **i32)
+                        for c, f in zip(self.caps, self.fanouts)],
+                  cold_host=HostRing(dev, hops),
+                  packed=HostRing(dev, hops + 1),
+                  staged=torch.empty((self.fcache.miss_cap, rows_d.shape[1]),
+                                     dtype=rows_d.dtype, device=dev),
+                  staging=HostRing(dev), out=out)
+
+        def u(hop):
+            return run.ubufs[hop] if injected else self._draw(run.gens, hop)
+
+        def start():
+            i = run.at
+            carry, pack = self._start(row_at(run.seeds, i),
+                                      row_at(run.nums, i), u(0))
+            run.carry0 = store(run.carry0, carry)
+            return pack
+
+        def hop(k):
+            carry = run.carry0 if k == 1 else run.hops[k - 2].out[0]
+            return self._step(k, carry, run.cold[k - 1], u(k))
+
+        def finish():
+            carry = run.carry0 if hops == 1 else run.hops[-1].out[0]
+            i = run.at + 1
+            frontier, num, blk, plan, nxt, packed = self._finish(
+                carry, run.cold[-1], row_at(run.seeds, i),
+                row_at(run.nums, i), u(0))
+            run.fin = store(run.fin, (frontier, num, blk, plan, packed))
+            # last: with one hop the block's dst count is the carry's
+            store(run.carry0, nxt)
+
+        def step():
+            consume(run)
+            run.at.add_(1)
+
+        draws = () if injected else tuple(gens)
+        run.start = StageGraph(start, self.pool, draws)
+        run.hops = [StageGraph(functools.partial(hop, k), self.pool, draws)
+                    for k in range(1, hops)]
+        run.finish = GraphedStep(finish, self.pool, draws)
+        run.step = GraphedStep(step, self.pool, consume_gens)
+        return run
+
+    def _batch(self, run: Run):
+        """(the batch of step ``run.at``, its plan) from the run's static
+        buffers, as the consume stage reads them."""
+        frontier, num, blk, plan, _ = run.fin
+        blocks = tuple(h.out[1] for h in run.hops) + (blk,)
+        batch = SampledBatch(
+            seeds=row_at(run.seeds, run.at), labels=row_at(run.labels, run.at),
+            num_seeds=row_at(run.nums, run.at), frontier=frontier,
+            num_frontier=num, blocks=blocks)
+        return batch, plan
+
+    def _train_stage(self, state: TrainState, run: Run) -> None:
+        batch, plan = self._batch(run)
+        step = state.step
+        loss = self.train_from(state, self.fcache.rows, batch, plan,
+                               run.staged)
+        # the host counts the step (``run_epoch``): a replay runs no Python
+        state.step = step
+        # ids a static cap dropped thin the neighborhoods silently:
+        # counted as train.loop's ``cap_overflow`` is
+        edges = torch.stack([blk.num_edges() for blk in batch.blocks]).sum()
+        overflow = sum((blk.num_src - cap).clamp(min=0)
+                       for blk, cap in zip(batch.blocks, self.caps[1:]))
+        row = torch.stack([loss.to(torch.float64), edges.to(torch.float64),
+                           overflow.to(torch.float64)])
+        run.out.index_copy_(0, run.at, row[None])
+
+    def _eval_stage(self, model: torch.nn.Module, run: Run) -> None:
+        batch, plan = self._batch(run)
+        a, b = self.eval_from(model, self.fcache.rows, batch, plan,
+                              run.staged)
+        run.out.add_(torch.stack([a, b]).float())
+
+    def _run(self, kind: str, source, owner, steps: int, width: int,
+             consume: Callable, consume_gens, out: Callable):
+        """(the run that serves a pass of ``steps`` rows whose sampling
+        draws from ``source``, the generators it borrows from). The
+        source: a callable's uniforms, the state's generator itself
+        (``owner.generator``: dropout and sampling then interleave on it
+        as the eager steps do), or other generators, which lend their
+        state to generators of the run's own for the pass
+        (``graphed.lend``), so that the run's graphs serve every pass."""
+        injected = callable(source) and not isinstance(
+            source, (torch.Generator, list, tuple))
+        own = isinstance(owner, TrainState) and source is owner.generator
+        draw = "given" if injected else "state" if own else "lent"
+        n_gens = (0 if injected else 1 if isinstance(source, torch.Generator)
+                  else len(source))
+
+        def build(rows):
+            gens = ([] if injected else [owner.generator] if own else
+                    [torch.Generator(device=self.device)
+                     for _ in range(n_gens)])
+            return self._build(rows, width, gens, consume, consume_gens,
+                               injected, out(rows))
+        run = serving_run(self.runs, (kind, draw, n_gens), steps, width,
+                          run_ties(owner, self._tables()), build)
+        if draw != "lent":
+            return run, []
+        return run, ([source] if isinstance(source, torch.Generator)
+                     else list(source))
+
+    def _tables(self):
+        return (self.topo.hot_ids, self.topo.sub_indptr,
+                self.topo.sub_indices, self.fcache.rows, self.fcache.hot_ids)
 
     # -- host legs ----------------------------------------------------------
 
-    def _fetch(self, packed: _Packed) -> np.ndarray:
+    def _fetch(self, ring: HostRing, slot: int) -> np.ndarray:
         self.stats["fetches"] += 1
         t = time.perf_counter()
-        out = packed.numpy()
+        out = ring.numpy(slot)
         self.stats["fetch_s"] += time.perf_counter() - t
         return out
 
-    def _cold(self, miss_pack: np.ndarray, fanout: int,
-              seed: int) -> torch.Tensor:
+    def _cold(self, run: Run, hop: int, miss_pack: np.ndarray, fanout: int,
+              seed: int) -> None:
         """miss_pack: [n_hot | miss ids]. The host sampler's draws for the
-        misses, written into pinned memory and on their way to the
-        device. The whole (caps[k], fanout) buffer goes up, not the cold
-        rows compacted: both sizes are metered."""
+        misses, written into the hop's pinned buffer and copied into its
+        static device buffer. The whole (caps[k], fanout) buffer goes up,
+        not the cold rows compacted: both sizes are metered. One pinned
+        buffer a hop serves: the host writes it only after waiting for a
+        packed array that stream order puts after the last copy out of
+        it."""
         miss = miss_pack[1:]
-        on_cuda = self.device.type == "cuda"
-        host = torch.empty((miss.shape[0], fanout), dtype=torch.int32,
-                           pin_memory=on_cuda)
+        host = run.cold_host.buffer(hop, (miss.shape[0], fanout),
+                                    torch.int32)
         t = time.perf_counter()
         runtime.sample_neighbors(self.host_indptr, self.host_indices, miss,
                                  fanout, self._cold_seed(seed),
@@ -283,43 +456,60 @@ class HybridTrainer:
         self.stats["cold"] += n_cold
         self.stats["host_topo_bytes"] += n_cold * fanout * 4
         self.stats["host_topo_copied_bytes"] += host.numel() * 4
-        return host.to(self.device, non_blocking=True) if on_cuda else host
+        run.cold[hop].copy_(host, non_blocking=run.cold_host.cuda)
 
-    def _advance(self, carry, packed0: np.ndarray, step: int, seed_base: int,
-                 source: Uniforms, next_step: int, seeds_next, num_next):
+    def _uniforms_for(self, run: Run, uniforms, step: int, hop: int) -> None:
+        if uniforms is not None:
+            run.ubufs[hop].copy_(self._given(uniforms, step, hop))
+
+    def _prologue(self, run: Run, uniforms) -> np.ndarray:
+        """The pass's first hop-0 stage and its packed read."""
+        self._uniforms_for(run, uniforms, 0, 0)
+        run.packed.fetch(0, run.start())
+        return self._fetch(run.packed, 0)
+
+    def _advance(self, run: Run, packed0: np.ndarray, step: int,
+                 seed_base: int, uniforms, next_step: int):
         """Hops 1..H-1 and the finish stage of the batch whose hop-0 state
-        is ``carry`` / ``packed0``. Returns (blocks, frontier, num, plan,
-        plan statistics, staged rows, host seconds fetching the plan and
-        staging, next carry, next packed0)."""
+        is in ``run.carry0`` / ``packed0``, with the staged rows on their
+        way up. Returns (plan statistics, host seconds fetching the plan
+        and staging, the next batch's packed0). The arrays returned are
+        views of the host ring, read before their slots' next fetch."""
         hops = len(self.fanouts)
-        blocks = []
         for k in range(1, hops):
-            cold = self._cold(packed0, self.fanouts[k - 1],
-                              seed_base * 131 + k - 1)
-            carry, blk, packed = self._step(
-                k, carry, cold, self._uniform(source, step, k))
-            blocks.append(blk)
-            packed0 = self._fetch(packed)
-        cold = self._cold(packed0, self.fanouts[-1],
-                          seed_base * 131 + hops - 1)
-        frontier, num, blk, plan, nxt, packed = self._finish(
-            carry, cold, seeds_next, num_next,
-            self._uniform(source, next_step, 0))
-        blocks.append(blk)
+            self._cold(run, k - 1, packed0, self.fanouts[k - 1],
+                       seed_base * 131 + k - 1)
+            self._uniforms_for(run, uniforms, step, k)
+            run.packed.fetch(k, run.hops[k - 1]()[2])
+            packed0 = self._fetch(run.packed, k)
+        self._cold(run, hops - 1, packed0, self.fanouts[-1],
+                   seed_base * 131 + hops - 1)
+        self._uniforms_for(run, uniforms, next_step, 0)
+        run.finish()
+        run.packed.fetch(hops, run.fin[-1])
         t = time.perf_counter()
-        fused = self._fetch(packed)
+        fused = self._fetch(run.packed, hops)
         miss_cap, ns = self.fcache.miss_cap, self.n_stats
         fstats = fused[:ns]
-        staged = self.fcache.stage_to(
-            self.device, fused[ns:ns + min(int(fstats[1]), miss_cap)])
-        stage_s = time.perf_counter() - t
-        return (blocks, frontier, num, plan, fstats, staged, stage_s, nxt,
-                fused[ns + miss_cap:])
+        # the staged rows: one pinned buffer and one device buffer serve,
+        # as the last copy out of them went before the last train step
+        self.fcache.stage_to(
+            self.device, fused[ns:ns + min(int(fstats[1]), miss_cap)],
+            run.staged, run.staging.buffer(0, run.staged.shape,
+                                           run.staged.dtype))
+        return fstats, time.perf_counter() - t, fused[ns + miss_cap:]
 
-    def _prologue(self, seeds, num_seeds, source: Uniforms):
-        carry, pack = self._start(seeds, num_seeds,
-                                  self._uniform(source, 0, 0))
-        return carry, self._fetch(_Packed(pack))
+    @staticmethod
+    def _load(run: Run, seeds: np.ndarray, nums, labels: np.ndarray) -> None:
+        """A pass's rows into the run (row ``steps`` repeats row 0) and its
+        step to 0."""
+        steps = seeds.shape[0]
+        for buf, x in ((run.seeds, seeds), (run.nums, nums),
+                       (run.labels, labels)):
+            x = torch.from_numpy(np.ascontiguousarray(x, np.int32))
+            buf[:steps].copy_(x)
+            buf[steps].copy_(x[0])
+        run.at.zero_()
 
     def run_epoch(self, state: TrainState, seeds_epoch: np.ndarray,
                   labels_epoch: np.ndarray, epoch: int,
@@ -337,42 +527,39 @@ class HybridTrainer:
         source = uniforms if uniforms is not None else state.generator
         t0 = time.perf_counter()
         stats0 = dict(self.stats)
-        seeds_d = torch.from_numpy(np.ascontiguousarray(
-            seeds_epoch, np.int32)).to(dev)
-        labels_d = torch.from_numpy(np.ascontiguousarray(
-            labels_epoch, np.int32)).to(dev)
-        nb = torch.full((), b, dtype=torch.int32, device=dev)
-        losses, counts = [], []              # counts: edges, cap overflow
         tot = np.zeros(self.n_stats, np.int64)   # hit, miss, valid, ...
         row_bytes = (self.fcache.rows.shape[1]
                      * self.fcache.rows.element_size())
         host_rows, stage_s = 0, 0.0
-
         if steps:
-            carry, packed0 = self._prologue(seeds_d[0], nb, source)
-        for i in range(steps):
-            nxt = (i + 1) % steps
-            (blocks, frontier, num, plan, fstats, staged, dt_stage, carry,
-             packed0) = self._advance(carry, packed0, i,
-                                      epoch * 1_000_003 + i, source, nxt,
-                                      seeds_d[nxt], nb)
-            batch = SampledBatch(seeds=seeds_d[i], labels=labels_d[i],
-                                 num_seeds=nb, frontier=frontier,
-                                 num_frontier=num, blocks=tuple(blocks))
-            # batch i+1's hop-0 host leg runs at the top of the next
-            # iteration, while the device still trains on batch i
-            losses.append(self.train_from(state, self.fcache.rows, batch,
-                                          plan, staged))
-            # ids a static cap dropped thin the neighborhoods silently:
-            # counted as train.loop's ``cap_overflow`` is
-            counts.append(torch.stack([
-                torch.stack([blk.num_edges() for blk in blocks]).sum(),
-                sum((blk.num_src - cap).clamp(min=0)
-                    for blk, cap in zip(blocks, self.caps[1:]))]))
-            tot += fstats
-            host_rows += min(int(fstats[1]), self.fcache.miss_cap)
-            stage_s += dt_stage
-            maybe_checkpoint_step(self.cfg.train, state, i, self.save)
+            run, lent = self._run(
+                "train", source, state, steps, b,
+                functools.partial(self._train_stage, state),
+                (state.generator,),
+                # a row past the last step's: a capture records the step
+                # after its warm-up's
+                lambda rows: torch.zeros((rows + 1, 3), dtype=torch.float64,
+                                         device=dev))
+            self._load(run, seeds_epoch, np.full(steps, b), labels_epoch)
+            given = uniforms if run.ubufs is not None else None
+            with lend(run.gens if lent else [], lent):
+                packed0 = self._prologue(run, given)
+                for i in range(steps):
+                    fstats, dt_stage, packed0 = self._advance(
+                        run, packed0, i, epoch * 1_000_003 + i, given,
+                        (i + 1) % steps)
+                    # batch i+1's hop-0 host leg runs at the top of the
+                    # next iteration, while the device still trains on
+                    # batch i
+                    run.step()
+                    state.step += 1
+                    tot += fstats
+                    host_rows += min(int(fstats[1]), self.fcache.miss_cap)
+                    stage_s += dt_stage
+                    maybe_checkpoint_step(self.cfg.train, state, i,
+                                          self.save)
+            # Adam's state exists now
+            run.ties = run_ties(state, self._tables())
 
         # the epoch's one read besides the packed arrays: losses, the
         # device counts and the host figures, summed over the ranks
@@ -381,10 +568,8 @@ class HybridTrainer:
             "hot", "cold", "host_topo_bytes", "host_topo_copied_bytes")]
         f64 = dict(dtype=torch.float64, device=dev)
         summed = self._sum_ranks(torch.cat([
-            torch.stack(losses).to(torch.float64) if losses
-            else torch.zeros(0, **f64),
-            torch.stack(counts).to(torch.float64).sum(0) if counts
-            else torch.zeros(2, **f64),
+            run.out[:steps, 0] if steps else torch.zeros(0, **f64),
+            run.out[:steps, 1:].sum(0) if steps else torch.zeros(2, **f64),
             torch.tensor(host, **f64)])).cpu()
         loss_h = summed[:steps].to(torch.float32).numpy()
         n_edges, cap_overflow, *host = summed[steps:].to(
@@ -404,7 +589,8 @@ class HybridTrainer:
             "host_topo_copied_gb": copied_b / 2 ** 30,
             "topo_hot_fraction": hot / max(hot + cold, 1),
             "fetches": d["fetches"], "cap_overflow": cap_overflow,
-            "edges_per_s": n_edges / dt, "stage_s": stage_s,
+            "edges": n_edges, "edges_per_s": n_edges / dt,
+            "stage_s": stage_s,
             "host_sample_s": d["host_sample_s"], "fetch_s": d["fetch_s"],
             **self._extra(tot),
         }
@@ -423,29 +609,24 @@ class HybridTrainer:
         of step t are seeded ``(777_000 + t) * 131 + hop``; the device
         uniforms come from a generator seeded 4242 unless given."""
         dev = self.device
-        steps = seeds.shape[0]
+        steps, b = seeds.shape
         if steps == 0:
             return float("nan")
         source = (uniforms if uniforms is not None else
                   torch.Generator(device=dev).manual_seed(4242))
-        seeds_d = torch.from_numpy(np.ascontiguousarray(seeds, np.int32)
-                                   ).to(dev)
-        counts_d = torch.from_numpy(np.ascontiguousarray(counts, np.int32)
-                                    ).to(dev)
-        labels_d = torch.from_numpy(np.ascontiguousarray(labels, np.int32)
-                                    ).to(dev)
-        acc = torch.zeros(2, dtype=torch.float32, device=dev)
-        carry, packed0 = self._prologue(seeds_d[0], counts_d[0], source)
-        for t in range(steps):
-            nxt = (t + 1) % steps
-            (blocks, frontier, num, plan, _, staged, _, carry,
-             packed0) = self._advance(carry, packed0, t, 777_000 + t, source,
-                                      nxt, seeds_d[nxt], counts_d[nxt])
-            batch = SampledBatch(seeds=seeds_d[t], labels=labels_d[t],
-                                 num_seeds=counts_d[t], frontier=frontier,
-                                 num_frontier=num, blocks=tuple(blocks))
-            a, b = self.eval_from(model, self.fcache.rows, batch, plan,
-                                  staged)
-            acc.add_(torch.stack([a, b]).float())
-        a, b = self._sum_ranks(acc).tolist()
+        run, lent = self._run(
+            "eval", source, model, steps, b,
+            functools.partial(self._eval_stage, model), (),
+            lambda rows: torch.zeros(2, dtype=torch.float32, device=dev))
+        self._load(run, seeds, counts, labels)
+        run.out.zero_()
+        given = source if run.ubufs is not None else None
+        with lend(run.gens if lent else [], lent):
+            packed0 = self._prologue(run, given)
+            for t in range(steps):
+                _, _, packed0 = self._advance(run, packed0, t, 777_000 + t,
+                                              given, (t + 1) % steps)
+                run.step()
+        run.ties = run_ties(model, self._tables())
+        a, b = self._sum_ranks(run.out.clone()).tolist()
         return a / max(b, 1.0)

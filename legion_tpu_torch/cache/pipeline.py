@@ -18,13 +18,28 @@ the stream running ahead of the host:
 
 Per step the host reads one packed array from the device and nothing
 else; losses and edge counts stay on the device until the epoch ends.
+
+The device stages are the reference's compiled programs
+(``jit_sample_plan``, ``jit_train_from``, ``jit_eval_from``): on a
+capturing ``GraphPool`` each is a CUDA graph (``train/graphed.py``'s
+``StageGraph`` / ``GraphedStep``) that replays between the host legs.
+A graph bakes in its tensors' addresses, and ``train.pipeline_depth`` = d
+batches are in flight at once, so there is one sample graph and one
+train (or eval) graph per slot, slot ``i % d`` serving step i; every
+tensor that crosses from one stage to the next (the batch, the plan, the
+packed array, the staged rows, the losses) lives in static buffers made
+outside the graphs' pool. The host legs stay eager between the replays:
+the packed read, the host gather of the misses and the copy of exactly
+their rows to the device, whose size changes from step to step. Without
+a capturing pool (the CPU, the eager comparison) the same stages run
+eagerly on the same buffers.
 """
 
 from __future__ import annotations
 
-import collections
+import functools
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +47,9 @@ import torch
 from legion_tpu_torch.cache.feature_cache import FeatureCache
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
+from legion_tpu_torch.train.graphed import (GraphedStep, GraphPool, HostRing,
+                                            Run, StageGraph, addresses, lend,
+                                            row_at, serving_run, state_ties)
 from legion_tpu_torch.train.loop import make_objective
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 maybe_checkpoint_step)
@@ -74,27 +92,16 @@ def make_cache_step_fns(cfg: Config, combine: Optional[Callable] = None,
     return train_from, eval_from
 
 
-class _Packed:
-    """The packed per-step statistics and miss ids on their way to the
-    host: a non-blocking copy into pinned memory and an event on CUDA, a
-    plain tensor on the CPU."""
-
-    def __init__(self, packed: torch.Tensor):
-        self.event = None
-        if packed.device.type == "cuda":
-            host = torch.empty(packed.shape, dtype=packed.dtype,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(packed.device))
-            packed = host
-        self.host = packed
-
-    def numpy(self) -> np.ndarray:
-        """Wait for this step's copy only, not for the whole stream."""
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+def run_ties(owner, tables) -> Tuple:
+    """What a staged run's graphs were captured on: a ``TrainState`` (its
+    generator, hyperparameters and tensors, as ``EpochScan`` ties them)
+    or an eval model's parameters, and the device tables the stages
+    read."""
+    if isinstance(owner, TrainState):
+        own = state_ties(owner)
+    else:
+        own = (id(owner), addresses(owner.parameters()))
+    return own + (addresses(tables),)
 
 
 class CachedTrainer:
@@ -108,14 +115,17 @@ class CachedTrainer:
     matrix, so a striped cache (``cache/striped_pipeline.py``) runs the
     same pipeline; ``_sum_ranks`` is where it sums an epoch's figures over
     the ranks, and ``save`` (None: ``train_state.save_checkpoint``) is how
-    a mid-epoch checkpoint is written."""
+    a mid-epoch checkpoint is written. ``pool``: where the device stages
+    are captured (None: they run eagerly); the train and eval graphs
+    share it."""
 
     n_stats = 5
     save: Optional[Callable] = None
 
     def __init__(self, cfg: Config, model: torch.nn.Module, caps,
                  graph: DeviceGraph, cache: FeatureCache,
-                 reducer: Optional[Callable] = None):
+                 reducer: Optional[Callable] = None,
+                 pool: Optional[GraphPool] = None):
         self.cfg = cfg
         self.model = model
         self.caps = tuple(caps)
@@ -123,9 +133,16 @@ class CachedTrainer:
         self.cache = cache
         self.device = graph.indptr.device
         self.fanouts = tuple(cfg.sampler.fanouts)
+        self.pool = pool
+        self.runs: Dict[Tuple[str, bool], Run] = {}
         self.train_from, self.eval_from = make_cache_step_fns(
             cfg, combine=lambda rows, plan, staged, frontier:
             cache.combine(plan, staged, frontier), reducer=reducer)
+
+    def release(self) -> None:
+        """Drop the captured stages and their buffers (a rebuilt cache
+        captures anew)."""
+        self.runs.clear()
 
     def _plan(self, frontier):
         """(the cache plan, the cache's own statistics beyond the plan's:
@@ -133,9 +150,9 @@ class CachedTrainer:
         return self.cache.plan(frontier), []
 
     def sample_plan(self, generator, seeds, num_seeds, labels, uniforms=None):
-        """Enqueue sampling and the cache plan of one batch, and start the
-        packed copy to the host. ``uniforms`` (per-hop tensors) replace the
-        generator's sampling draws (parity tests)."""
+        """Sampling and the cache plan of one batch on the device: (batch,
+        plan, packed statistics and miss ids). ``uniforms`` (per-hop
+        tensors) replace the generator's sampling draws (parity tests)."""
         draws = (dict(generator=generator) if uniforms is None
                  else dict(generator=None, uniforms=uniforms))
         batch = sample_batch(self.graph, seeds, num_seeds, labels,
@@ -148,34 +165,131 @@ class CachedTrainer:
             torch.stack([plan.num_hit, plan.num_miss, plan.num_valid,
                          plan.overflow(), edges] + extra),
             plan.miss_ids])
-        return batch, plan, _Packed(packed)
+        return batch, plan, packed
 
-    def stage(self, miss_ids: np.ndarray) -> torch.Tensor:
-        """The staged rows of ``miss_ids`` on their way to the device
-        (``FeatureCache.stage_to``)."""
-        return self.cache.stage_to(self.device, miss_ids)
+    def stage(self, miss_ids: np.ndarray, host: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+        """The rows of ``miss_ids`` gathered into ``host`` and on their way
+        to ``out`` (``FeatureCache.stage_to``)."""
+        return self.cache.stage_to(self.device, miss_ids, out=out, host=host)
 
-    def _pipeline(self, steps, dispatch, consume):
-        """Run ``dispatch(i)`` ``train.pipeline_depth`` steps ahead of
-        ``consume(i, ...)``; returns the host seconds spent reading the
-        packed arrays and staging."""
-        depth = self.cfg.train.pipeline_depth
-        ns = self.n_stats
-        inflight = collections.deque()
+    def _tables(self):
+        return (self.graph.indptr, self.graph.indices, self.cache.rows,
+                self.cache.hot_ids)
+
+    def _build(self, rows: int, width: int, generator: torch.Generator,
+               consume: Callable, consume_gens, injected: bool,
+               out: torch.Tensor) -> Run:
+        """A pipelined pass's static buffers and stages: per slot a sample
+        graph (drawing from ``generator`` unless the uniforms are given)
+        and a ``consume(run, slot)`` graph (drawing from
+        ``consume_gens``). The sample stages read row ``run.sampled`` of
+        the seeds and advance it; ``out`` collects what the consume stages
+        report. The rows hold one padding row past the last step's: a
+        capture records the step after its warm-up's."""
+        dev, d = self.device, self.cfg.train.pipeline_depth
+        i32 = dict(dtype=torch.int32, device=dev)
+        rows_d = self.cache.rows
+        run = Run(rows, width, None,
+                  seeds=torch.full((rows + 1, width), -1, **i32),
+                  labels=torch.full((rows + 1, width), -1, **i32),
+                  nums=torch.zeros((rows + 1,), **i32),
+                  sampled=torch.zeros((1,), dtype=torch.int64, device=dev),
+                  done=torch.zeros((1,), dtype=torch.int64, device=dev),
+                  ubufs=[torch.empty((c, f), dtype=torch.float32, device=dev)
+                         for c, f in zip(self.caps, self.fanouts)]
+                  if injected else None,
+                  staged=torch.empty((self.cache.miss_cap, rows_d.shape[1]),
+                                     dtype=rows_d.dtype, device=dev),
+                  packed=HostRing(dev, d), staging=HostRing(dev, d),
+                  gen=generator, out=out)
+
+        def sample():
+            i = run.sampled
+            res = self.sample_plan(run.gen, row_at(run.seeds, i),
+                                   row_at(run.nums, i),
+                                   row_at(run.labels, i), run.ubufs)
+            i.add_(1)
+            return res
+
+        draws = () if injected else (generator,)
+        run.sample = [StageGraph(sample, self.pool, draws) for _ in range(d)]
+        run.consume = [GraphedStep(functools.partial(consume, run, s),
+                                   self.pool, consume_gens)
+                       for s in range(d)]
+        return run
+
+    def _train_stage(self, state: TrainState, run: Run, slot: int) -> None:
+        batch, plan, _ = run.sample[slot].out
+        step = state.step
+        loss = self.train_from(state, self.cache.rows, batch, plan,
+                               run.staged)
+        # the host counts the step (``run_epoch``): a replay runs no Python
+        state.step = step
+        run.out.index_copy_(0, run.done, loss.to(torch.float64)[None])
+        run.done.add_(1)
+
+    def _eval_stage(self, model: torch.nn.Module, run: Run,
+                    slot: int) -> None:
+        batch, plan, _ = run.sample[slot].out
+        a, b = self.eval_from(model, self.cache.rows, batch, plan,
+                              run.staged)
+        run.out.add_(torch.stack([a, b]).float())
+
+    def _pipeline(self, run: Run, steps: int, uniforms: Optional[Callable],
+                  consume: Callable):
+        """Replay slot ``i % d``'s sample stage ``d`` =
+        ``train.pipeline_depth`` steps ahead of its consume stage, with
+        the host legs between them, and ``consume(i, packed)`` on the host
+        after each step; returns the host seconds spent reading the packed
+        arrays and staging.
+
+        The host rings. At step i the host waits for packed(i)'s event,
+        recorded after sample(i), which was enqueued at step i-d: before
+        the staged-row copies of steps i-d+1 .. i-1. Those copies may
+        still be pending, so one pinned staging buffer would be written
+        under them; a ring of d is not, since slot i % d was last read by
+        the copy of step i-d, enqueued before sample(i). Packed(i + d) is
+        fetched into slot i % d after the host has read step i's. The
+        device's staged rows need one buffer: copy(i) is enqueued after
+        train(i-1), which reads the last ones."""
+        d = len(run.sample)
+        ns, miss_cap = self.n_stats, self.cache.miss_cap
         stage_s = 0.0
-        for i in range(min(depth, steps)):
-            inflight.append(dispatch(i))
+
+        def dispatch(i):
+            if uniforms is not None:
+                for k, buf in enumerate(run.ubufs):
+                    buf.copy_(uniforms(i, k))
+            run.packed.fetch(i % d, run.sample[i % d]()[2])
+
+        for i in range(min(d, steps)):
+            dispatch(i)
         for i in range(steps):
-            batch, plan, packed = inflight.popleft()
+            s = i % d
             t = time.perf_counter()
-            p = packed.numpy()
-            n_miss = int(p[1])
-            staged = self.stage(p[ns:ns + min(n_miss, self.cache.miss_cap)])
+            p = run.packed.numpy(s)
+            n_miss = min(int(p[1]), miss_cap)
+            self.stage(p[ns:ns + n_miss], run.staging.buffer(
+                s, run.staged.shape, run.staged.dtype), run.staged)
             stage_s += time.perf_counter() - t
-            consume(i, batch, plan, staged, p)
-            if i + depth < steps:
-                inflight.append(dispatch(i + depth))
+            run.consume[s]()
+            consume(i, p)
+            if i + d < steps:
+                dispatch(i + d)
         return stage_s
+
+    @staticmethod
+    def _load(run: Run, seeds: np.ndarray, nums, labels: np.ndarray) -> None:
+        """An epoch's seeds, seed counts and labels into the run's static
+        rows, and its counters to the first row."""
+        steps = seeds.shape[0]
+        for buf, x in ((run.seeds, seeds), (run.nums, nums),
+                       (run.labels, labels)):
+            buf[:steps].copy_(torch.from_numpy(np.ascontiguousarray(
+                x, np.int32)))
+        run.sampled.zero_()
+        run.done.zero_()
 
     def _sum_ranks(self, t: torch.Tensor) -> torch.Tensor:
         """An epoch's figures as every rank holds them: here the one
@@ -193,33 +307,30 @@ class CachedTrainer:
         steps, b = seeds_epoch.shape
         dev = self.device
         t0 = time.perf_counter()
-        seeds_d = torch.from_numpy(np.ascontiguousarray(
-            seeds_epoch, np.int32)).to(dev)
-        labels_d = torch.from_numpy(np.ascontiguousarray(
-            labels_epoch, np.int32)).to(dev)
-        nb = torch.full((), b, dtype=torch.int32, device=dev)
-        ns, hops = self.n_stats, range(len(self.fanouts))
-        losses = []
+        injected = uniforms is not None
+        ties = run_ties(state, self._tables())
+        run = serving_run(
+            self.runs, ("train", injected), steps, b, ties,
+            lambda rows: self._build(
+                rows, b, state.generator,
+                functools.partial(self._train_stage, state),
+                (state.generator,), injected,
+                torch.zeros((rows + 1,), dtype=torch.float64, device=dev)))
+        self._load(run, seeds_epoch, np.full(steps, b), labels_epoch)
+        ns = self.n_stats
         tot = np.zeros(ns + 1, np.int64)       # the stats, then host rows
 
-        def dispatch(i):
-            u = (None if uniforms is None
-                 else [uniforms(i, k) for k in hops])
-            return self.sample_plan(state.generator, seeds_d[i], nb,
-                                    labels_d[i], u)
-
-        def consume(i, batch, plan, staged, p):
-            losses.append(self.train_from(state, self.cache.rows, batch,
-                                          plan, staged))
+        def consume(i, p):
+            state.step += 1
             tot[:ns] += p[:ns]
             tot[ns] += min(int(p[1]), self.cache.miss_cap)
             maybe_checkpoint_step(self.cfg.train, state, i, self.save)
 
-        stage_s = self._pipeline(steps, dispatch, consume)
+        stage_s = self._pipeline(run, steps, uniforms, consume)
+        run.ties = run_ties(state, self._tables())  # Adam's state exists now
         # the epoch's only reads besides the per-step packed arrays
         summed = self._sum_ranks(torch.cat([
-            torch.stack(losses).to(torch.float64) if losses
-            else torch.zeros(0, dtype=torch.float64, device=dev),
+            run.out[:steps],
             torch.from_numpy(tot.astype(np.float64)).to(dev)])).cpu()
         loss_h = summed[:steps].to(torch.float32).numpy()
         tot = summed[steps:].to(torch.int64).numpy()
@@ -247,33 +358,28 @@ class CachedTrainer:
         """Accuracy (for ``lp_sage`` the mean LP loss per valid pair) over
         (steps, batch) eval seeds through the cached feature path,
         pipelined like ``run_epoch`` and summed on the device (and over
-        the ranks): one fetch for the epoch."""
+        the ranks): one fetch for the epoch. The samples draw from
+        ``generator`` (default: one seeded 4242), through a generator of
+        the run's own that takes its state and hands it back, so that the
+        run's graphs serve every call."""
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(4242)
-        steps = seeds.shape[0]
+        steps, b = seeds.shape
         if steps == 0:
             return float("nan")
-        seeds_d = torch.from_numpy(np.ascontiguousarray(seeds, np.int32)
-                                   ).to(dev)
-        counts_d = torch.from_numpy(np.ascontiguousarray(counts, np.int32)
-                                    ).to(dev)
-        labels_d = torch.from_numpy(np.ascontiguousarray(labels, np.int32)
-                                    ).to(dev)
-        acc = torch.zeros(2, dtype=torch.float32, device=dev)
-        hops = range(len(self.fanouts))
-
-        def dispatch(t):
-            u = (None if uniforms is None
-                 else [uniforms(t, k) for k in hops])
-            return self.sample_plan(generator, seeds_d[t], counts_d[t],
-                                    labels_d[t], u)
-
-        def consume(t, batch, plan, staged, p):
-            a, b = self.eval_from(model, self.cache.rows, batch, plan,
-                                  staged)
-            acc.add_(torch.stack([a, b]).float())
-
-        self._pipeline(steps, dispatch, consume)
-        a, b = self._sum_ranks(acc).tolist()
+        injected = uniforms is not None
+        run = serving_run(
+            self.runs, ("eval", injected), steps, b,
+            run_ties(model, self._tables()),
+            lambda rows: self._build(
+                rows, b, torch.Generator(device=dev),
+                functools.partial(self._eval_stage, model), (), injected,
+                torch.zeros(2, dtype=torch.float32, device=dev)))
+        self._load(run, seeds, counts, labels)
+        run.out.zero_()
+        with lend([run.gen], [generator]):
+            self._pipeline(run, steps, uniforms, lambda i, p: None)
+        run.ties = run_ties(model, self._tables())
+        a, b = self._sum_ranks(run.out.clone()).tolist()
         return a / max(b, 1.0)

@@ -22,6 +22,12 @@ at every group size (the reference folds only the data index into the
 group's key for the same purpose). On one rank the grid is drawn from the
 state's generator, as ``HybridTrainer`` draws it, so that a one-rank run is
 ``run_hybrid_training``. Dropout and the host legs draw per rank.
+
+The stages are ``HybridTrainer``'s, captured on a NCCL group
+(``parallel.mesh.captures_steps``) with the hot hops' and the features'
+exchanges and the gradient's all-reduce inside the graphs, and eager over
+gloo. The group's generators lend their state to generators of the run's
+own for each pass, which the graphs are registered with.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from legion_tpu_torch.cache.striped import (StripedFeatureCache,
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.parallel.dp import GradMean, save_every_rank
 from legion_tpu_torch.parallel.mesh import Mesh
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.utils import comm
 
@@ -55,9 +62,10 @@ class StripedHybridTrainer(HybridTrainer):
                  topo: StripedTopoCache, host_indptr: np.ndarray,
                  host_indices: np.ndarray, fcache: StripedFeatureCache,
                  mesh: Mesh,
-                 topo_owner_caps: Optional[Sequence[Optional[int]]] = None):
+                 topo_owner_caps: Optional[Sequence[Optional[int]]] = None,
+                 pool: Optional[GraphPool] = None):
         super().__init__(cfg, model, caps, topo, host_indptr, host_indices,
-                         fcache, reducer=GradMean(model))
+                         fcache, reducer=GradMean(model), pool=pool)
         hops = len(self.fanouts)
         self.topo_owner_caps = (tuple(topo_owner_caps) if topo_owner_caps
                                 else (None,) * hops)
@@ -75,21 +83,19 @@ class StripedHybridTrainer(HybridTrainer):
             rank_seed(seed, m.data_rank * m.cache + c))
             for c in range(m.cache)]
 
-    def _uniform(self, source, step: int, hop: int) -> torch.Tensor:
+    def _uniform_shape(self, hop: int):
+        """The group's (k*M, fanout) grid of hop ``hop``."""
+        return (self.mesh.cache * self.caps[hop], self.fanouts[hop])
+
+    def _draw(self, gens, hop: int) -> torch.Tensor:
+        """The grid from the state's generator (one rank) or from one
+        generator per rank of the group, each drawing its (M, fanout)
+        rows."""
+        if len(gens) == 1:
+            return super()._draw(gens, hop)
         shape = (self.caps[hop], self.fanouts[hop])
-        if isinstance(source, torch.Generator):      # one rank: the state's
-            return super()._uniform(source, step, hop)
-        if isinstance(source, (list, tuple)):
-            return torch.cat([torch.rand(shape, generator=g,
-                                         device=self.device,
-                                         dtype=torch.float32)
-                              for g in source])
-        u = source(step, hop)
-        want = (self.mesh.cache * shape[0], shape[1])
-        if tuple(u.shape) != want or u.dtype != torch.float32:
-            raise ValueError(f"uniforms({step}, {hop}) is {u.dtype} "
-                             f"{tuple(u.shape)}, want float32 {want}")
-        return u.to(self.device)
+        return torch.cat([torch.rand(shape, generator=g, device=self.device,
+                                     dtype=torch.float32) for g in gens])
 
     def _hot(self, frontier, u, hop: int):
         return self.topo.sample_hot(frontier, u, cap=self.topo_owner_caps[hop])

@@ -10,7 +10,9 @@ owners and the misses staged from host memory by each rank for itself
 ``cache/pipeline.py``'s: one packed device -> host read a step, which here
 also carries the exchange's demoted hits (``exchange_overflow``); the
 losses and counts stay on the device and one all-reduce an epoch sums them
-over the ranks.
+over the ranks. The stages are ``CachedTrainer``'s: captured on a NCCL
+group (``parallel.mesh.captures_steps``), the exchange's collectives and
+the gradient's all-reduce inside the train graphs, eager over gloo.
 
 On one rank this trainer is the ``CachedTrainer``: the same generator
 stream, plan and rows, so the same losses.
@@ -18,7 +20,7 @@ stream, plan and rows, so the same losses.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,6 +30,7 @@ from legion_tpu_torch.cache.striped import StripedFeatureCache
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.parallel.dp import GradMean, save_every_rank
 from legion_tpu_torch.sampling.sampler import DeviceGraph
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.utils import comm
 
 
@@ -41,9 +44,10 @@ class StripedCachedTrainer(CachedTrainer):
     n_stats = 6
 
     def __init__(self, cfg: Config, model: torch.nn.Module, caps,
-                 graph: DeviceGraph, cache: StripedFeatureCache):
+                 graph: DeviceGraph, cache: StripedFeatureCache,
+                 pool: Optional[GraphPool] = None):
         super().__init__(cfg, model, caps, graph, cache,
-                         reducer=GradMean(model))
+                         reducer=GradMean(model), pool=pool)
         self.world = torch.distributed.get_world_size()
         self.save = save_every_rank
 

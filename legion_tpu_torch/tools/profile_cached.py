@@ -7,15 +7,17 @@ from the repository root, on a machine with the card. It runs
 ``run_cached_training`` on ``pa_cell``'s configuration (with ``hybrid``:
 ``run_hybrid_training`` on ``hybrid_cell``'s) and dataset (generated into
 ``.bench_cache/`` on first use) for three epochs and traces epoch 1
-(epoch 0 warms up) under ``torch.profiler``. It prints one JSON line:
-every epoch's ms/step, staging seconds, hit rate, host GB and edges/s (for
-the hybrid path also the hot fraction and the host sampler's and the
-packed reads' seconds); for the profiled epoch the wall time, the
-device-busy time (the self device times of the CUDA kernels and copies, summed: one
-stream, so nothing overlaps), the idle share ``1 - busy / wall``, the
-largest device rows and the largest host rows. Ranges that the profiler
-mirrors onto the device timeline (``Optimizer.step#Adam.step``) are not
-summed, since the kernels inside them are.
+under ``torch.profiler``: epoch 0 warms up and captures the pipeline's
+device stages, so epoch 1 replays them (the steady state). It prints one
+JSON line: every epoch's ms/step, staging seconds, hit rate, host GB and
+edges/s (for the hybrid path also the hot fraction and the host
+sampler's and the packed reads' seconds); for the profiled epoch the wall
+time, the device-busy time (``device_busy_ms``: the union of the spans
+of the device's kernels and copies, as ``chip_smoke.py::replay_profile``
+reads a replay), the idle share ``1 - busy / wall``, the largest device
+rows and the largest host rows. Ranges that the profiler mirrors onto
+the device timeline (``Optimizer.step#Adam.step``) are not counted,
+since the kernels inside them are.
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ PATHS = {
                 "topo_hot_fraction", "host_feat_gb", "host_topo_gb",
                 "edges_per_s", "staging_overflow", "fetches")),
 }
+
+
+def device_busy_ms(events) -> float:
+    """Milliseconds of the device covered by the spans of ``events``
+    (profiler device records), each overlap once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
 
 
 def _rows(events, key, n):
@@ -83,7 +100,10 @@ def main(path: str = "cached") -> None:
         dev = [e for e in ev
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in host]
-        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        busy = device_busy_ms(
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and e.name not in host)
         wall = r["seconds"] * 1e3
         profiled.update(
             epoch=PROFILED_EPOCH, steps=r["steps"], wall_ms=wall,

@@ -32,6 +32,7 @@ from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -159,7 +160,8 @@ def run_cached_training(cfg: Config, data: GraphData,
             f"epoch {state.epoch}")
 
     # ---- training (Run) ---------------------------------------------------
-    tr = CachedTrainer(cfg, model, caps, graph, cache)
+    # the pipeline's device stages are captured on a CUDA device
+    tr = CachedTrainer(cfg, model, caps, graph, cache, pool=GraphPool(device))
     history = []
     labels_all = np.asarray(data.labels)
     vlab, tlab = eval_labels(cfg)
@@ -192,7 +194,10 @@ def run_cached_training(cfg: Config, data: GraphData,
             log(f"staging overflow -> growing miss_cap to {miss_cap}")
             cache = FeatureCache(cache.hot_ids, cache.rows,
                                  cache.host_features, miss_cap)
-            tr = CachedTrainer(cfg, model, caps, graph, cache)
+            # the old stages' graphs go; the new staging is captured anew
+            tr.release()
+            tr = CachedTrainer(cfg, model, caps, graph, cache,
+                               pool=GraphPool(device))
         r["epoch"] = epoch
         r["valid"] = eval_set(np.asarray(data.valid_ids))
         state.epoch = epoch + 1

@@ -50,10 +50,20 @@ communicators, on its side stream, before anything is captured, and
 NCCL work from before the capture is pending. The default (global)
 capture mode serves: NCCL's watchdog thread does not break it, also
 right after eager NCCL work. Over gloo the same step runs eagerly.
+
+Staged steps (``cache/pipeline.py``, ``cache/hybrid.py``): a step that
+reads a packed array back to the host in its middle is several graphs,
+one per device stage (``StageGraph``: a ``GraphedStep`` whose results
+land in static buffers cloned at its first run), replayed between the
+host legs, whose copies go through pinned ``HostRing`` slots. Several
+graphs may register one generator: each replay advances it by its own
+draws, in the order the stages replay, as the eager stages would.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -160,14 +170,130 @@ class GraphedStep:
         self.capture_s = time.perf_counter() - t0
 
 
-def _row(buf: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+def store(dst, src):
+    """``src``'s tensors written into ``dst``'s, a structure of the same
+    shape (tensors, tuples, lists, dataclasses), or cloned when ``dst`` is
+    None; other leaves are kept from the first. Returns ``dst``."""
+    if dst is None:
+        if isinstance(src, torch.Tensor):
+            return src.clone()
+        if dataclasses.is_dataclass(src):
+            return dataclasses.replace(src, **{
+                f.name: store(None, getattr(src, f.name))
+                for f in dataclasses.fields(src)})
+        if isinstance(src, (tuple, list)):
+            items = [store(None, x) for x in src]
+            return (type(src)(*items) if hasattr(src, "_fields")
+                    else type(src)(items))
+        return src
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            store(getattr(dst, f.name), getattr(src, f.name))
+    elif isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src, strict=True):
+            store(d, s)
+    return dst
+
+
+class StageGraph:
+    """A device stage of a staged pipeline (``cache/pipeline.py``,
+    ``cache/hybrid.py``): ``fn()`` as a ``GraphedStep`` whose results land
+    in static buffers, ``out``, which the stages after it read. The first
+    run (eager, the capture's warm-up) clones its results into ``out``,
+    outside any graph's pool; every later run copies into them. So no
+    graph leaves a value in the shared pool that another graph or the
+    host reads later, and the stages may replay in any order."""
+
+    def __init__(self, fn: Callable, pool: Optional[GraphPool],
+                 generators: Sequence[torch.Generator] = ()):
+        self.fn = fn
+        self.out = None
+        self.step = GraphedStep(self._body, pool, generators)
+
+    def _body(self) -> None:
+        self.out = store(self.out, self.fn())
+
+    def __call__(self):
+        self.step()
+        return self.out
+
+
+class HostRing:
+    """Host buffers of a staged pipeline's host legs: ``slots`` of them,
+    pinned on CUDA and made at the first use of each. ``fetch(slot, src)``
+    starts the device->host copy of ``src`` into slot ``slot`` and records
+    an event behind it; ``numpy(slot)`` waits for that event alone, never
+    for the stream, and returns the slot as a numpy view (valid until the
+    slot's next fetch). ``buffer(slot, shape, dtype)`` is a slot for a copy
+    up (host->device), which the caller orders on the stream."""
+
+    def __init__(self, device: torch.device, slots: int = 1):
+        self.cuda = torch.device(device).type == "cuda"
+        self.bufs: List[Optional[torch.Tensor]] = [None] * slots
+        self.events = [None] * slots
+
+    def buffer(self, slot: int, shape, dtype) -> torch.Tensor:
+        if self.bufs[slot] is None:
+            self.bufs[slot] = torch.empty(shape, dtype=dtype,
+                                          pin_memory=self.cuda)
+        return self.bufs[slot]
+
+    def fetch(self, slot: int, src: torch.Tensor) -> None:
+        self.buffer(slot, src.shape, src.dtype).copy_(src,
+                                                      non_blocking=self.cuda)
+        if self.cuda:
+            if self.events[slot] is None:
+                self.events[slot] = torch.cuda.Event()
+            self.events[slot].record(torch.cuda.current_stream(src.device))
+
+    def numpy(self, slot: int):
+        if self.events[slot] is not None:
+            self.events[slot].synchronize()
+        return self.bufs[slot].numpy()
+
+
+@contextlib.contextmanager
+def lend(owned: Sequence[torch.Generator],
+         sources: Sequence[torch.Generator]):
+    """For a pass, ``owned`` (generators that a run's graphs are
+    registered with) take the states of ``sources``, and hand them back
+    after it: the run's graphs serve callers that bring generators of
+    their own."""
+    for own, src in zip(owned, sources, strict=True):
+        own.set_state(src.get_state())
+    yield
+    for own, src in zip(owned, sources):
+        src.set_state(own.get_state())
+
+
+def pool_bytes(pool: Optional[GraphPool]) -> int:
+    """The device bytes of the segments ``pool`` holds (0 without one)."""
+    if pool is None or pool.handle is None:
+        return 0
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool.handle))
+
+
+def row_at(buf: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
     """Row ``counter`` of a static buffer, selected on the device (a 0-d
     tensor used as an index would be read back by the host)."""
     return buf.index_select(0, counter)[0]
 
 
-def _addresses(tensors) -> Tuple:
+def addresses(tensors) -> Tuple:
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+def state_ties(state: TrainState) -> Tuple:
+    """What a train step's graph is tied to in its state: the state, its
+    generator, the optimizer's hyperparameters and every tensor's
+    address."""
+    hyper = [sorted((k, repr(v)) for k, v in g.items() if k != "params")
+             for g in state.optimizer.param_groups]
+    return (id(state), id(state.generator), hyper,
+            addresses(state_tensors(state)))
 
 
 def _graph_tensors(graph) -> Tuple[torch.Tensor, ...]:
@@ -177,10 +303,12 @@ def _graph_tensors(graph) -> Tuple[torch.Tensor, ...]:
     return tuple(t for t in fields if isinstance(t, torch.Tensor))
 
 
-class _Run:
-    """One scan's static buffers, its step and what it was captured on."""
+class Run:
+    """One scan's static buffers, its step (or a staged pipeline's stages)
+    and what it was captured on."""
 
-    def __init__(self, rows: int, batch: int, step: GraphedStep, **buffers):
+    def __init__(self, rows: int, batch: int, step: Optional[GraphedStep],
+                 **buffers):
         self.rows, self.batch, self.step = rows, batch, step
         self.ties: Optional[Tuple] = None
         for name, buf in buffers.items():
@@ -188,6 +316,22 @@ class _Run:
 
     def serves(self, steps: int, batch: int, ties: Tuple) -> bool:
         return steps <= self.rows and batch == self.batch and ties == self.ties
+
+
+def serving_run(runs: Dict, key, steps: int, width: int, ties: Tuple,
+                build: Callable[[int], Run]) -> Run:
+    """``runs[key]`` if it serves ``steps`` rows of ``width`` on ``ties``,
+    else a new run from ``build(rows)`` in its place (its graphs dropped
+    before the new ones are captured)."""
+    run = runs.pop(key, None)
+    # valid and test differ in steps: a run serves up to its rows
+    rows = steps if run is None else max(steps, run.rows)
+    if run is not None and not run.serves(steps, width, ties):
+        run = None
+    if run is None:
+        run = build(rows)
+    runs[key] = run
+    return run
 
 
 def _uniform_buffers(shapes, uniforms, device):
@@ -206,20 +350,12 @@ class _Scan:
         self.step_fn = step_fn
         self.pool = pool
         self.uniform_shapes = tuple(uniform_shapes)
-        self.runs: Dict[bool, _Run] = {}      # uniforms given? -> run
+        self.runs: Dict[bool, Run] = {}      # uniforms given? -> run
 
     def _run(self, uniforms, steps: int, width: int, ties: Tuple,
-             build: Callable[[int], _Run]) -> _Run:
-        key = uniforms is not None
-        run = self.runs.pop(key, None)
-        # valid and test differ in steps: a run serves up to its rows
-        rows = steps if run is None else max(steps, run.rows)
-        if run is not None and not run.serves(steps, width, ties):
-            run = None                # its graph goes before the next capture
-        if run is None:
-            run = build(rows)
-        self.runs[key] = run
-        return run
+             build: Callable[[int], Run]) -> Run:
+        return serving_run(self.runs, uniforms is not None, steps, width,
+                           ties, build)
 
 
 class EpochScan(_Scan):
@@ -235,13 +371,10 @@ class EpochScan(_Scan):
 
     @staticmethod
     def _ties(state: TrainState, graph, feats) -> Tuple:
-        hyper = [sorted((k, repr(v)) for k, v in g.items() if k != "params")
-                 for g in state.optimizer.param_groups]
-        return (id(state), id(state.generator), hyper,
-                _addresses(state_tensors(state)),
-                _addresses(_graph_tensors(graph) + (feats,)))
+        return state_ties(state) + (
+            addresses(_graph_tensors(graph) + (feats,)),)
 
-    def _build(self, state, graph, feats, rows, batch, uniforms) -> _Run:
+    def _build(self, state, graph, feats, rows, batch, uniforms) -> Run:
         dev = feats.device
         seeds = torch.empty((rows, batch), dtype=torch.int32, device=dev)
         labels = torch.empty_like(seeds)
@@ -253,15 +386,15 @@ class EpochScan(_Scan):
         train_step = self.step_fn
 
         def body():
-            m = train_step(state, graph, feats, _row(seeds, counter), num,
-                           _row(labels, counter), uniforms=ubufs)
+            m = train_step(state, graph, feats, row_at(seeds, counter), num,
+                           row_at(labels, counter), uniforms=ubufs)
             row = torch.stack([m[k].to(torch.float64) for k in METRICS])
             metrics.index_copy_(0, counter, row[None])
             counter.add_(1)
 
         step = GraphedStep(body, self.pool, (state.generator,))
-        return _Run(rows, batch, step, seeds=seeds, labels=labels,
-                    counter=counter, metrics=metrics, ubufs=ubufs)
+        return Run(rows, batch, step, seeds=seeds, labels=labels,
+                   counter=counter, metrics=metrics, ubufs=ubufs)
 
     def __call__(self, state: TrainState, graph, feats: torch.Tensor,
                  seeds_epoch: torch.Tensor, labels_epoch: torch.Tensor,
@@ -294,11 +427,11 @@ class EvalScan(_Scan):
 
     @staticmethod
     def _ties(model, graph, feats, generator) -> Tuple:
-        return (id(model), id(generator), _addresses(model.parameters()),
-                _addresses(_graph_tensors(graph) + (feats,)))
+        return (id(model), id(generator), addresses(model.parameters()),
+                addresses(_graph_tensors(graph) + (feats,)))
 
     def _build(self, model, graph, feats, generator, rows, cap,
-               uniforms) -> _Run:
+               uniforms) -> Run:
         dev = feats.device
         seeds = torch.empty((rows, cap), dtype=torch.int32, device=dev)
         labels = torch.empty_like(seeds)
@@ -309,15 +442,15 @@ class EvalScan(_Scan):
         eval_step = self.step_fn
 
         def body():
-            a, b = eval_step(model, graph, feats, _row(seeds, counter),
-                             _row(counts, counter), _row(labels, counter),
+            a, b = eval_step(model, graph, feats, row_at(seeds, counter),
+                             row_at(counts, counter), row_at(labels, counter),
                              generator=generator, uniforms=ubufs)
             acc.add_(torch.stack([a.float(), b.float()]))
             counter.add_(1)
 
         step = GraphedStep(body, self.pool, (generator,))
-        return _Run(rows, cap, step, seeds=seeds, labels=labels,
-                    counts=counts, counter=counter, acc=acc, ubufs=ubufs)
+        return Run(rows, cap, step, seeds=seeds, labels=labels,
+                   counts=counts, counter=counter, acc=acc, ubufs=ubufs)
 
     def __call__(self, model, graph, feats: torch.Tensor,
                  seeds_epoch: torch.Tensor, counts: torch.Tensor,

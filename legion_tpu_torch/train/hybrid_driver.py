@@ -36,6 +36,7 @@ from legion_tpu_torch.models import build_model
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -147,7 +148,9 @@ def run_hybrid_training(cfg: Config, data: GraphData,
         log(f"resumed from checkpoint at step {state.step}, "
             f"epoch {state.epoch}")
 
-    tr = HybridTrainer(cfg, model, caps, topo, indptr, indices, cache)
+    # the pipeline's device stages are captured on a CUDA device
+    tr = HybridTrainer(cfg, model, caps, topo, indptr, indices, cache,
+                       pool=GraphPool(device))
     labels_all = np.asarray(data.labels)
     vlab, tlab = eval_labels(cfg)
 

@@ -34,13 +34,14 @@ from legion_tpu_torch.models import build_model
 from legion_tpu_torch.parallel.dp import save_every_rank
 from legion_tpu_torch.parallel.feature_exchange import (owner_counts,
                                                         probed_owner_cap)
-from legion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from legion_tpu_torch.parallel.mesh import Mesh, captures_steps, make_mesh
 from legion_tpu_torch.parallel.trainer import _quiet
 from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint)
@@ -185,7 +186,10 @@ def run_striped_training(cfg: Config, data: GraphData,
             f"epoch {state.epoch}")
 
     # ---- training (Run) ------------------------------------------------------
-    tr = StripedCachedTrainer(cfg, model, caps, graph, cache)
+    # the pipeline's device stages are captured on a NCCL group
+    capture = captures_steps(device)
+    tr = StripedCachedTrainer(cfg, model, caps, graph, cache,
+                              pool=GraphPool(device) if capture else None)
     labels_all = np.asarray(data.labels)
     vlab, tlab = eval_labels(cfg)
 
@@ -215,7 +219,11 @@ def run_striped_training(cfg: Config, data: GraphData,
             cache = StripedFeatureCache(cache.hot_ids, cache.rows,
                                         cache.host_features, miss_cap,
                                         cache.group, cache.owner_cap_rows)
-            tr = StripedCachedTrainer(cfg, model, caps, graph, cache)
+            # the old stages' graphs go; the new staging is captured anew
+            tr.release()
+            tr = StripedCachedTrainer(
+                cfg, model, caps, graph, cache,
+                pool=GraphPool(device) if capture else None)
         r["epoch"] = epoch
         r["valid"] = eval_set(np.asarray(data.valid_ids))
         state.epoch = epoch + 1

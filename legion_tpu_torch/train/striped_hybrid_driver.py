@@ -33,11 +33,12 @@ from legion_tpu_torch.data.format import GraphData
 from legion_tpu_torch.models import build_model
 from legion_tpu_torch.parallel.dp import save_every_rank
 from legion_tpu_torch.parallel.feature_exchange import probed_owner_cap
-from legion_tpu_torch.parallel.mesh import Mesh, make_mesh
+from legion_tpu_torch.parallel.mesh import Mesh, captures_steps, make_mesh
 from legion_tpu_torch.parallel.trainer import _quiet
 from legion_tpu_torch.sampling.seeds import (epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
 from legion_tpu_torch.train.hybrid_driver import presample_hotness_host
+from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.striped_driver import rank_eval
 from legion_tpu_torch.train.train_state import (create_train_state,
@@ -171,8 +172,11 @@ def run_striped_hybrid_training(cfg: Config, data: GraphData,
             f"epoch {state.epoch}")
 
     # ---- training (Run) ------------------------------------------------------
+    # the pipeline's device stages are captured on a NCCL group
     tr = StripedHybridTrainer(cfg, model, caps, topo, indptr, indices, fcache,
-                              mesh, topo_owner_caps=tcaps)
+                              mesh, topo_owner_caps=tcaps,
+                              pool=GraphPool(device)
+                              if captures_steps(device) else None)
     labels_all = np.asarray(data.labels)
     vlab, tlab = eval_labels(cfg)
 

@@ -38,6 +38,7 @@ from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.train.cached_driver import run_cached_training
 from legion_tpu_torch.train.hybrid_driver import (presample_hotness_host,
                                                   run_hybrid_training)
+from legion_tpu_torch.train.graphed import store
 from legion_tpu_torch.train.loop import Trainer
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 latest_checkpoint)
@@ -356,7 +357,9 @@ def test_hybrid_trainer_epoch_matches_jax(small_graph):
     ttrain = tr.train_from
 
     def recording_train_from(st, rows, batch, plan, staged):
-        tbatches.append(batch)
+        # a copy: the batch lives in the pipeline's static buffers, which
+        # the next step overwrites
+        tbatches.append(store(None, batch))
         return ttrain(st, rows, batch, plan, staged)
     tr.train_from = recording_train_from
 
@@ -819,7 +822,7 @@ def test_cuda_hybrid_step_matches_the_cpu():
         batches = []
         train = tr.train_from
         tr.train_from = lambda st, rows, batch, *a, _t=train: (
-            batches.append(batch), _t(st, rows, batch, *a))[1]
+            batches.append(store(None, batch)), _t(st, rows, batch, *a))[1]
         kernels = (sample_neighbors, gathered_masked_mean,
                    gathered_masked_mean_backward, gather_rows)
         for k in kernels:
