@@ -249,6 +249,27 @@ exits non-zero:
    stages' calls (enqueue) and in its legs (staging, host sampler,
    packed reads), the capture's seconds and the pool's bytes.
 
+20. the host-topology path past edge 2^31 (``"bigcsr"``, right after
+   phase 8, on its graph): ``legion_tpu_torch.tools.scale.holed_twins``
+   copies the graph with a leading node 0 whose run of 2^31 + 2^20 edges
+   is a hole in the indices file (no edge, seed or eval id names it;
+   every real node, its run, feature row and label moves up by one), so
+   every real run starts past edge 2^31, beside a twin where node 0 has
+   degree 0. ``run_hybrid_training`` (its stages captured) and
+   ``run_striped_hybrid_training`` at one NCCL rank run two epochs each
+   on the big CSR: phase 8's checks (finite losses, both caches fed, hit
+   and hot fractions inside (0, 1), 2 reads a step plus one, exact
+   launches), a steady epoch traced with each kernel as bookkept, the
+   striped losses within ``STRIPED_LOSS_RTOL`` of the hybrid's, and the
+   trainers reading the mapped files in place (``np.shares_memory``).
+   Against the twin, bitwise: the host presample's counts past node 0,
+   ``TopoCache.build``'s and ``StripedTopoCache.build``'s sub-CSRs for
+   the same hot ids, and the C++ sampler's draws for one batch's cold
+   ids at every hop. The sampling kernel, K2 and K3 are held against
+   their plain versions on one more batch, as in phase 8. The line gives
+   the indices file's logical and allocated bytes, the smallest real run
+   start, the twin's build seconds (``gen_s``) and the phase's seconds.
+
 K1 and K2 (forward and backward) are also timed beside
 ``torch.nn.functional.embedding_bag`` on the same rows (masked slots
 pointed at a row no valid slot reads, given as ``padding_idx``; the
@@ -262,7 +283,6 @@ them, a JSON line with every kernel's numbers, and, last,
 at once and prints no result.
 """
 
-import contextlib
 import json
 import math
 import os
@@ -279,6 +299,8 @@ from legion_tpu_torch.tools.bench_kernels import (
     PEAK_BYTES_PER_S, bound, compare_gather_rows, compare_grouped_sum,
     compare_identity_mean, compare_k2_backward, compare_k2_forward,
     compare_sample, time_ms, within_bf16, within_f32)
+# the host's resident set and the card's name, shared with the scale tools
+from legion_tpu_torch.tools.scale import card_line, resident_gb, with_peak_rss
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "legion_tpu_torch/csrc/legion_kernels.cu"
@@ -344,10 +366,7 @@ def toolchain():
 
     from legion_tpu_torch import runtime
     from legion_tpu_torch.ops import _build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[-1]
@@ -1466,28 +1485,6 @@ STAGED_RNG = ("one generator registered with several graphs: the state's "
               "group generators lend their state to the run's own")
 
 
-@contextlib.contextmanager
-def timed_stages():
-    """The host seconds spent in the device stages' calls (a replay, or
-    the eager dispatch of a stage's ops), summed into the one entry of
-    the list this yields."""
-    from legion_tpu_torch.train import graphed as graphed_mod
-    spent = [0.0]
-    call = graphed_mod.GraphedStep.__call__
-
-    def timed(self):
-        t = time.perf_counter()
-        try:
-            call(self)
-        finally:
-            spent[0] += time.perf_counter() - t
-    graphed_mod.GraphedStep.__call__ = timed
-    try:
-        yield spent
-    finally:
-        graphed_mod.GraphedStep.__call__ = call
-
-
 def stage_steps(tr):
     """Every captured (or capturable) stage of a staged trainer's runs."""
     from legion_tpu_torch.train.graphed import GraphedStep, StageGraph
@@ -1567,6 +1564,7 @@ def staged_vs_eager(kernels, what, captured, eager, state, epoch, figures,
 
     import torch
 
+    from legion_tpu_torch.tools.scale import timed_stages
     from legion_tpu_torch.train import graphed as graphed_mod
     from legion_tpu_torch.train.train_state import load_optimizer_in_place
     from legion_tpu_torch.utils import comm
@@ -2395,38 +2393,13 @@ def hybrid_learns(data):
             "caps": h["caps"], "miss_cap": h["miss_cap"]}
 
 
-def hybrid_path(kernels, results):
-    """Phase 8: the host-topology path at uk-union class. Returns the
-    launch counts of the driver's whole run. After the run every kernel
-    of the path is held against its plain version on one more batch's
-    tensors: the sampling kernel on the sub-CSR with each hop's
-    ``where(hit, row, -1)`` frontier, K2 on the layer-1 block, K3 on the
-    cache merge's two gathers."""
-    import collections
-
-    import torch
-
-    from legion_tpu_torch.cache.hybrid import HybridTrainer
-    from legion_tpu_torch.tools import hybrid_cell, pa_cell
-    from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
-    lines = []
-
-    def log(s):
-        lines.append(s)
-        print(s, file=sys.stderr, flush=True)
-
-    data, gen_s, load_s = hybrid_cell.dataset(REPO, log)
-    cfg = hybrid_cell.config(epochs=2)
-    hops = len(cfg.sampler.fanouts)
-    torch.cuda.reset_peak_memory_stats()
-    mem0 = torch.cuda.memory_allocated()
-    reset_launches(kernels)
-    t0 = time.perf_counter()
-    res = run_hybrid_training(cfg, data, "cuda", log=log)
-    run_s = time.perf_counter() - t0
-    launches = read_launches(kernels)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    hist, cost, tr = res["history"], res["cost"], res["trainer"]
+def require_hybrid_run(res, hops):
+    """A hybrid driver's run of two epochs of ``pa_cell.STEPS`` steps:
+    the cost model feeds both caches, and every epoch has finite losses,
+    hot fraction and hit rate inside (0, 1), ``hops`` reads a step plus
+    one, no cap overflow and bytes on both host legs."""
+    from legion_tpu_torch.tools import pa_cell
+    hist, cost = res["history"], res["cost"]
     require(len(hist) == 2, "two epochs")
     require(0.0 < cost.alpha < 1.0 and cost.feat_capacity > 0
             and cost.topo_capacity > 0,
@@ -2449,41 +2422,46 @@ def hybrid_path(kernels, results):
         require(h["cap_overflow"] == 0, f"no cap overflow in epoch {e}")
         require(h["host_topo_gb"] > 0 and h["host_feat_gb"] > 0,
                 f"both host legs moved bytes in epoch {e}")
-    # Exact launch counts. Training: hops sampling launches a step (hops
-    # 1.. of this batch, hop 0 of the next) plus the epoch's prologue, K2
-    # forward and backward once a step, K3 for the cached and for the
-    # staged rows. The three eval passes (valid after each epoch, test)
-    # take 2 steps of 8000 seeds each and launch no backward.
+
+
+def hybrid_launches(hist, data, hops):
+    """The launches of a hybrid driver's run. Training: ``hops`` sampling
+    launches a step (hops 1.. of this batch, hop 0 of the next) plus the
+    epoch's prologue, K2 forward and backward once a step, K3 for the
+    cached and for the staged rows. The eval passes (valid after each
+    epoch, test) take batches of ``pa_cell.BATCH`` seeds and launch no
+    backward."""
+    from legion_tpu_torch.tools import pa_cell
     train_steps = sum(h["steps"] for h in hist)
     eval_steps = [(len(ids) - 1) // pa_cell.BATCH + 1 for ids in (
-        data.valid_ids, data.valid_ids, data.test_ids)]
+        [data.valid_ids] * len(hist) + [data.test_ids])]
     steps = train_steps + sum(eval_steps)
-    want = {"sample_neighbors": hops * steps + len(hist) + len(eval_steps),
+    return {"sample_neighbors": hops * steps + len(hist) + len(eval_steps),
             "gathered_masked_mean": steps,
             "gathered_masked_mean_backward": train_steps,
             "gather_rows": 2 * steps,
             "identity_masked_mean": 0, "grouped_masked_sum": 0}
-    for name, n in want.items():
-        require(launches[name] == n,
-                f"the hybrid path launched {name} {n} times in "
-                f"{train_steps} train and {sum(eval_steps)} eval steps, "
-                f"got {launches[name]}")
-    # the driver's trainer (its stages captured) against its twin on the
-    # same tables without a pool
-    state = res["state"]
-    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
-                      seed=22).numpy()
-    labels = labels_of(data, seeds)
-    require(tr.pool is not None and tr.pool.captures,
-            "the hybrid driver's trainer captures")
-    captured = staged_vs_eager(
-        kernels, "hybrid_path", tr,
-        HybridTrainer(cfg, tr.model, tr.caps, tr.topo, tr.host_indptr,
-                      tr.host_indices, tr.fcache), state,
-        lambda t: t.run_epoch(state, seeds, labels, 2), HYBRID_FIGURES)
-    require(captured["host_meters"]["fetches"] == hops * pa_cell.STEPS + 1,
-            f"{hops} reads a step plus one: {captured['host_meters']}")
-    del state
+
+
+def require_hybrid_launches(launches, hist, data, hops, what):
+    want = hybrid_launches(hist, data, hops)
+    require(launches == want, f"{what} launched {launches}, want {want}")
+
+
+def hybrid_batch_checks(res, data, cfg, results, hops_key, k2_key, k3_key):
+    """One more batch of a hybrid driver's run through its per-hop
+    sampler (ids past 2^24), and every kernel of the path held against
+    its plain version on that batch's tensors: the sampling kernel on the
+    sub-CSR with each hop's ``where(hit, row, -1)`` frontier, K2 on the
+    layer-1 block, K3 on the cache merge's two gathers. The records go
+    into ``results`` under the given keys and into the returned record.
+    Returns (the batch, the record)."""
+    import collections
+
+    import torch
+
+    from legion_tpu_torch.tools import pa_cell
+    tr, h = res["trainer"], res["history"][-1]
     # one more batch through the per-hop sampler: ids past 2^24
     dev = torch.device("cuda")
     seeds = torch.tensor(data.train_ids[:pa_cell.BATCH], device=dev)
@@ -2492,7 +2470,6 @@ def hybrid_path(kernels, results):
         generator=torch.Generator(device=dev).manual_seed(3))
     big = int((batch.frontier >= 1 << 24).sum())
     require(big > 0, "the sampled frontier holds ids >= 2^24")
-    h = hist[-1]
     caps, topo, fcache = tuple(h["caps"]), tr.topo, tr.fcache
     # the sampling kernel as ``TopoCache.sample_hot`` launches it: the
     # sub-CSR, and each hop's frontier as sub-rows with -1 for a miss
@@ -2509,7 +2486,7 @@ def hybrid_path(kernels, results):
         cfg.sampler.fanouts, seed=9)
     for rec, share in zip(sub_hops, hot_share):
         rec["hot_share"] = share
-    results["sample_neighbors"]["hybrid_path_hops"] = sub_hops
+    results["sample_neighbors"][hops_key] = sub_hops
     # K2 on that batch's layer-1 block at the path's width (172 classes,
     # bf16): transformed activations and an upstream gradient from a seed
     blk1 = batch.blocks[0]
@@ -2519,9 +2496,8 @@ def hybrid_path(kernels, results):
     gd = torch.randn((blk1.nbr_mask.shape[0], pa_cell.CLASSES), generator=gen,
                      device=dev).to(torch.bfloat16)
     k2_fwd, k2_bwd = check_k2(h_t, blk1.nbr_pos, blk1.nbr_mask, gd, "mean")
-    results["gathered_masked_mean"]["shapes"]["hybrid_uk_bf16"] = k2_fwd
-    results["gathered_masked_mean_backward"]["shapes"]["hybrid_uk_bf16"] = (
-        k2_bwd)
+    results["gathered_masked_mean"]["shapes"][k2_key] = k2_fwd
+    results["gathered_masked_mean_backward"]["shapes"][k2_key] = k2_bwd
     del h_t, gd
     # K3 on the cache merge's inputs (``FeatureCache.combine_rows``): the
     # cached rows by slot and the staged miss rows by miss rank, -1 for
@@ -2547,9 +2523,89 @@ def hybrid_path(kernels, results):
         batch.frontier[seen].cpu().numpy()).to(dev)
     require(torch.equal(merged, want),
             "the merged rows are the host's feature rows")
-    results["gather_rows"]["hybrid_merge"] = {"cached": rec_cached,
-                                              "staged": rec_staged}
+    results["gather_rows"][k3_key] = {"cached": rec_cached,
+                                      "staged": rec_staged}
     del merged, want, k3_cached, k3_missed, staged
+    return batch, {"frontier_ids_past_2_24": big,
+            "num_frontier": int(batch.num_frontier),
+            "sampler_hot_fraction": res["sampler"].hot_fraction(),
+            "kernel_checks": {
+                "sample_neighbors_hops": sub_hops,
+                "k2": {"forward": k2_fwd, "backward": k2_bwd},
+                "gather_rows": {"cached": rec_cached, "staged": rec_staged,
+                                "staged_rows": n_miss,
+                                "overflowed": int(plan.overflow())}}}
+
+
+def hybrid_epochs(hist):
+    """A hybrid driver's epoch records as the phases print them."""
+    return [{"epoch": r["epoch"], "losses": r["losses"],
+             "ms_per_step": 1e3 * r["seconds"] / r["steps"],
+             "edges_per_s": r["edges_per_s"],
+             "feat_hit_rate": r["feat_hit_rate"],
+             "topo_hot_fraction": r["topo_hot_fraction"],
+             "host_feat_gb": r["host_feat_gb"],
+             "host_topo_gb": r["host_topo_gb"],
+             "host_topo_copied_gb": r["host_topo_copied_gb"],
+             "fetches": r["fetches"],
+             "staging_overflow": r["staging_overflow"],
+             "cap_overflow": r["cap_overflow"], "stage_s": r["stage_s"],
+             "host_sample_s": r["host_sample_s"], "fetch_s": r["fetch_s"],
+             "valid_acc": r["valid"]} for r in hist]
+
+
+def hybrid_path(kernels, results):
+    """Phase 8: the host-topology path at uk-union class. Returns the
+    launch counts of the driver's whole run. After the run every kernel
+    of the path is held against its plain version on one more batch's
+    tensors: the sampling kernel on the sub-CSR with each hop's
+    ``where(hit, row, -1)`` frontier, K2 on the layer-1 block, K3 on the
+    cache merge's two gathers."""
+    import torch
+
+    from legion_tpu_torch.cache.hybrid import HybridTrainer
+    from legion_tpu_torch.tools import hybrid_cell, pa_cell
+    from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
+    lines = []
+
+    def log(s):
+        lines.append(s)
+        print(s, file=sys.stderr, flush=True)
+
+    data, gen_s, load_s = hybrid_cell.dataset(REPO, log)
+    cfg = hybrid_cell.config(epochs=2)
+    hops = len(cfg.sampler.fanouts)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = run_hybrid_training(cfg, data, "cuda", log=log)
+    run_s = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist, cost, tr = res["history"], res["cost"], res["trainer"]
+    require_hybrid_run(res, hops)
+    require_hybrid_launches(launches, hist, data, hops, "the hybrid path")
+    # the driver's trainer (its stages captured) against its twin on the
+    # same tables without a pool
+    state = res["state"]
+    seeds = seed_rows(data.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                      seed=22).numpy()
+    labels = labels_of(data, seeds)
+    require(tr.pool is not None and tr.pool.captures,
+            "the hybrid driver's trainer captures")
+    captured = staged_vs_eager(
+        kernels, "hybrid_path", tr,
+        HybridTrainer(cfg, tr.model, tr.caps, tr.topo, tr.host_indptr,
+                      tr.host_indices, tr.fcache), state,
+        lambda t: t.run_epoch(state, seeds, labels, 2), HYBRID_FIGURES)
+    require(captured["host_meters"]["fetches"] == hops * pa_cell.STEPS + 1,
+            f"{hops} reads a step plus one: {captured['host_meters']}")
+    del state
+    _, checks = hybrid_batch_checks(res, data, cfg, results,
+                                    "hybrid_path_hops", "hybrid_uk_bf16",
+                                    "hybrid_merge")
+    h = hist[-1]
     emit({"phase": "hybrid_path",
           "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
                     "features": data.feature_dim,
@@ -2569,33 +2625,10 @@ def hybrid_path(kernels, results):
           * tr.fcache.rows.element_size(),
           "caps": h["caps"], "miss_cap": h["miss_cap"],
           # epoch 0 carries the warm-up; epoch 1 is the steady state
-          "epochs": [{"epoch": r["epoch"], "losses": r["losses"],
-                      "ms_per_step": 1e3 * r["seconds"] / r["steps"],
-                      "edges_per_s": r["edges_per_s"],
-                      "feat_hit_rate": r["feat_hit_rate"],
-                      "topo_hot_fraction": r["topo_hot_fraction"],
-                      "host_feat_gb": r["host_feat_gb"],
-                      "host_topo_gb": r["host_topo_gb"],
-                      "host_topo_copied_gb": r["host_topo_copied_gb"],
-                      "fetches": r["fetches"],
-                      "staging_overflow": r["staging_overflow"],
-                      "cap_overflow": r["cap_overflow"],
-                      "stage_s": r["stage_s"],
-                      "host_sample_s": r["host_sample_s"],
-                      "fetch_s": r["fetch_s"], "valid_acc": r["valid"]}
-                     for r in hist],
+          "epochs": hybrid_epochs(hist),
           "steady_ms_per_step": 1e3 * h["seconds"] / h["steps"],
           "steady_edges_per_s": h["edges_per_s"],
-          "test_acc": res["test_acc"], "launches": launches,
-          "frontier_ids_past_2_24": big,
-          "num_frontier": int(batch.num_frontier),
-          "sampler_hot_fraction": res["sampler"].hot_fraction(),
-          "kernel_checks": {
-              "sample_neighbors_hops": sub_hops,
-              "k2": {"forward": k2_fwd, "backward": k2_bwd},
-              "gather_rows": {"cached": rec_cached, "staged": rec_staged,
-                              "staged_rows": n_miss,
-                              "overflowed": int(plan.overflow())}},
+          "test_acc": res["test_acc"], "launches": launches, **checks,
           "peak_mem_gb": peak, "mem_before_gb": mem0 / 2 ** 30,
           "captured": captured})
     return launches, {
@@ -2604,6 +2637,212 @@ def hybrid_path(kernels, results):
                                       "fetches", "staging_overflow",
                                       "host_topo_gb", "seconds", "steps")}
                    for r in hist]}
+
+
+def bigcsr(kernels, results, smi, ref):
+    """Phase "bigcsr": phase 8's cell with every real adjacency run past
+    edge 2^31 (``tools/scale.py::holed_twins``: a leading node 0 owns a
+    run of 2^31 + 2^20 edges that is a hole in the indices file, every
+    real node moves up by one), beside its twin, where node 0 has degree
+    0. The hybrid driver (its stages captured) and the striped hybrid
+    driver at one NCCL rank each run two epochs on the big CSR with
+    phase 8's checks (``ref``: its launches and losses); a steady epoch
+    is traced, each kernel as bookkept. The seams are held against the
+    twin: the host presample's counts, ``TopoCache.build``'s and
+    ``StripedTopoCache.build``'s sub-CSRs for the same hot ids and the C++
+    sampler's draws for one batch's cold ids, bitwise. K2, K3 and the
+    sampling kernel are held against their plain versions on one more
+    batch of the run. Returns the hybrid driver's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from legion_tpu_torch import runtime
+    from legion_tpu_torch.cache.striped import StripedTopoCache
+    from legion_tpu_torch.cache.topo_cache import TopoCache
+    from legion_tpu_torch.parallel import mesh
+    from legion_tpu_torch.tools import hybrid_cell, pa_cell, scale
+    from legion_tpu_torch.train.hybrid_driver import (presample_hotness_host,
+                                                      run_hybrid_training)
+    from legion_tpu_torch.train.striped_hybrid_driver import (
+        run_striped_hybrid_training)
+    t_phase = time.perf_counter()
+    lines = []
+    log = _phase_log(lines)
+    data, _, _ = hybrid_cell.dataset(REPO, log)
+    work = os.path.join(REPO, ".bench_cache", "bigcsr")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        big, twin, facts = scale.holed_twins(data, work, write_hole=True)
+        del data
+        start = facts["smallest_real_run_start"]
+        require(start > 2 ** 31,
+                f"every real run starts past edge 2^31 (first at {start})")
+        cfg = hybrid_cell.config(epochs=2)
+        fanouts, hops = tuple(cfg.sampler.fanouts), len(cfg.sampler.fanouts)
+
+        # the host presample on both CSRs: the same counts past node 0
+        pre_seeds = seed_rows(big.train_ids, cfg.cache.presample_steps,
+                              pa_cell.BATCH, seed=31).numpy()
+        t0 = time.perf_counter()
+        pre_big = presample_hotness_host(big.indptr, big.indices, pre_seeds,
+                                         fanouts, big.num_nodes, 0)
+        presample_s = time.perf_counter() - t0
+        pre_twin = presample_hotness_host(twin.indptr, twin.indices,
+                                          pre_seeds, fanouts, twin.num_nodes,
+                                          0)
+        for name, a, b in zip(("node_hot", "edge_hot", "max_per_hop"),
+                              pre_big, pre_twin):
+            lo = 1 if name != "max_per_hop" else 0
+            require(torch.equal(torch.from_numpy(a[lo:]),
+                                torch.from_numpy(b[lo:])),
+                    f"the host presample's {name} equals the twin's")
+
+        # the hybrid driver on the big CSR
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        res = run_hybrid_training(cfg, big, "cuda", log=log)
+        run_s = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        hist, cost, tr = res["history"], res["cost"], res["trainer"]
+        require_hybrid_run(res, hops)
+        require_hybrid_launches(launches, hist, big, hops,
+                                "the hybrid driver on the big CSR")
+        require(tr.pool is not None and tr.pool.captures,
+                "the hybrid driver's trainer captures")
+        scale.shares(tr.host_indices, big.indices, "the host CSR's indices")
+        scale.shares(tr.fcache.host_features, big.features,
+                     "the feature cache's host table")
+        # a steady epoch of the captured stages, traced
+        state = res["state"]
+        seeds = seed_rows(big.train_ids, pa_cell.STEPS, pa_cell.BATCH,
+                          seed=22).numpy()
+        labels = labels_of(big, seeds)
+        traced, counted, busy_ms, wall_ms, _ = staged_trace(
+            kernels, lambda: tr.run_epoch(state, seeds, labels, 2))
+        n = pa_cell.STEPS
+        want = {"sample_neighbors": hops * n + 1, "gathered_masked_mean": n,
+                "gathered_masked_mean_backward": n, "gather_rows": 2 * n,
+                "identity_masked_mean": 0, "grouped_masked_sum": 0}
+        require(traced == counted == want,
+                f"a steady epoch traced {traced} and counted {counted} "
+                f"launches, want {want}")
+        del state
+
+        # TopoCache.build on the twin for the same hot ids
+        topo_twin = TopoCache.build(twin.indptr, twin.indices,
+                                    cost.topo_order, cost.topo_capacity,
+                                    "cuda")
+        for name in ("hot_ids", "sub_indptr", "sub_indices"):
+            require(torch.equal(getattr(tr.topo, name),
+                                getattr(topo_twin, name)),
+                    f"TopoCache.build's {name} equals the twin's")
+        hot_edges = int(tr.topo.sub_indptr[-1])
+        del topo_twin
+
+        # the kernels on one more batch, and the C++ sampler on its cold ids
+        batch, checks = hybrid_batch_checks(res, big, cfg, results,
+                                            "bigcsr_hops", "bigcsr_bf16",
+                                            "bigcsr_merge")
+        cold = {}
+        for k, fr in enumerate(hop_frontiers(batch, tr.caps)):
+            hit, _ = tr.topo.lookup(fr)
+            ids = fr[(fr >= 0) & ~hit].cpu().numpy()
+            a = runtime.sample_neighbors(big.indptr, big.indices, ids,
+                                         fanouts[k], seed=77 + k)
+            b = runtime.sample_neighbors(twin.indptr, twin.indices, ids,
+                                         fanouts[k], seed=77 + k)
+            require(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+                    and bool((a >= 0).any()),
+                    f"the C++ sampler's draws for hop {k}'s cold ids equal "
+                    "the twin's")
+            cold[f"hop{k}"] = {"cold_ids": len(ids),
+                               "valid_draws": int((a >= 0).sum())}
+        del batch
+
+        # the striped hybrid driver at one NCCL rank on the big CSR
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh.init_process(0, 1, os.path.join(tmp, "init"), "cuda")
+            try:
+                backend = dist.get_backend()
+                reset_launches(kernels)
+                t0 = time.perf_counter()
+                sres = run_striped_hybrid_training(cfg, big, "cuda", log=log)
+                striped_s = time.perf_counter() - t0
+                s_launches = read_launches(kernels)
+                st = sres["trainer"]
+                stripe_twin = StripedTopoCache.build(
+                    twin.indptr, twin.indices, sres["cost"].topo_order,
+                    sres["cost"].topo_capacity, st.mesh, "cuda")
+                for name in ("hot_ids", "sub_indptr", "sub_indices"):
+                    require(torch.equal(getattr(st.topo, name),
+                                        getattr(stripe_twin, name)),
+                            f"StripedTopoCache.build's {name} equals the "
+                            "twin's")
+                scale.shares(st.host_indices, big.indices,
+                             "the striped trainer's host indices")
+                shist = sres["history"]
+                del sres, st, stripe_twin
+            finally:
+                dist.destroy_process_group()
+        require(backend == "nccl", f"the one-rank group runs NCCL, not "
+                f"{backend}")
+        for h in shist:
+            require(h["exchange_overflow"] == 0 and 0.0 < h[
+                "topo_hot_fraction"] < 1.0,
+                f"striped epoch {h['epoch']}: hot fraction in (0, 1), no "
+                "exchange overflow")
+        worst = loss_drift([h["losses"] for h in shist],
+                           [h["losses"] for h in hist],
+                           "the striped hybrid driver against the hybrid "
+                           "driver on the big CSR")
+        s_want = dict(launches, gather_rows=launches["gather_rows"]
+                      + launches["gathered_masked_mean"])
+        require(s_launches == s_want,
+                f"striped launches {s_launches} (want {s_want})")
+        h = hist[-1]
+        record = {
+            "phase": "bigcsr", "nvidia_smi": smi,
+            "graph": {"nodes": big.num_nodes, "edges": big.num_edges,
+                      "real_edges": twin.num_edges,
+                      "hole_edges": facts["hole_edges"]},
+            "file": facts, "gen_s": facts["seconds"],
+            "smallest_real_run_start": start,
+            "seams": {"presample_equal_past_node_0": True,
+                      "node_0_counts": [int(pre_big[0][0]),
+                                        int(pre_big[1][0]),
+                                        int(pre_twin[0][0]),
+                                        int(pre_twin[1][0])],
+                      "presample_s": presample_s,
+                      "topo_cache_equal": True, "hot_edges": hot_edges,
+                      "cold_draws_equal": cold,
+                      "striped_topo_equal": True},
+            "driver_log": lines, "run_s": run_s,
+            "cost_model": {"alpha": cost.alpha,
+                           "feat_capacity": cost.feat_capacity,
+                           "topo_capacity": cost.topo_capacity},
+            "caps": h["caps"], "miss_cap": h["miss_cap"],
+            "epochs": hybrid_epochs(hist),
+            "phase8_ms_per_step": [1e3 * r["seconds"] / r["steps"]
+                                   for r in ref["epochs"]],
+            "launches": launches,
+            "traced_epoch": {"traced": traced, "counted": counted,
+                             "busy_ms": busy_ms, "wall_ms": wall_ms},
+            **checks,
+            "striped": {"backend": backend, "world": 1, "run_s": striped_s,
+                        "launches": s_launches, "worst_rel_diff": worst,
+                        "epochs": [{"epoch": r["epoch"],
+                                    "losses": r["losses"],
+                                    "topo_hot_fraction":
+                                        r["topo_hot_fraction"],
+                                    "ms_per_step": 1e3 * r["seconds"]
+                                    / r["steps"]} for r in shist]}}
+        del res, tr, hist
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    record["phase_s"] = time.perf_counter() - t_phase
+    emit(record)
+    return launches
 
 
 # Per-step losses of a striped driver against its twin on the same seeds:
@@ -3431,36 +3670,6 @@ def mesh_partitioned_k2(smi):
 OGB_EPOCHS = 3
 
 
-def resident_gb():
-    """This process's resident set (``VmRSS``) in GiB."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS:"):
-                return int(line.split()[1]) / 2 ** 20
-    raise RuntimeError("no VmRSS in /proc/self/status")
-
-
-def with_peak_rss(fn, period=0.01):
-    """``fn()`` while a thread samples this process's resident set every
-    ``period`` seconds. Returns (fn's result, the largest sample in GiB):
-    a sampled peak, which a spike shorter than ``period`` can escape."""
-    import threading
-    peak, done = [resident_gb()], threading.Event()
-
-    def watch():
-        while not done.wait(period):
-            peak[0] = max(peak[0], resident_gb())
-
-    watcher = threading.Thread(target=watch, daemon=True)
-    watcher.start()
-    try:
-        out = fn()
-    finally:
-        done.set()
-        watcher.join()
-    return out, max(peak[0], resident_gb())
-
-
 def per_step(launches, train_steps, eval_steps):
     """Launches per step as exact fractions: the backward kernel's per
     train step, every other kernel's per train or eval step."""
@@ -4011,6 +4220,10 @@ def main():
     announce("hybrid_path")
     by_path["hybrid_path"], hybrid_ref = hybrid_path(kernels, results)
     torch.cuda.empty_cache()
+
+    # -- 20. the same cell with every adjacency run past edge 2^31 --------
+    announce("bigcsr")
+    by_path["bigcsr"] = bigcsr(kernels, results, smi, hybrid_ref)
 
     # -- 11. the cache-group paths at world size 1 (NCCL), each against its
     # single-device twin above, and 12. at cache axis 2 on two ranks

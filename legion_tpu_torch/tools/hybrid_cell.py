@@ -9,7 +9,9 @@ That graph stands in for uk-union's 133,633,040 nodes and 5.5B edges,
 which take ~40 GB to generate; the 2 GiB cache budget is scaled by the
 same cut in nodes (273 MiB), and the cost model splits it between the
 feature cache and the topology cache. With the cut no edge offset passes
-2^31; the host side addresses in int64 all the same.
+2^31: ``chip_smoke.py``'s ``bigcsr`` phase runs this cell again with
+every run moved past edge 2^31 (``tools/scale.py::holed_twins``), and
+``tools/smoke_uk_scale.py`` runs the class at its full size.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ BUDGET = (2 << 30) * pa_cell.NODES // FULL_NODES        # 286,460,570 B
 dataset = pa_cell.dataset
 
 
-def config(epochs: int) -> Config:
+def config(epochs: int, budget: int = BUDGET,
+           num_classes: int = pa_cell.CLASSES) -> Config:
     return Config(
-        dataset=DatasetConfig(num_classes=pa_cell.CLASSES,
+        dataset=DatasetConfig(num_classes=num_classes,
                               feature_placement="host",
                               topology_placement="host"),
         sampler=SamplerConfig(fanouts=(25, 10), batch_size=pa_cell.BATCH,
@@ -33,5 +36,5 @@ def config(epochs: int) -> Config:
         model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
                           dropout=0.5, dtype="bfloat16"),
         train=TrainConfig(learning_rate=0.003, epochs=epochs),
-        cache=CacheConfig(enabled=True, budget_bytes=BUDGET,
+        cache=CacheConfig(enabled=True, budget_bytes=budget,
                           presample_steps=3))

@@ -36,7 +36,7 @@ GRAPH_ARGS = dict(num_nodes=NODES, avg_degree=14, feature_dim=32,
 _PREFIX = "synth_pa_torch_"
 
 
-def config(epochs: int) -> Config:
+def config(epochs: int, budget: int = BUDGET) -> Config:
     return Config(
         dataset=DatasetConfig(num_classes=CLASSES, feature_placement="host"),
         sampler=SamplerConfig(fanouts=(25, 10), batch_size=BATCH,
@@ -44,37 +44,48 @@ def config(epochs: int) -> Config:
         model=ModelConfig(arch="sage", hidden_dim=256, num_layers=2,
                           dropout=0.5, dtype="bfloat16"),
         train=TrainConfig(learning_rate=0.003, epochs=epochs),
-        cache=CacheConfig(enabled=True, budget_bytes=BUDGET,
+        cache=CacheConfig(enabled=True, budget_bytes=budget,
                           presample_steps=6))
 
 
-def dataset_dir(root: str) -> str:
-    h = hashlib.sha256(json.dumps(GRAPH_ARGS, sort_keys=True).encode())
+def streamed_dir(root: str, prefix: str, args: dict) -> str:
+    """The cache directory of ``streaming_power_law_graph(**args)``:
+    ``<root>/.bench_cache/<prefix><nodes>_<hash>``, the hash over the
+    arguments and the generator's and the format's sources."""
+    h = hashlib.sha256(json.dumps(args, sort_keys=True).encode())
     for mod in (synthetic, data_format):
         with open(mod.__file__, "rb") as f:
             h.update(f.read())
     return os.path.join(root, ".bench_cache",
-                        f"{_PREFIX}{NODES}_{h.hexdigest()[:12]}")
+                        f"{prefix}{args['num_nodes']}_{h.hexdigest()[:12]}")
 
 
-def dataset(root: str, log=print):
-    """(data, seconds generating, seconds loading). Generates the graph
-    unless a complete copy of it (one with ``meta.json``) is cached; other
-    ``synth_pa_torch_*`` directories under ``<root>/.bench_cache`` are
-    stale ones and are removed first."""
-    path = dataset_dir(root)
+def streamed_dataset(root: str, prefix: str, args: dict, log=print):
+    """(data, seconds generating, seconds loading) of the graph in
+    ``streamed_dir``. Generates it unless a complete copy (one with
+    ``meta.json``) is cached; other ``<prefix>*`` directories under
+    ``<root>/.bench_cache`` are stale ones and are removed first."""
+    path = streamed_dir(root, prefix, args)
     gen_s = 0.0
     if not os.path.exists(os.path.join(path, "meta.json")):
         cache = os.path.dirname(path)
         os.makedirs(cache, exist_ok=True)
         for name in os.listdir(cache):
-            if name.startswith(_PREFIX):
+            if name.startswith(prefix):
                 shutil.rmtree(os.path.join(cache, name))
         t0 = time.perf_counter()
-        synthetic.streaming_power_law_graph(path + ".tmp", log=log,
-                                            **GRAPH_ARGS)
+        synthetic.streaming_power_law_graph(path + ".tmp", log=log, **args)
         os.replace(path + ".tmp", path)
         gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     data = data_format.load_dataset(path, mmap=True)
     return data, gen_s, time.perf_counter() - t0
+
+
+def dataset_dir(root: str) -> str:
+    return streamed_dir(root, _PREFIX, GRAPH_ARGS)
+
+
+def dataset(root: str, log=print):
+    """This cell's graph: ``streamed_dataset`` of ``GRAPH_ARGS``."""
+    return streamed_dataset(root, _PREFIX, GRAPH_ARGS, log)

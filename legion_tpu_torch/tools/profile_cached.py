@@ -1,30 +1,35 @@
 """Where the time of the cached path at papers100M class goes, or of the
 hybrid (host-topology) path at uk-union class.
 
-    python -m legion_tpu_torch.tools.profile_cached [hybrid]
+    python -m legion_tpu_torch.tools.profile_cached [PATH]
 
-from the repository root, on a machine with the card. It runs
-``run_cached_training`` on ``pa_cell``'s configuration (with ``hybrid``:
-``run_hybrid_training`` on ``hybrid_cell``'s) and dataset (generated into
-``.bench_cache/`` on first use) for three epochs and traces epoch 1
-under ``torch.profiler``: epoch 0 warms up and captures the pipeline's
-device stages, so epoch 1 replays them (the steady state). It prints one
-JSON line: every epoch's ms/step, staging seconds, hit rate, host GB and
-edges/s (for the hybrid path also the hot fraction and the host
-sampler's and the packed reads' seconds); for the profiled epoch the wall
-time, the device-busy time (``device_busy_ms``: the union of the spans
-of the device's kernels and copies, as ``chip_smoke.py::replay_profile``
-reads a replay), the idle share ``1 - busy / wall``, the largest device
-rows and the largest host rows. Ranges that the profiler mirrors onto
-the device timeline (``Optimizer.step#Adam.step``) are not counted,
-since the kernels inside them are.
+from the repository root, on a machine with the card. PATH picks the
+cell: ``cached`` (the default: ``run_cached_training`` on ``pa_cell``'s
+configuration and cut graph), ``hybrid`` (``run_hybrid_training`` on
+``hybrid_cell``'s), or the same drivers at full size, ``pa_full``
+(``smoke_pa_scale``'s configuration and 111M-node graph) and ``uk_full``
+(``smoke_uk_scale``'s, 5.52B edges); each graph is generated into
+``.bench_cache/`` on first use and trimmed to 10 training steps and 2
+eval batches a set. It runs three epochs and traces epoch 1 under
+``torch.profiler``: epoch 0 warms up and captures the pipeline's device
+stages, so epoch 1 replays them (the steady state). It prints one JSON
+line: every epoch's ms/step, the host seconds inside the device stages'
+calls (``stage_calls_s``: epoch 0's warm-ups and captures, then replays),
+staging seconds, hit rate, host GB and edges/s (for the hybrid path also
+the hot fraction and the host sampler's and the packed reads' seconds);
+for the profiled epoch the wall time, the device-busy time
+(``device_busy_ms``: the union of the spans of the device's kernels and
+copies, as ``chip_smoke.py::replay_profile`` reads a replay), the idle
+share ``1 - busy / wall``, the largest device rows and the largest host
+rows. Ranges that the profiler mirrors onto the device timeline
+(``Optimizer.step#Adam.step``) are not counted, since the kernels inside
+them are.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 from unittest import mock
 
@@ -32,23 +37,29 @@ import torch
 
 from legion_tpu_torch.cache.hybrid import HybridTrainer
 from legion_tpu_torch.cache.pipeline import CachedTrainer
-from legion_tpu_torch.tools import hybrid_cell, pa_cell
+from legion_tpu_torch.tools import (hybrid_cell, pa_cell, scale,
+                                    smoke_pa_scale, smoke_uk_scale)
 from legion_tpu_torch.train.cached_driver import run_cached_training
 from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
 
 EPOCHS, PROFILED_EPOCH = 3, 1
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-# path -> (trainer whose run_epoch is traced, driver, configuration, the
-# epoch figures printed)
+CACHED = (CachedTrainer, run_cached_training,
+          ("stage_s", "cache_hit_rate", "host_gb", "edges_per_s",
+           "staging_overflow"))
+HYBRID = (HybridTrainer, run_hybrid_training,
+          ("stage_s", "host_sample_s", "fetch_s", "feat_hit_rate",
+           "topo_hot_fraction", "host_feat_gb", "host_topo_gb",
+           "edges_per_s", "staging_overflow", "fetches"))
+# path -> ((trainer whose run_epoch is traced, driver, the epoch figures
+# printed), configuration, dataset)
 PATHS = {
-    "cached": (CachedTrainer, run_cached_training, pa_cell.config,
-               ("stage_s", "cache_hit_rate", "host_gb", "edges_per_s",
-                "staging_overflow")),
-    "hybrid": (HybridTrainer, run_hybrid_training, hybrid_cell.config,
-               ("stage_s", "host_sample_s", "fetch_s", "feat_hit_rate",
-                "topo_hot_fraction", "host_feat_gb", "host_topo_gb",
-                "edges_per_s", "staging_overflow", "fetches")),
+    "cached": (CACHED, pa_cell.config, pa_cell.dataset),
+    "hybrid": (HYBRID, hybrid_cell.config, hybrid_cell.dataset),
+    "pa_full": (CACHED, smoke_pa_scale.config, smoke_pa_scale.dataset),
+    "uk_full": (HYBRID, smoke_uk_scale.config,
+                lambda root, log: smoke_uk_scale.dataset(root, log=log)),
 }
 
 
@@ -75,15 +86,23 @@ def _rows(events, key, n):
 def main(path: str = "cached") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cached needs a CUDA device")
-    trainer, driver, config, figures = PATHS[path]
+    (trainer, driver, figures), config, dataset = PATHS[path]
     log = lambda s: print(s, file=sys.stderr, flush=True)   # noqa: E731
-    data, gen_s, load_s = pa_cell.dataset(ROOT, log)
+    data, gen_s, load_s = dataset(ROOT, log)
+    data = scale.trim(data, pa_cell.STEPS * pa_cell.BATCH + 1,
+                      2 * pa_cell.BATCH)
     run_epoch = trainer.run_epoch
     calls, profiled = [], {}
 
     def traced(self, *args):
-        calls.append(None)
-        if len(calls) != PROFILED_EPOCH + 1:
+        t = spent[0]
+        try:
+            return profiled_epoch(self, *args)
+        finally:
+            calls.append(spent[0] - t)
+
+    def profiled_epoch(self, *args):
+        if len(calls) != PROFILED_EPOCH:
             return run_epoch(self, *args)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -113,16 +132,15 @@ def main(path: str = "cached") -> None:
             host_top=_rows(ev, "self_cpu_time_total", 15))
         return r
 
-    with mock.patch.object(trainer, "run_epoch", traced):
+    with scale.timed_stages() as spent, \
+            mock.patch.object(trainer, "run_epoch", traced):
         res = driver(config(EPOCHS), data, "cuda", log=log)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "path": path, "device": smi, "gen_s": gen_s, "load_s": load_s,
+        "path": path, "device": scale.card_line(), "gen_s": gen_s,
+        "load_s": load_s, "nodes": data.num_nodes, "edges": data.num_edges,
         "epochs": [{"ms_per_step": 1e3 * h["seconds"] / h["steps"],
-                    **{k: h[k] for k in figures}}
-                   for h in res["history"]],
+                    "stage_calls_s": s, **{k: h[k] for k in figures}}
+                   for h, s in zip(res["history"], calls)],
         "profiled": profiled}), flush=True)
 
 

@@ -48,6 +48,9 @@ import legion_tpu_torch.tools.ab_trainer
 import legion_tpu_torch.tools.k2_bench
 import legion_tpu_torch.tools.k4_bench
 import legion_tpu_torch.tools.pa_cell
+import legion_tpu_torch.tools.scale
+import legion_tpu_torch.tools.smoke_pa_scale
+import legion_tpu_torch.tools.smoke_uk_scale
 import legion_tpu_torch.tools.profile_cached
 import legion_tpu_torch.parallel
 import legion_tpu_torch.parallel.dp
