@@ -1,0 +1,82 @@
+"""A cell by name: its workload file, the configuration and the traffic
+mix it names, each a JSON file of its own under this folder, found by the
+names ``BENCHMARK.json`` gives.
+
+* ``workloads/<cell>.json``: ``config``, ``traffic``, ``chips``, ``why``;
+* ``configs/<config>.json``: the graph's sizes (top-level numbers), the
+  model (``model``), the placement of features and topology, and the
+  driver that runs it (``driver``: a module of ``drivers/``);
+* ``traffic/<traffic>.json``: the mini-batches (batch, fanouts), the
+  cache budget as a share of the feature table, and the driver's warm-up
+  epochs before the window.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Dict
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+
+def load_json(*parts: str) -> Dict:
+    with open(os.path.join(HERE, *parts)) as f:
+        return json.load(f)
+
+
+def load_cell(name: str) -> Dict:
+    """The workload ``name`` with its ``configuration`` and ``traffic``."""
+    cell = load_json("workloads", f"{name}.json")
+    cell["name"] = name
+    cell["configuration"] = load_json("configs", f"{cell['config']}.json")
+    cell["traffic_mix"] = load_json("traffic", f"{cell['traffic']}.json")
+    return cell
+
+
+def benchmark() -> Dict:
+    """``BENCHMARK.json`` at the root of the checkout."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        return json.load(f)
+
+
+def row_bytes(cell: Dict) -> int:
+    """Bytes of a feature row as the cache holds it (the compute dtype)."""
+    m = cell["configuration"]["model"]
+    size = 2 if m["dtype"] == "bfloat16" else 4
+    return cell["configuration"]["feature_dim"] * size
+
+
+def port_config(cell: Dict, seed: int, epochs: int):
+    """The port's ``Config`` for ``cell`` (imports the port)."""
+    from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
+                                         ModelConfig, SamplerConfig,
+                                         TrainConfig)
+    conf, mix = cell["configuration"], cell["traffic_mix"]
+    g, m = conf, conf["model"]
+    share = mix.get("cache_share")
+    cache = CacheConfig()
+    if share is not None:
+        cache = CacheConfig(
+            enabled=True,
+            budget_bytes=int(math.ceil(share * g["num_nodes"]
+                                       * row_bytes(cell))),
+            presample_steps=mix.get("presample_steps", 0))
+    return Config(
+        dataset=DatasetConfig(
+            name=conf["name"], num_nodes=g["num_nodes"],
+            feature_dim=g["feature_dim"], num_classes=g["num_classes"],
+            feature_placement=conf["feature_placement"],
+            topology_placement=conf["topology_placement"]),
+        sampler=SamplerConfig(
+            fanouts=tuple(mix["fanouts"]), batch_size=mix["batch_size"],
+            eval_batch_size=mix["batch_size"],
+            dedup_last=conf["dedup_last"]),
+        model=ModelConfig(arch=m["arch"], hidden_dim=m["hidden_dim"],
+                          num_layers=m["num_layers"], dropout=m["dropout"],
+                          dtype=m["dtype"]),
+        train=TrainConfig(learning_rate=m["learning_rate"], epochs=epochs,
+                          seed=int(seed)),
+        cache=cache)

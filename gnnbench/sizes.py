@@ -1,0 +1,39 @@
+"""The realized sizes of the observed steps, averaged: what the per-layer
+metrics count bytes and operations from."""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+
+def realized(steps: List[Dict], cell: Dict) -> Dict:
+    conf = cell["configuration"]
+    n = max(len(steps), 1)
+
+    def mean(f) -> float:
+        return sum(f(s) for s in steps) / n
+
+    hops = len(steps[0]["blocks"]) if steps else 0
+    blocks = []
+    for k in range(hops):
+        def blk(s, k=k):
+            return s["blocks"][k]
+        blocks.append({
+            "slots": mean(lambda s: blk(s)[0].numel()),
+            "valid": mean(lambda s: int(blk(s)[1].sum())),
+            "distinct": mean(lambda s: int(torch.unique(
+                blk(s)[0][blk(s)[1]]).numel())),
+            "num_dst": mean(lambda s: blk(s)[3]),
+            "num_src": mean(lambda s: blk(s)[2])})
+    x = next((s["x"] for s in steps if s.get("x") is not None), None)
+    return {"seeds": mean(lambda s: s["num_seeds"]),
+            "hop1_rows": blocks[0]["num_src"] if blocks else 0.0,
+            "frontier_rows": mean(lambda s: s["frontier"].numel()),
+            "valid_rows": mean(lambda s: int((s["frontier"] >= 0).sum())),
+            "blocks": blocks,
+            "feature_dim": conf["feature_dim"],
+            "num_classes": conf["num_classes"],
+            "hidden_dim": conf["model"]["hidden_dim"],
+            "row_itemsize": x.element_size() if x is not None else 4}
