@@ -1579,8 +1579,8 @@ def staged_vs_eager(kernels, what, captured, eager, state, epoch, figures,
         state.generator.set_state(start[2])
         state.step = start[3]
 
-    meters = ("hot", "cold", "host_topo_bytes", "host_topo_copied_bytes",
-              "fetches")
+    meters = ("hot", "cold", "host_topo_bytes")
+    counted = ("host_topo_copied_bytes", "fetches")
 
     def one(tr):
         load()
@@ -1591,7 +1591,9 @@ def staged_vs_eager(kernels, what, captured, eager, state, epoch, figures,
         after = getattr(tr, "stats", {})
         return (rec, read_launches(kernels),
                 (comm.read_calls(), comm.read_counts()),
-                {k: after[k] - before[k] for k in meters if k in after})
+                {**{k: after[k] - before[k] for k in meters if k in after},
+                 **{k: rec["counts"][k] for k in counted
+                    if k in rec["counts"]}})
 
     first = one(captured)
     eager1 = one(eager)

@@ -21,6 +21,7 @@ import torch
 
 from legion_tpu_torch.data.format import host_tensor
 from legion_tpu_torch.ops.gather import gather_rows
+from legion_tpu_torch.utils import trace
 
 
 def cache_dtype_for(model_dtype: str, feature_dim: int):
@@ -152,7 +153,8 @@ class FeatureCache:
         so exactly the misses' bytes cross. ``host`` and ``out`` (a staged
         pipeline's static buffers, (miss_cap, D) each, ``host`` pinned on
         CUDA) take the gather and the copy; fresh ones otherwise, and on
-        the CPU without ``out`` the host buffer is the result."""
+        the CPU without ``out`` the host buffer is the result. The rows'
+        bytes count in ``h2d_bytes`` (``utils/trace.py``)."""
         shape = (self.miss_cap, self.rows.shape[1])
         dtype = self.rows.dtype
         n = len(miss_ids)
@@ -165,4 +167,5 @@ class FeatureCache:
                 return host
             out = torch.empty(shape, dtype=dtype, device=device)
         out[:n].copy_(host[:n], non_blocking=on_cuda)
+        trace.count("h2d_bytes", n * host.shape[1] * host.element_size())
         return out

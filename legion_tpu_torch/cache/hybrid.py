@@ -23,13 +23,16 @@ cost model's budget buys.
 CUDA graph (``train/graphed.py``) that replays between the host legs,
 which stay eager: the packed reads, the C++ host sampler, the miss
 gather, and the copies up of the cold draws and of exactly the staged
-rows.
+rows. Those legs are spans of ``utils/trace.py``: ``hybrid.fetch`` (a
+packed read; counter ``fetches``), ``hybrid.host_sample`` (the C++
+sampler) and ``pipeline.stage`` (the plan's read and the staging); the
+cold draws' copies count in ``h2d_bytes`` and
+``host_topo_copied_bytes``.
 """
 
 from __future__ import annotations
 
 import functools
-import time
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -47,6 +50,7 @@ from legion_tpu_torch.train.graphed import (GraphedStep, GraphPool, HostRing,
                                             serving_run, store)
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 maybe_checkpoint_step)
+from legion_tpu_torch.utils import trace
 
 # Device uniforms come from a generator or, for parity tests, from a
 # callable (step, hop) -> (caps[hop], fanouts[hop]) float32 tensor.
@@ -146,8 +150,8 @@ class HybridTrainer:
     the feature plan and the NEXT batch's hop-0 miss ids share the last
     one) against 2H+1 for ``HybridSampler``'s hit + frontier + plan reads,
     plus H+1 host->device copies (the cold draws of each hop, the staged
-    feature rows). Reads are counted in ``stats["fetches"]``: H a step and
-    one for the epoch's prologue.
+    feature rows). Reads are counted in the counter ``fetches``: H a step
+    and one for the epoch's prologue.
 
     Step structure (H = 2):
 
@@ -198,11 +202,9 @@ class HybridTrainer:
         self.pool = pool
         self.runs: Dict = {}
         # host_topo_bytes: the cold draws' bytes (the reference's meter);
-        # host_topo_copied_bytes: what the copies up carry, the -1 rows of
-        # hot and padding entries included
-        self.stats = {"hot": 0, "cold": 0, "host_topo_bytes": 0,
-                      "host_topo_copied_bytes": 0, "fetches": 0,
-                      "host_sample_s": 0.0, "fetch_s": 0.0}
+        # what the copies up carry, the -1 rows of hot and padding entries
+        # included, is the counter host_topo_copied_bytes
+        self.stats = {"hot": 0, "cold": 0, "host_topo_bytes": 0}
         self.train_from, self.eval_from = make_cache_step_fns(
             cfg, combine=lambda rows, plan, staged, frontier:
             fcache.combine(plan, staged, frontier), reducer=reducer)
@@ -289,7 +291,8 @@ class HybridTrainer:
         return frontier, num, blk, plan, nxt, packed
 
     def _build(self, rows: int, width: int, gens, consume: Callable,
-               consume_gens, injected: bool, out: torch.Tensor) -> Run:
+               consume_gens, injected: bool, out: torch.Tensor,
+               label: str) -> Run:
         """A pass's static buffers and stages. Rows ``0 .. rows`` of the
         seeds (the last a copy of the first: the epoch's last finish
         opens step 0 again); ``run.at`` is the step the consume stage
@@ -298,7 +301,8 @@ class HybridTrainer:
         apart from the inner hops' outputs, which the train step of the
         same batch still reads when the finish opens the next batch. The
         sampling stages draw from ``gens`` unless the uniforms are given
-        (``ubufs``); ``consume(run)`` from ``consume_gens``. One pinned
+        (``ubufs``); ``consume(run)`` (the span ``stage.<label>``) from
+        ``consume_gens``. One pinned
         buffer serves each host leg (``cold_host`` a hop, ``packed`` a
         stage: start, inner hops, finish; ``staging``): the host writes
         or reads one only after waiting for a packed array that stream
@@ -352,11 +356,12 @@ class HybridTrainer:
             run.at.add_(1)
 
         draws = () if injected else tuple(gens)
-        run.start = StageGraph(start, self.pool, draws)
-        run.hops = [StageGraph(functools.partial(hop, k), self.pool, draws)
+        run.start = StageGraph(start, self.pool, draws, "start")
+        run.hops = [StageGraph(functools.partial(hop, k), self.pool, draws,
+                               f"hop{k}")
                     for k in range(1, hops)]
-        run.finish = GraphedStep(finish, self.pool, draws)
-        run.step = GraphedStep(step, self.pool, consume_gens)
+        run.finish = GraphedStep(finish, self.pool, draws, "finish")
+        run.step = GraphedStep(step, self.pool, consume_gens, label)
         return run
 
     def _batch(self, run: Run):
@@ -413,7 +418,7 @@ class HybridTrainer:
                     [torch.Generator(device=self.device)
                      for _ in range(n_gens)])
             return self._build(rows, width, gens, consume, consume_gens,
-                               injected, out(rows))
+                               injected, out(rows), f"{kind}_from")
         run = serving_run(self.runs, (kind, draw, n_gens), steps, width,
                           run_ties(owner, self._tables()), build)
         if draw != "lent":
@@ -428,11 +433,9 @@ class HybridTrainer:
     # -- host legs ----------------------------------------------------------
 
     def _fetch(self, ring: HostRing, slot: int) -> np.ndarray:
-        self.stats["fetches"] += 1
-        t = time.perf_counter()
-        out = ring.numpy(slot)
-        self.stats["fetch_s"] += time.perf_counter() - t
-        return out
+        trace.count("fetches", 1)
+        with trace.span("hybrid.fetch"):
+            return ring.numpy(slot)
 
     def _cold(self, run: Run, hop: int, miss_pack: np.ndarray, fanout: int,
               seed: int) -> None:
@@ -446,16 +449,16 @@ class HybridTrainer:
         miss = miss_pack[1:]
         host = run.cold_host.buffer(hop, (miss.shape[0], fanout),
                                     torch.int32)
-        t = time.perf_counter()
-        runtime.sample_neighbors(self.host_indptr, self.host_indices, miss,
-                                 fanout, self._cold_seed(seed),
-                                 out=host.numpy())
-        self.stats["host_sample_s"] += time.perf_counter() - t
+        with trace.span("hybrid.host_sample"):
+            runtime.sample_neighbors(self.host_indptr, self.host_indices,
+                                     miss, fanout, self._cold_seed(seed),
+                                     out=host.numpy())
         n_cold = int((miss >= 0).sum())
         self.stats["hot"] += int(miss_pack[0])
         self.stats["cold"] += n_cold
         self.stats["host_topo_bytes"] += n_cold * fanout * 4
-        self.stats["host_topo_copied_bytes"] += host.numel() * 4
+        trace.count("host_topo_copied_bytes", host.numel() * 4)
+        trace.count("h2d_bytes", host.numel() * 4)
         run.cold[hop].copy_(host, non_blocking=run.cold_host.cuda)
 
     def _uniforms_for(self, run: Run, uniforms, step: int, hop: int) -> None:
@@ -472,9 +475,9 @@ class HybridTrainer:
                  seed_base: int, uniforms, next_step: int):
         """Hops 1..H-1 and the finish stage of the batch whose hop-0 state
         is in ``run.carry0`` / ``packed0``, with the staged rows on their
-        way up. Returns (plan statistics, host seconds fetching the plan
-        and staging, the next batch's packed0). The arrays returned are
-        views of the host ring, read before their slots' next fetch."""
+        way up (the span ``pipeline.stage``). Returns (plan statistics, the
+        next batch's packed0): views of the host ring, read before their
+        slots' next fetch."""
         hops = len(self.fanouts)
         for k in range(1, hops):
             self._cold(run, k - 1, packed0, self.fanouts[k - 1],
@@ -487,29 +490,32 @@ class HybridTrainer:
         self._uniforms_for(run, uniforms, next_step, 0)
         run.finish()
         run.packed.fetch(hops, run.fin[-1])
-        t = time.perf_counter()
-        fused = self._fetch(run.packed, hops)
-        miss_cap, ns = self.fcache.miss_cap, self.n_stats
-        fstats = fused[:ns]
-        # the staged rows: one pinned buffer and one device buffer serve,
-        # as the last copy out of them went before the last train step
-        self.fcache.stage_to(
-            self.device, fused[ns:ns + min(int(fstats[1]), miss_cap)],
-            run.staged, run.staging.buffer(0, run.staged.shape,
-                                           run.staged.dtype))
-        return fstats, time.perf_counter() - t, fused[ns + miss_cap:]
+        with trace.span("pipeline.stage"):
+            fused = self._fetch(run.packed, hops)
+            miss_cap, ns = self.fcache.miss_cap, self.n_stats
+            fstats = fused[:ns]
+            # the staged rows: one pinned buffer and one device buffer
+            # serve, as the last copy out of them went before the last
+            # train step
+            self.fcache.stage_to(
+                self.device, fused[ns:ns + min(int(fstats[1]), miss_cap)],
+                run.staged, run.staging.buffer(0, run.staged.shape,
+                                               run.staged.dtype))
+        return fstats, fused[ns + miss_cap:]
 
     @staticmethod
     def _load(run: Run, seeds: np.ndarray, nums, labels: np.ndarray) -> None:
-        """A pass's rows into the run (row ``steps`` repeats row 0) and its
-        step to 0."""
-        steps = seeds.shape[0]
-        for buf, x in ((run.seeds, seeds), (run.nums, nums),
-                       (run.labels, labels)):
-            x = torch.from_numpy(np.ascontiguousarray(x, np.int32))
-            buf[:steps].copy_(x)
-            buf[steps].copy_(x[0])
-        run.at.zero_()
+        """A pass's rows into the run (row ``steps`` repeats row 0;
+        ``h2d_bytes``) and its step to 0: the span ``epoch.load``."""
+        with trace.span("epoch.load"):
+            steps = seeds.shape[0]
+            for buf, x in ((run.seeds, seeds), (run.nums, nums),
+                           (run.labels, labels)):
+                x = torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                buf[:steps].copy_(x)
+                buf[steps].copy_(x[0])
+                trace.count("h2d_bytes", (x.numel() + x[0].numel()) * 4)
+            run.at.zero_()
 
     def run_epoch(self, state: TrainState, seeds_epoch: np.ndarray,
                   labels_epoch: np.ndarray, epoch: int,
@@ -521,79 +527,101 @@ class HybridTrainer:
         byte / fetch figures are this epoch's, not the trainer's running
         totals; ``host_topo_gb`` counts the cold draws alone, as the
         reference does, and ``host_topo_copied_gb`` the buffers that
-        carry them up."""
+        carry them up. The epoch is a ``train`` root: ``seconds`` is its
+        time up to the record, ``stage_s``, ``fetch_s`` and
+        ``host_sample_s`` its ``pipeline.stage``, ``hybrid.fetch`` and
+        ``hybrid.host_sample`` seconds, ``fetches`` its count; the record
+        carries its ``spans`` and ``counts``."""
         steps, b = seeds_epoch.shape
         dev = self.device
         source = uniforms if uniforms is not None else state.generator
-        t0 = time.perf_counter()
-        stats0 = dict(self.stats)
-        tot = np.zeros(self.n_stats, np.int64)   # hit, miss, valid, ...
-        row_bytes = (self.fcache.rows.shape[1]
-                     * self.fcache.rows.element_size())
-        host_rows, stage_s = 0, 0.0
-        if steps:
-            run, lent = self._run(
-                "train", source, state, steps, b,
-                functools.partial(self._train_stage, state),
-                (state.generator,),
-                # a row past the last step's: a capture records the step
-                # after its warm-up's
-                lambda rows: torch.zeros((rows + 1, 3), dtype=torch.float64,
-                                         device=dev))
-            self._load(run, seeds_epoch, np.full(steps, b), labels_epoch)
-            given = uniforms if run.ubufs is not None else None
-            with lend(run.gens if lent else [], lent):
-                packed0 = self._prologue(run, given)
-                for i in range(steps):
-                    fstats, dt_stage, packed0 = self._advance(
-                        run, packed0, i, epoch * 1_000_003 + i, given,
-                        (i + 1) % steps)
-                    # batch i+1's hop-0 host leg runs at the top of the
-                    # next iteration, while the device still trains on
-                    # batch i
-                    run.step()
-                    state.step += 1
-                    tot += fstats
-                    host_rows += min(int(fstats[1]), self.fcache.miss_cap)
-                    stage_s += dt_stage
-                    maybe_checkpoint_step(self.cfg.train, state, i,
-                                          self.save)
-            # Adam's state exists now
-            run.ties = run_ties(state, self._tables())
+        with trace.epoch("train") as root:
+            root.steps = steps
+            tally = root.tally
+            stats0 = dict(self.stats)
+            tot = np.zeros(self.n_stats, np.int64)   # hit, miss, valid, ...
+            row_bytes = (self.fcache.rows.shape[1]
+                         * self.fcache.rows.element_size())
+            host_rows = 0
+            if steps:
+                with trace.span("epoch.prepare"):
+                    run, lent = self._run(
+                        "train", source, state, steps, b,
+                        functools.partial(self._train_stage, state),
+                        (state.generator,),
+                        # a row past the last step's: a capture records
+                        # the step after its warm-up's
+                        lambda rows: torch.zeros((rows + 1, 3),
+                                                 dtype=torch.float64,
+                                                 device=dev))
+                    self._load(run, seeds_epoch, np.full(steps, b),
+                               labels_epoch)
+                given = uniforms if run.ubufs is not None else None
+                with trace.span("epoch.steps"), \
+                        lend(run.gens if lent else [], lent):
+                    packed0 = self._prologue(run, given)
+                    for i in range(steps):
+                        fstats, packed0 = self._advance(
+                            run, packed0, i, epoch * 1_000_003 + i, given,
+                            (i + 1) % steps)
+                        # batch i+1's hop-0 host leg runs at the top of the
+                        # next iteration, while the device still trains on
+                        # batch i
+                        run.step()
+                        state.step += 1
+                        tot += fstats
+                        host_rows += min(int(fstats[1]),
+                                         self.fcache.miss_cap)
+                        maybe_checkpoint_step(self.cfg.train, state, i,
+                                              self.save)
+                # Adam's state exists now
+                run.ties = run_ties(state, self._tables())
 
-        # the epoch's one read besides the packed arrays: losses, the
-        # device counts and the host figures, summed over the ranks
-        d = {k: self.stats[k] - stats0[k] for k in self.stats}
-        host = [*tot, host_rows] + [d[k] for k in (
-            "hot", "cold", "host_topo_bytes", "host_topo_copied_bytes")]
-        f64 = dict(dtype=torch.float64, device=dev)
-        summed = self._sum_ranks(torch.cat([
-            run.out[:steps, 0] if steps else torch.zeros(0, **f64),
-            run.out[:steps, 1:].sum(0) if steps else torch.zeros(2, **f64),
-            torch.tensor(host, **f64)])).cpu()
-        loss_h = summed[:steps].to(torch.float32).numpy()
-        n_edges, cap_overflow, *host = summed[steps:].to(
-            torch.int64).tolist()
-        ns = self.n_stats
-        tot, host_rows = host[:ns], host[ns]
-        hot, cold, topo_b, copied_b = host[ns + 1:]
-        dt = time.perf_counter() - t0
-        return {
-            "state": state, "steps": steps, "seconds": dt,
-            "loss": float(loss_h[-1]) if steps else float("nan"),
-            "losses": loss_h.tolist(),
-            "feat_hit_rate": int(tot[0]) / max(int(tot[2]), 1),
-            "staging_overflow": int(tot[3]),
-            "host_feat_gb": host_rows * row_bytes / 2 ** 30,
-            "host_topo_gb": topo_b / 2 ** 30,
-            "host_topo_copied_gb": copied_b / 2 ** 30,
-            "topo_hot_fraction": hot / max(hot + cold, 1),
-            "fetches": d["fetches"], "cap_overflow": cap_overflow,
-            "edges": n_edges, "edges_per_s": n_edges / dt,
-            "stage_s": stage_s,
-            "host_sample_s": d["host_sample_s"], "fetch_s": d["fetch_s"],
-            **self._extra(tot),
-        }
+            with trace.span("epoch.read"):
+                # the epoch's one read besides the packed arrays: losses,
+                # the device counts and the host figures, summed over the
+                # ranks
+                d = {k: self.stats[k] - stats0[k] for k in self.stats}
+                host = [*tot, host_rows] + [d[k] for k in (
+                    "hot", "cold", "host_topo_bytes")] + [
+                    tally.counts.get("host_topo_copied_bytes", 0)]
+                f64 = dict(dtype=torch.float64, device=dev)
+                up = torch.tensor(host, dtype=torch.float64)
+                trace.count("h2d_bytes", up.numel() * up.element_size())
+                summed = self._sum_ranks(torch.cat([
+                    run.out[:steps, 0] if steps else torch.zeros(0, **f64),
+                    run.out[:steps, 1:].sum(0) if steps
+                    else torch.zeros(2, **f64),
+                    up.to(dev)])).cpu()
+            with trace.span("epoch.record"):
+                loss_h = summed[:steps].to(torch.float32).numpy()
+                n_edges, cap_overflow, *host = summed[steps:].to(
+                    torch.int64).tolist()
+                ns = self.n_stats
+                tot, host_rows = host[:ns], host[ns]
+                hot, cold, topo_b, copied_b = host[ns + 1:]
+                dt = root.elapsed()
+                rec = {
+                    "state": state, "steps": steps, "seconds": dt,
+                    "loss": float(loss_h[-1]) if steps else float("nan"),
+                    "losses": loss_h.tolist(),
+                    "feat_hit_rate": int(tot[0]) / max(int(tot[2]), 1),
+                    "staging_overflow": int(tot[3]),
+                    "host_feat_gb": host_rows * row_bytes / 2 ** 30,
+                    "host_topo_gb": topo_b / 2 ** 30,
+                    "host_topo_copied_gb": copied_b / 2 ** 30,
+                    "topo_hot_fraction": hot / max(hot + cold, 1),
+                    "fetches": tally.counts.get("fetches", 0),
+                    "cap_overflow": cap_overflow,
+                    "edges": n_edges, "edges_per_s": n_edges / dt,
+                    "stage_s": trace.seconds(tally, "pipeline.stage"),
+                    "host_sample_s": trace.seconds(tally,
+                                                   "hybrid.host_sample"),
+                    "fetch_s": trace.seconds(tally, "hybrid.fetch"),
+                    **self._extra(tot),
+                }
+        rec["spans"], rec["counts"] = root.entry["spans"], root.entry["counts"]
+        return rec
 
     def _extra(self, tot) -> Dict:
         """Figures of a subclass's own statistics."""
@@ -614,19 +642,25 @@ class HybridTrainer:
             return float("nan")
         source = (uniforms if uniforms is not None else
                   torch.Generator(device=dev).manual_seed(4242))
-        run, lent = self._run(
-            "eval", source, model, steps, b,
-            functools.partial(self._eval_stage, model), (),
-            lambda rows: torch.zeros(2, dtype=torch.float32, device=dev))
-        self._load(run, seeds, counts, labels)
-        run.out.zero_()
-        given = source if run.ubufs is not None else None
-        with lend(run.gens if lent else [], lent):
-            packed0 = self._prologue(run, given)
-            for t in range(steps):
-                _, _, packed0 = self._advance(run, packed0, t, 777_000 + t,
-                                              given, (t + 1) % steps)
-                run.step()
-        run.ties = run_ties(model, self._tables())
-        a, b = self._sum_ranks(run.out.clone()).tolist()
+        with trace.epoch("eval") as root:
+            root.steps = steps
+            with trace.span("epoch.prepare"):
+                run, lent = self._run(
+                    "eval", source, model, steps, b,
+                    functools.partial(self._eval_stage, model), (),
+                    lambda rows: torch.zeros(2, dtype=torch.float32,
+                                             device=dev))
+                self._load(run, seeds, counts, labels)
+                run.out.zero_()
+            given = source if run.ubufs is not None else None
+            with trace.span("epoch.steps"), \
+                    lend(run.gens if lent else [], lent):
+                packed0 = self._prologue(run, given)
+                for t in range(steps):
+                    _, packed0 = self._advance(run, packed0, t, 777_000 + t,
+                                               given, (t + 1) % steps)
+                    run.step()
+            run.ties = run_ties(model, self._tables())
+            with trace.span("epoch.read"):
+                a, b = self._sum_ranks(run.out.clone()).tolist()
         return a / max(b, 1.0)

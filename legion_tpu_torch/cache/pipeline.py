@@ -33,12 +33,19 @@ the packed read, the host gather of the misses and the copy of exactly
 their rows to the device, whose size changes from step to step. Without
 a capturing pool (the CPU, the eager comparison) the same stages run
 eagerly on the same buffers.
+
+Spans (``utils/trace.py``), each step: ``pipeline.dispatch`` (the
+sample stage's replay and the packed array's fetch), ``pipeline.plan_wait``
+(the wait for the packed array), ``pipeline.stage`` (the host gather of
+the misses and their copy up) and ``pipeline.consume`` (the train or eval
+stage and the host's count); the epoch's ``stage_s`` is ``plan_wait`` +
+``stage``. An epoch is a ``train`` root, an evaluation an ``eval`` one;
+``h2d_bytes`` counts the loads, the staged rows and the epoch's totals.
 """
 
 from __future__ import annotations
 
 import functools
-import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -53,6 +60,7 @@ from legion_tpu_torch.train.graphed import (GraphedStep, GraphPool, HostRing,
 from legion_tpu_torch.train.loop import make_objective
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 maybe_checkpoint_step)
+from legion_tpu_torch.utils import trace
 
 
 def make_cache_step_fns(cfg: Config, combine: Optional[Callable] = None,
@@ -179,11 +187,12 @@ class CachedTrainer:
 
     def _build(self, rows: int, width: int, generator: torch.Generator,
                consume: Callable, consume_gens, injected: bool,
-               out: torch.Tensor) -> Run:
+               out: torch.Tensor, label: str) -> Run:
         """A pipelined pass's static buffers and stages: per slot a sample
         graph (drawing from ``generator`` unless the uniforms are given)
         and a ``consume(run, slot)`` graph (drawing from
-        ``consume_gens``). The sample stages read row ``run.sampled`` of
+        ``consume_gens``; its spans ``stage.<label>``). The sample stages
+        read row ``run.sampled`` of
         the seeds and advance it; ``out`` collects what the consume stages
         report. The rows hold one padding row past the last step's: a
         capture records the step after its warm-up's."""
@@ -213,9 +222,10 @@ class CachedTrainer:
             return res
 
         draws = () if injected else (generator,)
-        run.sample = [StageGraph(sample, self.pool, draws) for _ in range(d)]
+        run.sample = [StageGraph(sample, self.pool, draws, "sample_plan")
+                      for _ in range(d)]
         run.consume = [GraphedStep(functools.partial(consume, run, s),
-                                   self.pool, consume_gens)
+                                   self.pool, consume_gens, label)
                        for s in range(d)]
         return run
 
@@ -241,8 +251,7 @@ class CachedTrainer:
         """Replay slot ``i % d``'s sample stage ``d`` =
         ``train.pipeline_depth`` steps ahead of its consume stage, with
         the host legs between them, and ``consume(i, packed)`` on the host
-        after each step; returns the host seconds spent reading the packed
-        arrays and staging.
+        after each step, in the spans the module names.
 
         The host rings. At step i the host waits for packed(i)'s event,
         recorded after sample(i), which was enqueued at step i-d: before
@@ -255,41 +264,44 @@ class CachedTrainer:
         train(i-1), which reads the last ones."""
         d = len(run.sample)
         ns, miss_cap = self.n_stats, self.cache.miss_cap
-        stage_s = 0.0
 
         def dispatch(i):
-            if uniforms is not None:
-                for k, buf in enumerate(run.ubufs):
-                    buf.copy_(uniforms(i, k))
-            run.packed.fetch(i % d, run.sample[i % d]()[2])
+            with trace.span("pipeline.dispatch"):
+                if uniforms is not None:
+                    for k, buf in enumerate(run.ubufs):
+                        buf.copy_(uniforms(i, k))
+                run.packed.fetch(i % d, run.sample[i % d]()[2])
 
         for i in range(min(d, steps)):
             dispatch(i)
         for i in range(steps):
             s = i % d
-            t = time.perf_counter()
-            p = run.packed.numpy(s)
-            n_miss = min(int(p[1]), miss_cap)
-            self.stage(p[ns:ns + n_miss], run.staging.buffer(
-                s, run.staged.shape, run.staged.dtype), run.staged)
-            stage_s += time.perf_counter() - t
-            run.consume[s]()
-            consume(i, p)
+            with trace.span("pipeline.plan_wait"):
+                p = run.packed.numpy(s)
+            with trace.span("pipeline.stage"):
+                n_miss = min(int(p[1]), miss_cap)
+                self.stage(p[ns:ns + n_miss], run.staging.buffer(
+                    s, run.staged.shape, run.staged.dtype), run.staged)
+            with trace.span("pipeline.consume"):
+                run.consume[s]()
+                consume(i, p)
             if i + d < steps:
                 dispatch(i + d)
-        return stage_s
 
     @staticmethod
     def _load(run: Run, seeds: np.ndarray, nums, labels: np.ndarray) -> None:
         """An epoch's seeds, seed counts and labels into the run's static
-        rows, and its counters to the first row."""
-        steps = seeds.shape[0]
-        for buf, x in ((run.seeds, seeds), (run.nums, nums),
-                       (run.labels, labels)):
-            buf[:steps].copy_(torch.from_numpy(np.ascontiguousarray(
-                x, np.int32)))
-        run.sampled.zero_()
-        run.done.zero_()
+        rows (``h2d_bytes``), and its counters to the first row: the span
+        ``epoch.load``."""
+        with trace.span("epoch.load"):
+            steps = seeds.shape[0]
+            for buf, x in ((run.seeds, seeds), (run.nums, nums),
+                           (run.labels, labels)):
+                x = np.ascontiguousarray(x, np.int32)
+                buf[:steps].copy_(torch.from_numpy(x))
+                trace.count("h2d_bytes", x.nbytes)
+            run.sampled.zero_()
+            run.done.zero_()
 
     def _sum_ranks(self, t: torch.Tensor) -> torch.Tensor:
         """An epoch's figures as every rank holds them: here the one
@@ -303,49 +315,64 @@ class CachedTrainer:
         ``train.pipeline_depth`` steps enqueued ahead; sampling and dropout
         draw from ``state.generator`` (``uniforms(step, hop)`` replaces
         the sampling draws in parity tests). The losses, and the hit,
-        miss and byte figures, are those of every rank: ``_sum_ranks``."""
+        miss and byte figures, are those of every rank: ``_sum_ranks``.
+        The epoch is a ``train`` root: ``seconds`` is its time up to the
+        record, ``stage_s`` its ``pipeline.plan_wait`` + ``pipeline.stage``
+        seconds, and the record carries its ``spans`` and ``counts``."""
         steps, b = seeds_epoch.shape
         dev = self.device
-        t0 = time.perf_counter()
-        injected = uniforms is not None
-        ties = run_ties(state, self._tables())
-        run = serving_run(
-            self.runs, ("train", injected), steps, b, ties,
-            lambda rows: self._build(
-                rows, b, state.generator,
-                functools.partial(self._train_stage, state),
-                (state.generator,), injected,
-                torch.zeros((rows + 1,), dtype=torch.float64, device=dev)))
-        self._load(run, seeds_epoch, np.full(steps, b), labels_epoch)
-        ns = self.n_stats
-        tot = np.zeros(ns + 1, np.int64)       # the stats, then host rows
+        with trace.epoch("train") as root:
+            root.steps = steps
+            with trace.span("epoch.prepare"):
+                injected = uniforms is not None
+                ties = run_ties(state, self._tables())
+                run = serving_run(
+                    self.runs, ("train", injected), steps, b, ties,
+                    lambda rows: self._build(
+                        rows, b, state.generator,
+                        functools.partial(self._train_stage, state),
+                        (state.generator,), injected,
+                        torch.zeros((rows + 1,), dtype=torch.float64,
+                                    device=dev), "train_from"))
+                self._load(run, seeds_epoch, np.full(steps, b), labels_epoch)
+            ns = self.n_stats
+            tot = np.zeros(ns + 1, np.int64)   # the stats, then host rows
 
-        def consume(i, p):
-            state.step += 1
-            tot[:ns] += p[:ns]
-            tot[ns] += min(int(p[1]), self.cache.miss_cap)
-            maybe_checkpoint_step(self.cfg.train, state, i, self.save)
+            def consume(i, p):
+                state.step += 1
+                tot[:ns] += p[:ns]
+                tot[ns] += min(int(p[1]), self.cache.miss_cap)
+                maybe_checkpoint_step(self.cfg.train, state, i, self.save)
 
-        stage_s = self._pipeline(run, steps, uniforms, consume)
-        run.ties = run_ties(state, self._tables())  # Adam's state exists now
-        # the epoch's only reads besides the per-step packed arrays
-        summed = self._sum_ranks(torch.cat([
-            run.out[:steps],
-            torch.from_numpy(tot.astype(np.float64)).to(dev)])).cpu()
-        loss_h = summed[:steps].to(torch.float32).numpy()
-        tot = summed[steps:].to(torch.int64).numpy()
-        row_bytes = self.cache.rows.shape[1] * self.cache.rows.element_size()
-        dt = time.perf_counter() - t0
-        return {
-            "state": state, "steps": steps, "seconds": dt,
-            "loss": float(loss_h[-1]) if steps else float("nan"),
-            "losses": loss_h.tolist(),
-            "cache_hit_rate": int(tot[0]) / max(int(tot[2]), 1),
-            "host_gb": int(tot[ns]) * row_bytes / 2 ** 30,
-            "staging_overflow": int(tot[3]), "edges": int(tot[4]),
-            "edges_per_s": int(tot[4]) / dt, "stage_s": stage_s,
-            **self._extra(tot),
-        }
+            with trace.span("epoch.steps"):
+                self._pipeline(run, steps, uniforms, consume)
+            run.ties = run_ties(state, self._tables())  # Adam's state now
+            with trace.span("epoch.read"):
+                # the epoch's only reads besides the per-step packed arrays
+                up = torch.from_numpy(tot.astype(np.float64))
+                trace.count("h2d_bytes", up.numel() * up.element_size())
+                summed = self._sum_ranks(torch.cat([run.out[:steps],
+                                                    up.to(dev)])).cpu()
+            with trace.span("epoch.record"):
+                loss_h = summed[:steps].to(torch.float32).numpy()
+                tot = summed[steps:].to(torch.int64).numpy()
+                row_bytes = (self.cache.rows.shape[1]
+                             * self.cache.rows.element_size())
+                dt = root.elapsed()
+                rec = {
+                    "state": state, "steps": steps, "seconds": dt,
+                    "loss": float(loss_h[-1]) if steps else float("nan"),
+                    "losses": loss_h.tolist(),
+                    "cache_hit_rate": int(tot[0]) / max(int(tot[2]), 1),
+                    "host_gb": int(tot[ns]) * row_bytes / 2 ** 30,
+                    "staging_overflow": int(tot[3]), "edges": int(tot[4]),
+                    "edges_per_s": int(tot[4]) / dt,
+                    "stage_s": (trace.seconds(root.tally, "pipeline.plan_wait")
+                                + trace.seconds(root.tally, "pipeline.stage")),
+                    **self._extra(tot),
+                }
+        rec["spans"], rec["counts"] = root.entry["spans"], root.entry["counts"]
+        return rec
 
     def _extra(self, tot: np.ndarray) -> Dict:
         """Figures of a subclass's own statistics."""
@@ -361,25 +388,31 @@ class CachedTrainer:
         the ranks): one fetch for the epoch. The samples draw from
         ``generator`` (default: one seeded 4242), through a generator of
         the run's own that takes its state and hands it back, so that the
-        run's graphs serve every call."""
+        run's graphs serve every call. The pass is an ``eval`` root."""
         dev = self.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(4242)
         steps, b = seeds.shape
         if steps == 0:
             return float("nan")
-        injected = uniforms is not None
-        run = serving_run(
-            self.runs, ("eval", injected), steps, b,
-            run_ties(model, self._tables()),
-            lambda rows: self._build(
-                rows, b, torch.Generator(device=dev),
-                functools.partial(self._eval_stage, model), (), injected,
-                torch.zeros(2, dtype=torch.float32, device=dev)))
-        self._load(run, seeds, counts, labels)
-        run.out.zero_()
-        with lend([run.gen], [generator]):
-            self._pipeline(run, steps, uniforms, lambda i, p: None)
-        run.ties = run_ties(model, self._tables())
-        a, b = self._sum_ranks(run.out.clone()).tolist()
+        with trace.epoch("eval") as root:
+            root.steps = steps
+            with trace.span("epoch.prepare"):
+                injected = uniforms is not None
+                run = serving_run(
+                    self.runs, ("eval", injected), steps, b,
+                    run_ties(model, self._tables()),
+                    lambda rows: self._build(
+                        rows, b, torch.Generator(device=dev),
+                        functools.partial(self._eval_stage, model), (),
+                        injected,
+                        torch.zeros(2, dtype=torch.float32, device=dev),
+                        "eval_from"))
+                self._load(run, seeds, counts, labels)
+                run.out.zero_()
+            with trace.span("epoch.steps"), lend([run.gen], [generator]):
+                self._pipeline(run, steps, uniforms, lambda i, p: None)
+            run.ties = run_ties(model, self._tables())
+            with trace.span("epoch.read"):
+                a, b = self._sum_ranks(run.out.clone()).tolist()
         return a / max(b, 1.0)

@@ -21,8 +21,11 @@ Which path reads each field:
   ``pipeline_depth`` the cached trainers (single-device and striped),
   ``profile_dir`` the ``Trainer`` (epoch 0 under ``torch.profiler``: on a
   card its first step, run eagerly as the capture's warm-up, the capture
-  and the replays of the other steps; the other drivers accept it and do
-  not read it, as in the reference).
+  and the replays of the other steps) and ``run_cached_training`` (its
+  first epoch after the capturing one, the steady state), each trace
+  written by ``utils.trace.profiled`` with the spans of
+  ``utils/trace.py`` on its host rows; the other drivers accept it and do
+  not read it.
 * ``cache``: ``enabled`` the dispatch; ``budget_bytes`` and
   ``cost_model_granularity`` the cost model of the cached, hybrid and
   striped drivers; ``presample_steps`` their presample. ``group_size``:

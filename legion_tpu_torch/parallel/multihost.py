@@ -46,7 +46,7 @@ from legion_tpu_torch.sampling.block import SampledBatch
 from legion_tpu_torch.sampling.sampler import grow_frontier
 from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import StepFns, make_step_fns
-from legion_tpu_torch.utils import comm
+from legion_tpu_torch.utils import comm, trace
 
 
 def sample_batch_partitioned(shard: HostShard, seeds: torch.Tensor,
@@ -177,15 +177,22 @@ class PartitionedTrainer:
         ranks: per-step mean loss, the epoch's edges, frontier-cap and
         halo overflow."""
         shard = self.path.shard
-        self.path.overflow.zero_()
-        m = self.fns.epoch_scan(state, shard, shard.feat_rows, _int32(seeds),
-                                _int32(labels), uniforms)
-        steps = m.shape[0]
-        # loss, edges and cap_overflow of every step, and the epoch's halo
-        # overflow: the epoch's one device -> host read, summed over ranks
-        packed = comm.all_reduce(torch.cat([
-            m[:, [0, 1, 3]].reshape(-1),
-            self.path.overflow.to(torch.float64)[None]])).cpu()
+        scan = self.fns.epoch_scan
+        with trace.span("epoch.prepare"), trace.span("epoch.load"):
+            self.path.overflow.zero_()
+            run = scan.load(state, shard, shard.feat_rows, _int32(seeds),
+                            _int32(labels), uniforms)
+        steps = seeds.shape[0]
+        with trace.span("epoch.steps"):
+            m = scan.replay(run, state, shard, shard.feat_rows, steps,
+                            uniforms)
+        with trace.span("epoch.read"):
+            # loss, edges and cap_overflow of every step, and the epoch's
+            # halo overflow: the epoch's one device -> host read, summed
+            # over ranks
+            packed = comm.all_reduce(torch.cat([
+                m[:, [0, 1, 3]].reshape(-1),
+                self.path.overflow.to(torch.float64)[None]])).cpu()
         m = packed[:-1].reshape(steps, 3)
         losses = (m[:, 0] / self.path.k).to(torch.float32).numpy()
         return {"losses": losses.tolist(), "steps": steps,
@@ -203,12 +210,20 @@ class PartitionedTrainer:
         pairs). ``uniforms(step, hop)`` gives the grids. Through
         ``eval_scan``, which sums in float32 as the reference's does."""
         shard = self.path.shard
-        self.path.overflow.zero_()
-        acc = self.fns_eval.eval_scan(model, shard, shard.feat_rows,
-                                      _int32(seeds), _int32(counts),
-                                      _int32(labels), generator, uniforms)
-        c, n, ov = comm.all_reduce(torch.cat([
-            acc, self.path.overflow[None]]).to(torch.float64)).tolist()
+        scan = self.fns_eval.eval_scan
+        with trace.epoch("eval") as root:
+            root.steps = seeds.shape[0]
+            with trace.span("epoch.prepare"), trace.span("epoch.load"):
+                self.path.overflow.zero_()
+                run = scan.load(model, shard, shard.feat_rows, _int32(seeds),
+                                _int32(counts), _int32(labels), generator,
+                                uniforms)
+            with trace.span("epoch.steps"):
+                acc = scan.replay(run, model, shard, shard.feat_rows,
+                                  generator, seeds.shape[0], uniforms)
+            with trace.span("epoch.read"):
+                c, n, ov = comm.all_reduce(torch.cat([
+                    acc, self.path.overflow[None]]).to(torch.float64)).tolist()
         return c, n, int(ov)
 
 

@@ -22,7 +22,7 @@ evaluation sums the eval counts.
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -34,9 +34,8 @@ from legion_tpu_torch.parallel.dp import (make_dp_epoch_fns,
                                           put_striped_features,
                                           save_every_rank)
 from legion_tpu_torch.parallel.mesh import Mesh, captures_steps, make_mesh
-from legion_tpu_torch.sampling.seeds import epoch_train_seeds
 from legion_tpu_torch.train.loop import StepFns, Trainer, rank_seed
-from legion_tpu_torch.utils import comm
+from legion_tpu_torch.utils import comm, trace
 
 
 class MeshTrainer(Trainer):
@@ -93,13 +92,20 @@ class MeshTrainer(Trainer):
         """One epoch of this rank's shard in lockstep with the others;
         the record holds the figures of all ranks (mean loss per step,
         summed edges and overflow)."""
-        rng = np.random.default_rng(self.cfg.train.seed * 100003 + epoch)
-        seeds, _ = epoch_train_seeds(rng, self.shards_train, self.plan)
-        t0 = time.perf_counter()
-        metrics = comm.all_reduce(
-            self._train_steps(seeds[self.rank], uniforms)).cpu()
+        return self._train_epoch(epoch, self.shards_train, self.rank,
+                                 uniforms)
+
+    def _profiled(self, epoch: int):
+        """Nothing: the ranks do not profile (``train.profile_dir`` is not
+        read here)."""
+        return contextlib.nullcontext()
+
+    def _read_metrics(self, metrics: torch.Tensor) -> torch.Tensor:
+        """The epoch's metrics summed over the ranks (one all-reduce), on
+        the host, the loss the mean."""
+        metrics = super()._read_metrics(comm.all_reduce(metrics))
         metrics[:, 0] /= self.mesh.world
-        return self._epoch_record(epoch, metrics, time.perf_counter() - t0)
+        return metrics
 
     def evaluate(self, which: str = "valid",
                  uniforms: Optional[Callable] = None) -> float:
@@ -114,10 +120,14 @@ class MeshTrainer(Trainer):
                     uniforms: Optional[Callable] = None):
         """(correct, valid) counts of the valid or test set summed over
         the ranks (``lp_sage``: LP loss sum and valid pairs)."""
-        seeds, counts = self._eval_seeds(which)
-        pair = self._eval_counts(seeds[self.rank], counts[self.rank],
-                                 rank_seed(12345, self.rank), uniforms)
-        c, n = comm.all_reduce(pair.to(torch.float64)).tolist()
+        with trace.epoch("eval") as root:
+            with trace.span("epoch.seeds"):
+                seeds, counts = self._eval_seeds(which)
+            root.steps = seeds.shape[1]
+            pair = self._eval_counts(seeds[self.rank], counts[self.rank],
+                                     rank_seed(12345, self.rank), uniforms)
+            with trace.span("epoch.read"):
+                c, n = comm.all_reduce(pair.to(torch.float64)).tolist()
         return c, n
 
     def save_checkpoint(self) -> None:

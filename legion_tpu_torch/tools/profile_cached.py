@@ -95,11 +95,9 @@ def main(path: str = "cached") -> None:
     calls, profiled = [], {}
 
     def traced(self, *args):
-        t = spent[0]
-        try:
-            return profiled_epoch(self, *args)
-        finally:
-            calls.append(spent[0] - t)
+        r = profiled_epoch(self, *args)
+        calls.append(scale.stage_seconds(r["spans"]))
+        return r
 
     def profiled_epoch(self, *args):
         if len(calls) != PROFILED_EPOCH:
@@ -132,8 +130,7 @@ def main(path: str = "cached") -> None:
             host_top=_rows(ev, "self_cpu_time_total", 15))
         return r
 
-    with scale.timed_stages() as spent, \
-            mock.patch.object(trainer, "run_epoch", traced):
+    with mock.patch.object(trainer, "run_epoch", traced):
         res = driver(config(EPOCHS), data, "cuda", log=log)
     print(json.dumps({
         "path": path, "device": scale.card_line(), "gen_s": gen_s,

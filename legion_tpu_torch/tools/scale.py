@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from legion_tpu_torch.data.format import GraphData
-from legion_tpu_torch.train import graphed
+from legion_tpu_torch.utils import trace
 
 HOLE = (1 << 31) + (1 << 20)        # node 0's run: past 2^31 by 2^20 edges
 HOLE_PROBE = 64 << 20               # the hole ``hole_bytes`` tries, bytes
@@ -105,22 +105,28 @@ def first_epoch_clock(trainer_cls):
         yield seen
 
 
+def stage_seconds(spans: Dict) -> float:
+    """The host seconds of the device stages' calls in ``spans`` (a
+    tally's ``{name: [calls, total_s, self_s]}``): the ``stage.*`` spans
+    (``train/graphed.py``), replays, eager dispatches and captures."""
+    return sum(v[1] for k, v in spans.items() if k.startswith("stage."))
+
+
 @contextlib.contextmanager
 def timed_stages():
-    """The host seconds spent in the device stages' calls (a replay, or
-    the eager dispatch of a stage's ops), summed into the one entry of
-    the list this yields."""
+    """The host seconds spent in the device stages' calls (a replay, the
+    eager dispatch of a stage's ops, or a capture) in the epochs that
+    close inside the block: their ``stage.*`` spans (``utils/trace.py``'s
+    ring, so at most ``trace.RING`` epochs), written into the one entry
+    of the list this yields when the block ends."""
     spent = [0.0]
-    call = graphed.GraphedStep.__call__
-
-    def timed(self):
-        t = time.perf_counter()
-        try:
-            call(self)
-        finally:
-            spent[0] += time.perf_counter() - t
-    with mock.patch.object(graphed.GraphedStep, "__call__", timed):
+    before = trace.epochs()
+    seen = {id(e) for e in before}
+    try:
         yield spent
+    finally:
+        spent[0] = sum(stage_seconds(e["spans"]) for e in trace.epochs()
+                       if id(e) not in seen)
 
 
 def trim(data: GraphData, train: int, evals: int) -> GraphData:

@@ -66,8 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--profile-dir", default=None,
-                    help="trace epoch 0 with torch.profiler into DIR "
-                         "(device-memory Trainer)")
+                    help="trace an epoch with torch.profiler into DIR as "
+                         "epoch_<n>.pt.trace.json, with the program's "
+                         "spans on its host rows (device-memory Trainer: "
+                         "epoch 0; cached driver: its first epoch after "
+                         "the capturing one)")
     ap.add_argument("--cache-budget-gb", type=float, default=0.0,
                     help=">0 enables the hotness cache (host features)")
     ap.add_argument("--topology", default="hbm", choices=["hbm", "host"],
@@ -253,10 +256,9 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
             or args.halo_cap_slack != ap.get_default("halo_cap_slack")):
         _warn("--halo-exchange/--halo-cap-slack apply only to "
               "--partitioned (ignored by this driver)")
-    if cfg.train.profile_dir and (partitioned or topo_host
-                                  or cfg.cache.enabled or multi):
-        _warn("--profile-dir applies to the device-memory Trainer only "
-              "(ignored by this driver)")
+    if cfg.train.profile_dir and (partitioned or topo_host or multi):
+        _warn("--profile-dir applies to the single-device Trainer and "
+              "cached driver only (ignored by this driver)")
     if partitioned:
         if cfg.cache.enabled:
             _warn("--partitioned ignores --cache-budget-gb/--cache-group "

@@ -9,12 +9,14 @@ model gives the feature cache its budget, the caps are tightened to 1.2x
 what presampling saw (``src/Server.cu:273-282``), the cache is filled,
 and training runs the pipeline of ``cache/pipeline.py``. The topology is
 whole in device memory; the features stay in host memory (a numpy array
-or memmap) behind the cache.
+or memmap) behind the cache. The set-up's phases are the spans
+``setup.presample``, ``setup.cost_model`` and ``setup.cache_build`` of
+``utils/trace.py``.
 """
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -36,6 +38,7 @@ from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels
 
 
@@ -52,9 +55,13 @@ def run_cached_training(cfg: Config, data: GraphData,
     ``lp_sage``), the caps, the staging capacity and the presample's
     seconds. With ``train.checkpoint_dir`` set it resumes from that
     directory's latest checkpoint, saves after every epoch and, with
-    ``train.checkpoint_every_steps``, within an epoch. As the reference's
-    driver, it reads neither ``feature_placement`` (the features always
-    stay in host memory here) nor ``train.profile_dir``."""
+    ``train.checkpoint_every_steps``, within an epoch. With
+    ``train.profile_dir`` set, the first epoch it trains after the one
+    that captures the pipeline's stages (the steady state; the only
+    epoch, if it trains one) runs under ``torch.profiler``, its trace
+    written there as ``epoch_<n>.pt.trace.json``. As the reference's
+    driver, it does not read ``feature_placement``: the features always
+    stay in host memory here."""
     if not cfg.cache.enabled:
         raise ValueError(
             "run_cached_training keeps the features behind the cache: it "
@@ -82,68 +89,74 @@ def run_cached_training(cfg: Config, data: GraphData,
     seeds, _ = epoch_train_seeds(rng, shards, plan)
 
     # ---- presampling epoch (PreSc) ----------------------------------------
-    t0 = time.perf_counter()
-    steps = cfg.cache.presample_steps or plan.train_steps
-    hot = presample_hotness(
-        graph, torch.from_numpy(seeds[0][:steps]).to(device),
-        torch.full((steps,), b, dtype=torch.int32, device=device), fanouts,
-        loose_caps, data.num_nodes,
-        generator=torch.Generator(device=device).manual_seed(cfg.train.seed))
-    max_frontier = int(hot.max_frontier)          # waits for the presample
-    presample_s = time.perf_counter() - t0
+    with trace.span("setup.presample") as span:
+        steps = cfg.cache.presample_steps or plan.train_steps
+        hot = presample_hotness(
+            graph, torch.from_numpy(seeds[0][:steps]).to(device),
+            torch.full((steps,), b, dtype=torch.int32, device=device),
+            fanouts, loose_caps, data.num_nodes,
+            generator=torch.Generator(device=device).manual_seed(
+                cfg.train.seed))
+        max_frontier = int(hot.max_frontier)      # waits for the presample
+    presample_s = span.seconds
     log(f"presampling: {steps} steps in {presample_s:.1f}s, "
         f"max frontier {max_frontier}/{loose_caps[-1]}")
 
     # ---- cost model + cache build -----------------------------------------
     cache_dtype, row_bytes = cache_dtype_for(cfg.model.dtype,
                                              data.feature_dim)
-    # the topology is whole in device memory: a topology cache would save
-    # no host bytes, so the whole budget goes to features
-    node_hot = hot.node_hot.cpu().numpy().astype(np.int64)
-    cost = solve_cost_model(
-        node_hot, hot.edge_hot.cpu().numpy(), data.degrees(),
-        cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
-        group_size=cfg.cache.group_size,
-        granularity=cfg.cache.cost_model_granularity, topo_cacheable=False)
+    with trace.span("setup.cost_model"):
+        # the topology is whole in device memory: a topology cache would
+        # save no host bytes, so the whole budget goes to features
+        node_hot = hot.node_hot.cpu().numpy().astype(np.int64)
+        cost = solve_cost_model(
+            node_hot, hot.edge_hot.cpu().numpy(), data.degrees(),
+            cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
+            group_size=cfg.cache.group_size,
+            granularity=cfg.cache.cost_model_granularity,
+            topo_cacheable=False)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"topo_cap={cost.topo_capacity}")
 
     caps = observed_caps(hot.max_per_hop, cfg.sampler.observed_cap_slack)
-    # Staging is sized from the expected misses per step, not the whole
-    # frontier: the presample's own estimate (biased low, since the cache
-    # holds what the presample saw), corrected by an unbiased probe of two
-    # fresh batches against the built hot set, at 1.5x plus 1/16 of the
-    # frontier; an epoch that still overflows grows it.
-    cached_ids = np.asarray(cost.feat_order[:cost.feat_capacity])
-    miss_per_step = ((node_hot.sum() - node_hot[cached_ids].sum())
-                     / max(steps, 1))
-    hot_sorted = torch.from_numpy(np.sort(cached_ids.astype(np.int32))
-                                  ).to(device)
-    prng = np.random.default_rng(cfg.train.seed * 31 + 7)
-    ids_all = np.asarray(shards[0])
-    probe_miss = 0
-    with torch.no_grad():
-        for i in range(2):
-            sb = prng.permutation(ids_all)[:b].astype(np.int32)
-            if len(sb) < b:
-                sb = np.pad(sb, (0, b - len(sb)), constant_values=-1)
-            batch = sample_batch(
-                graph, torch.from_numpy(sb).to(device),
-                torch.tensor(b, dtype=torch.int32, device=device),
-                torch.zeros((b,), dtype=torch.int32, device=device),
-                fanouts, caps, dedup_last=True,
-                generator=torch.Generator(device=device).manual_seed(9000 + i))
-            probe_miss = max(probe_miss, int(FeatureCache.plan_ids(
-                hot_sorted, batch.frontier, 128).num_miss))
-    miss_per_step = max(miss_per_step, probe_miss)
-    miss_cap = int(min(caps[-1],
-                       _round128(miss_per_step * 1.5 + caps[-1] / 16 + 1024)))
-    log(f"staging: expected {miss_per_step:.0f} misses/step "
-        f"(probe max {probe_miss}), miss_cap {miss_cap} "
-        f"(frontier cap {caps[-1]})")
-    cache = FeatureCache.build(data.features, cost.feat_order,
-                               cost.feat_capacity, miss_cap=miss_cap,
-                               dtype=cache_dtype, device=device)
+    with trace.span("setup.cache_build"):
+        # Staging is sized from the expected misses per step, not the
+        # whole frontier: the presample's own estimate (biased low, since
+        # the cache holds what the presample saw), corrected by an
+        # unbiased probe of two fresh batches against the built hot set,
+        # at 1.5x plus 1/16 of the frontier; an epoch that still overflows
+        # grows it.
+        cached_ids = np.asarray(cost.feat_order[:cost.feat_capacity])
+        miss_per_step = ((node_hot.sum() - node_hot[cached_ids].sum())
+                         / max(steps, 1))
+        hot_sorted = torch.from_numpy(np.sort(cached_ids.astype(np.int32))
+                                      ).to(device)
+        prng = np.random.default_rng(cfg.train.seed * 31 + 7)
+        ids_all = np.asarray(shards[0])
+        probe_miss = 0
+        with torch.no_grad():
+            for i in range(2):
+                sb = prng.permutation(ids_all)[:b].astype(np.int32)
+                if len(sb) < b:
+                    sb = np.pad(sb, (0, b - len(sb)), constant_values=-1)
+                batch = sample_batch(
+                    graph, torch.from_numpy(sb).to(device),
+                    torch.tensor(b, dtype=torch.int32, device=device),
+                    torch.zeros((b,), dtype=torch.int32, device=device),
+                    fanouts, caps, dedup_last=True,
+                    generator=torch.Generator(device=device).manual_seed(
+                        9000 + i))
+                probe_miss = max(probe_miss, int(FeatureCache.plan_ids(
+                    hot_sorted, batch.frontier, 128).num_miss))
+        miss_per_step = max(miss_per_step, probe_miss)
+        miss_cap = int(min(caps[-1], _round128(
+            miss_per_step * 1.5 + caps[-1] / 16 + 1024)))
+        log(f"staging: expected {miss_per_step:.0f} misses/step "
+            f"(probe max {probe_miss}), miss_cap {miss_cap} "
+            f"(frontier cap {caps[-1]})")
+        cache = FeatureCache.build(data.features, cost.feat_order,
+                                   cost.feat_capacity, miss_cap=miss_cap,
+                                   dtype=cache_dtype, device=device)
 
     # ---- model/state init -------------------------------------------------
     model = build_model(cfg.model.arch, data.feature_dim,
@@ -180,10 +193,14 @@ def run_cached_training(cfg: Config, data: GraphData,
                          -1).astype(np.int32)
         return tr.eval_epoch(model, seeds_e[0], counts_e[0], lab_e)
 
+    # the profiled epoch: the first one whose stages were captured before
+    profiled = min(state.epoch + 1, cfg.train.epochs - 1)
     for epoch in range(state.epoch, cfg.train.epochs):
         ep_rng = np.random.default_rng(cfg.train.seed * 100003 + epoch)
         s, _ = epoch_train_seeds(ep_rng, shards, plan)
-        r = tr.run_epoch(state, s[0], labels_all[s[0]])
+        with (trace.profiled(cfg.train, epoch, device) if epoch == profiled
+              else contextlib.nullcontext()):
+            r = tr.run_epoch(state, s[0], labels_all[s[0]])
         state = r.pop("state")
         r.update(caps=list(caps), miss_cap=miss_cap, presample_s=presample_s)
         if r["staging_overflow"] > 0 and miss_cap < caps[-1]:

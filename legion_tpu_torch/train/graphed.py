@@ -51,6 +51,12 @@ NCCL work from before the capture is pending. The default (global)
 capture mode serves: NCCL's watchdog thread does not break it, also
 right after eager NCCL work. Over gloo the same step runs eagerly.
 
+Spans (``utils/trace.py``): each call of a step is the span
+``stage.<label>`` (its owner's label: ``train_step``, ``eval_step``,
+``sample_plan``, ``train_from``, ``eval_from``, the hybrid's ``start``,
+``hop<k>`` and ``finish``), a first call's warm-up and capture the span
+``stage.capture``.
+
 Staged steps (``cache/pipeline.py``, ``cache/hybrid.py``): a step that
 reads a packed array back to the host in its middle is several graphs,
 one per device stage (``StageGraph``: a ``GraphedStep`` whose results
@@ -64,7 +70,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -76,7 +81,7 @@ from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
 from legion_tpu_torch.ops.sample import sample_neighbors
 from legion_tpu_torch.ops.spmm import grouped_masked_sum
 from legion_tpu_torch.train.train_state import TrainState, state_tensors
-from legion_tpu_torch.utils import comm
+from legion_tpu_torch.utils import comm, trace
 
 # what a train step reports, in the columns of the epoch's metrics
 METRICS = ("loss", "edges", "frontier", "cap_overflow")
@@ -124,13 +129,17 @@ class GraphedStep:
     """``body()``, a step that reads and writes only tensors that outlive
     it: its first call runs it (the warm-up) and captures it, every later
     call replays the capture. ``generators`` are those it draws from.
-    Without a capturing pool every call runs ``body`` eagerly."""
+    Without a capturing pool every call runs ``body`` eagerly. Each call
+    is the span ``stage.<label>``, a capture ``stage.capture``
+    (``capture_s``: its seconds)."""
 
     def __init__(self, body: Callable[[], None], pool: Optional[GraphPool],
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 label: str = "step"):
         self.body = body
         self.pool = pool
         self.generators = tuple(generators)
+        self.span = "stage." + label
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: List[int] = []     # of each COUNTED wrapper a replay
         self.comm = ({}, {})              # collectives (bytes, calls) a replay
@@ -142,17 +151,20 @@ class GraphedStep:
 
     def __call__(self) -> None:
         if not self.captures:
-            self.body()
+            with trace.span(self.span):
+                self.body()
         elif self.graph is None:
-            self._capture()
+            with trace.span("stage.capture") as span:
+                self._capture()
+            self.capture_s = span.seconds
         else:
-            self.graph.replay()
+            with trace.span(self.span):
+                self.graph.replay()
             for fn, n in zip(COUNTED, self.launches):
                 fn.launches += n
             comm.add(self.comm)
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
         warm_up(self.body, self.pool.device)       # this call's step
         before = [fn.launches for fn in COUNTED]
         counts = comm.snapshot()
@@ -167,7 +179,6 @@ class GraphedStep:
             comm.restore(counts)
         torch.cuda.synchronize(self.pool.device)
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
 
 
 def store(dst, src):
@@ -207,10 +218,11 @@ class StageGraph:
     host reads later, and the stages may replay in any order."""
 
     def __init__(self, fn: Callable, pool: Optional[GraphPool],
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 label: str = "step"):
         self.fn = fn
         self.out = None
-        self.step = GraphedStep(self._body, pool, generators)
+        self.step = GraphedStep(self._body, pool, generators, label)
 
     def _body(self) -> None:
         self.out = store(self.out, self.fn())
@@ -334,6 +346,14 @@ def serving_run(runs: Dict, key, steps: int, width: int, ties: Tuple,
     return run
 
 
+def _copy_up(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``src`` copied into ``dst``, a static row; from host memory, its
+    bytes count in ``h2d_bytes``."""
+    dst.copy_(src)
+    if src.device.type == "cpu":
+        trace.count("h2d_bytes", src.numel() * src.element_size())
+
+
 def _uniform_buffers(shapes, uniforms, device):
     if uniforms is None:
         return None
@@ -367,7 +387,9 @@ class EpochScan(_Scan):
     frontier, cap_overflow) as a ``(steps, 4)`` float64 device tensor.
     ``uniforms(step, hop)`` replaces the generator's sampling draws
     (parity tests; ``step`` is the state's global step), each of shape
-    ``uniform_shapes[hop]``."""
+    ``uniform_shapes[hop]``. The call is ``load`` (the run that serves
+    it, the seeds and labels copied into its static rows: ``h2d_bytes``)
+    then ``replay``, which a driver may call apart."""
 
     @staticmethod
     def _ties(state: TrainState, graph, feats) -> Tuple:
@@ -392,21 +414,34 @@ class EpochScan(_Scan):
             metrics.index_copy_(0, counter, row[None])
             counter.add_(1)
 
-        step = GraphedStep(body, self.pool, (state.generator,))
+        step = GraphedStep(body, self.pool, (state.generator,), "train_step")
         return Run(rows, batch, step, seeds=seeds, labels=labels,
                    counter=counter, metrics=metrics, ubufs=ubufs)
 
     def __call__(self, state: TrainState, graph, feats: torch.Tensor,
                  seeds_epoch: torch.Tensor, labels_epoch: torch.Tensor,
                  uniforms: Optional[Callable] = None) -> torch.Tensor:
+        run = self.load(state, graph, feats, seeds_epoch, labels_epoch,
+                        uniforms)
+        return self.replay(run, state, graph, feats, seeds_epoch.shape[0],
+                           uniforms)
+
+    def load(self, state: TrainState, graph, feats: torch.Tensor,
+             seeds_epoch: torch.Tensor, labels_epoch: torch.Tensor,
+             uniforms: Optional[Callable] = None) -> Run:
         steps, batch = seeds_epoch.shape
         run = self._run(uniforms, steps, batch,
                         self._ties(state, graph, feats),
                         lambda rows: self._build(state, graph, feats, rows,
                                                  batch, uniforms))
-        run.seeds[:steps].copy_(seeds_epoch)
-        run.labels[:steps].copy_(labels_epoch)
+        _copy_up(run.seeds[:steps], seeds_epoch)
+        _copy_up(run.labels[:steps], labels_epoch)
         run.counter.zero_()
+        return run
+
+    def replay(self, run: Run, state: TrainState, graph,
+               feats: torch.Tensor, steps: int,
+               uniforms: Optional[Callable] = None) -> torch.Tensor:
         for _ in range(steps):
             if uniforms is not None:
                 for k, buf in enumerate(run.ubufs):
@@ -423,7 +458,8 @@ class EvalScan(_Scan):
     ``(steps, cap)`` seeds, ``(steps,)`` valid counts and labels, summed
     as the reference's ``eval_scan`` sums them; returns the (a, b) sums
     as a (2,) float32 device tensor. ``generator`` draws the samples (the
-    caller seeds it); ``uniforms(step, hop)`` replaces those draws."""
+    caller seeds it); ``uniforms(step, hop)`` replaces those draws. The
+    call is ``load`` then ``replay``, as ``EpochScan``'s."""
 
     @staticmethod
     def _ties(model, graph, feats, generator) -> Tuple:
@@ -448,7 +484,7 @@ class EvalScan(_Scan):
             acc.add_(torch.stack([a.float(), b.float()]))
             counter.add_(1)
 
-        step = GraphedStep(body, self.pool, (generator,))
+        step = GraphedStep(body, self.pool, (generator,), "eval_step")
         return Run(rows, cap, step, seeds=seeds, labels=labels,
                    counts=counts, counter=counter, acc=acc, ubufs=ubufs)
 
@@ -456,17 +492,31 @@ class EvalScan(_Scan):
                  seeds_epoch: torch.Tensor, counts: torch.Tensor,
                  labels_epoch: torch.Tensor, generator: torch.Generator,
                  uniforms: Optional[Callable] = None) -> torch.Tensor:
+        run = self.load(model, graph, feats, seeds_epoch, counts,
+                        labels_epoch, generator, uniforms)
+        return self.replay(run, model, graph, feats, generator,
+                           seeds_epoch.shape[0], uniforms)
+
+    def load(self, model, graph, feats: torch.Tensor,
+             seeds_epoch: torch.Tensor, counts: torch.Tensor,
+             labels_epoch: torch.Tensor, generator: torch.Generator,
+             uniforms: Optional[Callable] = None) -> Run:
         steps, cap = seeds_epoch.shape
         run = self._run(uniforms, steps, cap,
                         self._ties(model, graph, feats, generator),
                         lambda rows: self._build(model, graph, feats,
                                                  generator, rows, cap,
                                                  uniforms))
-        run.seeds[:steps].copy_(seeds_epoch)
-        run.labels[:steps].copy_(labels_epoch)
-        run.counts[:steps].copy_(counts)
+        _copy_up(run.seeds[:steps], seeds_epoch)
+        _copy_up(run.labels[:steps], labels_epoch)
+        _copy_up(run.counts[:steps], counts)
         run.counter.zero_()
         run.acc.zero_()
+        return run
+
+    def replay(self, run: Run, model, graph, feats: torch.Tensor,
+               generator: torch.Generator, steps: int,
+               uniforms: Optional[Callable] = None) -> torch.Tensor:
         for t in range(steps):
             if uniforms is not None:
                 for k, buf in enumerate(run.ubufs):

@@ -18,7 +18,6 @@ the C++ runtime, and the realized frontier maxima that size the caps.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels
 
 
@@ -104,34 +104,36 @@ def run_hybrid_training(cfg: Config, data: GraphData,
     seeds, _ = epoch_train_seeds(rng, shards, plan)
 
     # ---- presampling (host CSR) -------------------------------------------
-    t0 = time.perf_counter()
-    steps = cfg.cache.presample_steps or plan.train_steps
-    node_hot, edge_hot, max_per_hop = presample_hotness_host(
-        indptr, indices, seeds[0][:steps], fanouts, data.num_nodes,
-        cfg.train.seed)
-    presample_s = time.perf_counter() - t0
+    with trace.span("setup.presample") as span:
+        steps = cfg.cache.presample_steps or plan.train_steps
+        node_hot, edge_hot, max_per_hop = presample_hotness_host(
+            indptr, indices, seeds[0][:steps], fanouts, data.num_nodes,
+            cfg.train.seed)
+    presample_s = span.seconds
     log(f"host presampling: {steps} steps in {presample_s:.1f}s")
 
     # ---- cost model: one budget split between the two caches --------------
     cache_dtype, row_bytes = cache_dtype_for(cfg.model.dtype,
                                              data.feature_dim)
-    cost = solve_cost_model(node_hot, edge_hot, data.degrees(),
-                            cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
-                            group_size=cfg.cache.group_size,
-                            granularity=cfg.cache.cost_model_granularity)
+    with trace.span("setup.cost_model"):
+        cost = solve_cost_model(
+            node_hot, edge_hot, data.degrees(), cfg.cache.budget_bytes,
+            feat_row_bytes=row_bytes, group_size=cfg.cache.group_size,
+            granularity=cfg.cache.cost_model_granularity)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"topo_cap={cost.topo_capacity}")
     caps = observed_caps(max_per_hop, cfg.sampler.observed_cap_slack)
 
-    topo = TopoCache.build(indptr, indices, cost.topo_order,
-                           cost.topo_capacity, device)
     # the reference's fixed staging capacity: it is neither probed nor
     # grown, so a step with more misses reads the rest as zero rows
     # (``staging_overflow`` counts them)
     miss_cap = int(min(caps[-1], (caps[-1] // 16 + 1024 + 127) // 128 * 128))
-    cache = FeatureCache.build(data.features, cost.feat_order,
-                               cost.feat_capacity, miss_cap=miss_cap,
-                               dtype=cache_dtype, device=device)
+    with trace.span("setup.cache_build"):
+        topo = TopoCache.build(indptr, indices, cost.topo_order,
+                               cost.topo_capacity, device)
+        cache = FeatureCache.build(data.features, cost.feat_order,
+                                   cost.feat_capacity, miss_cap=miss_cap,
+                                   dtype=cache_dtype, device=device)
     hs = HybridSampler(topo, indptr, indices, fanouts, caps)
 
     # ---- model/state ------------------------------------------------------

@@ -10,18 +10,20 @@ graph launch a step. Nothing inside a step reads a device value on the
 host: the loss, edge count and cap overflow of every step stay on the
 device and are fetched once per epoch.
 
-With ``train.profile_dir`` set, epoch 0 runs under ``torch.profiler`` and
-its trace is written into that directory. On a CUDA device that trace
-holds the epoch's first step (run eagerly, as the capture's warm-up), the
-capture and the replays of the other steps, as the reference's epoch-0
-trace holds the compile of its jitted epoch.
+Each epoch is an epoch root of ``utils/trace.py`` (``epoch.prepare``:
+``epoch.seeds``, ``epoch.labels``, ``epoch.load``; ``epoch.steps``;
+``epoch.read``; ``epoch.record``), and its record carries the root's
+``spans`` and ``counts``; an evaluation is an ``eval`` root. With
+``train.profile_dir`` set, epoch 0 runs under ``torch.profiler``
+(``trace.profiled``) and its trace is written into that directory. On a
+CUDA device that trace holds the epoch's first step (run eagerly, as the
+capture's warm-up), the capture and the replays of the other steps, as
+the reference's epoch-0 trace holds the compile of its jitted epoch.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -44,6 +46,7 @@ from legion_tpu_torch.train.train_state import (TrainState,
                                                 create_train_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels, log_metrics
 
 
@@ -342,7 +345,8 @@ class Trainer:
         """Tighten static frontier caps to slack x the maxima realized on
         a few probe batches at loose caps (the reference's 1.2 x observed
         MaxIdNum sizing). The last cap is exact when the final hop is
-        identity-appended. Reads the counts on the host: a set-up sync."""
+        identity-appended. Reads the counts on the host: a set-up sync
+        (the span ``setup.cap_probe``)."""
         cfg = self.cfg
         b = cfg.sampler.batch_size
         fanouts = tuple(cfg.sampler.fanouts)
@@ -359,9 +363,10 @@ class Trainer:
                        torch.tensor(n, dtype=torch.int32,
                                     device=self.device))
 
-        mx = probe_frontier_maxima(
-            self.graph, seed_batches(), fanouts, loose,
-            torch.Generator(device=self.device).manual_seed(1000))
+        with trace.span("setup.cap_probe"):
+            mx = probe_frontier_maxima(
+                self.graph, seed_batches(), fanouts, loose,
+                torch.Generator(device=self.device).manual_seed(1000))
         caps = list(observed_caps(mx, cfg.sampler.observed_cap_slack,
                                   align=128))
         caps = [min(c, lo) for c, lo in zip(caps, loose)]
@@ -374,6 +379,16 @@ class Trainer:
 
     # -- epoch loops --------------------------------------------------------
 
+    def _load_epoch(self, seeds: np.ndarray, uniforms: Optional[Callable]):
+        """The labels of (steps, batch) seeds and the epoch scan's run
+        loaded with both (the spans ``epoch.labels`` and ``epoch.load``)."""
+        with trace.span("epoch.labels"):
+            labels = np.asarray(self.data.labels, np.int32)[seeds]
+        with trace.span("epoch.load"):
+            return self.fns.epoch_scan.load(
+                self.state, self.graph, self.features,
+                torch.from_numpy(seeds), torch.from_numpy(labels), uniforms)
+
     def _train_steps(self, seeds: np.ndarray,
                      uniforms: Optional[Callable]) -> torch.Tensor:
         """Train on (steps, batch) seeds through ``epoch_scan``; returns
@@ -381,10 +396,10 @@ class Trainer:
         float64 device tensor. ``uniforms(step, hop)`` replaces the
         generator's sampling draws (parity tests); ``step`` is the state's
         global step."""
-        labels = np.asarray(self.data.labels, np.int32)[seeds]
-        return self.fns.epoch_scan(self.state, self.graph, self.features,
-                                   torch.from_numpy(seeds),
-                                   torch.from_numpy(labels), uniforms)
+        run = self._load_epoch(seeds, uniforms)
+        return self.fns.epoch_scan.replay(run, self.state, self.graph,
+                                          self.features, seeds.shape[0],
+                                          uniforms)
 
     def _epoch_record(self, epoch: int, metrics: torch.Tensor,
                       dt: float) -> Dict:
@@ -395,57 +410,81 @@ class Trainer:
             log_metrics({"event": "cap_overflow", "epoch": epoch,
                          "dropped_frontier_ids": overflow,
                          "hint": "raise sampler.observed_cap_slack"})
-        # exact byte accounting: every step gathers frontier_cap rows
-        feat_bytes = (self.plan.train_steps * self.caps[-1]
-                      * self.features.shape[1] * self.features.element_size())
         rec = {"epoch": epoch, "loss": float(losses[-1]),
                "mean_loss": float(losses.mean()), "losses": losses.tolist(),
                "steps": self.plan.train_steps, "epoch_s": dt,
                "edges_per_s": sum_edge_counts(metrics[:, 1]) / dt,
-               "cap_overflow": overflow, "feature_gb": feat_bytes / 2 ** 30}
+               "cap_overflow": overflow}
         self.history.append(rec)
         log_metrics({"event": "train_epoch", **rec})
         return rec
 
-    def _profiler(self, epoch: int):
-        """torch.profiler around epoch 0 when ``train.profile_dir`` is set
-        (the reference's only reader of it), else nothing."""
-        if not (self.cfg.train.profile_dir and epoch == 0):
+    def _read_metrics(self, metrics: torch.Tensor) -> torch.Tensor:
+        """The epoch's (steps, 4) metrics on the host: its only device ->
+        host read."""
+        return metrics.cpu()
+
+    def _profiled(self, epoch: int):
+        """``torch.profiler`` around epoch 0 when ``train.profile_dir`` is
+        set (``trace.profiled``), else nothing."""
+        if epoch != 0:
             return contextlib.nullcontext()
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(activities=acts)
+        return trace.profiled(self.cfg.train, epoch, self.device)
 
     def train_one_epoch(self, epoch: int, shard: int = 0,
                         uniforms: Optional[Callable] = None) -> Dict:
-        rng = np.random.default_rng(self.cfg.train.seed * 100003 + epoch)
-        seeds, _ = epoch_train_seeds(rng, [self.shards_train[shard]],
-                                     self.plan)
-        t0 = time.perf_counter()
-        with self._profiler(epoch) as prof:
-            # the epoch's only device -> host read
-            metrics = self._train_steps(seeds[0], uniforms).cpu()
-        dt = time.perf_counter() - t0
-        if prof is not None:
-            os.makedirs(self.cfg.train.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                self.cfg.train.profile_dir, "epoch_0.pt.trace.json"))
-        return self._epoch_record(epoch, metrics, dt)
+        return self._train_epoch(epoch, [self.shards_train[shard]], 0,
+                                 uniforms)
+
+    def _train_epoch(self, epoch: int, shards, which: int,
+                     uniforms: Optional[Callable]) -> Dict:
+        """One epoch of shard ``which`` of the lockstep seeds of
+        ``shards``, as an epoch root whose spans and counts the record
+        carries. ``epoch_s`` is the root's seconds up to the record less
+        its ``epoch.seeds``: from the seeds' end to the metrics' read."""
+        with self._profiled(epoch), trace.epoch("train") as root:
+            with trace.span("epoch.prepare"):
+                with trace.span("epoch.seeds"):
+                    rng = np.random.default_rng(
+                        self.cfg.train.seed * 100003 + epoch)
+                    seeds = epoch_train_seeds(rng, shards,
+                                              self.plan)[0][which]
+                run = self._load_epoch(seeds, uniforms)
+            root.steps = seeds.shape[0]
+            with trace.span("epoch.steps"):
+                metrics = self.fns.epoch_scan.replay(
+                    run, self.state, self.graph, self.features, root.steps,
+                    uniforms)
+            with trace.span("epoch.read"):
+                metrics = self._read_metrics(metrics)
+            with trace.span("epoch.record"):
+                rec = self._epoch_record(epoch, metrics, root.elapsed()
+                                         - trace.seconds(root.tally,
+                                                         "epoch.seeds"))
+        rec["spans"], rec["counts"] = root.entry["spans"], root.entry["counts"]
+        return rec
 
     def _eval_counts(self, seeds: np.ndarray, counts: np.ndarray, seed: int,
                      uniforms: Optional[Callable]) -> torch.Tensor:
         """(correct, valid) summed over (steps, cap) eval seeds through
         ``eval_scan``, as a float32 device pair; for ``lp_sage`` the (LP
-        loss sum, pairs). The eval generator restarts from ``seed``."""
-        labels_all = np.asarray(self.data.labels)
-        lab = np.where(seeds >= 0, labels_all[np.clip(seeds, 0, None)],
-                       -1).astype(np.int32)
-        self.eval_generator.manual_seed(seed)
-        return self.fns_eval.eval_scan(
-            self.model, self.graph, self.features, torch.from_numpy(seeds),
-            torch.from_numpy(counts), torch.from_numpy(lab),
-            self.eval_generator, uniforms)
+        loss sum, pairs). The eval generator restarts from ``seed``. The
+        labels and the load are the spans ``epoch.labels`` and
+        ``epoch.load``, the steps ``epoch.steps``."""
+        with trace.span("epoch.labels"):
+            labels_all = np.asarray(self.data.labels)
+            lab = np.where(seeds >= 0, labels_all[np.clip(seeds, 0, None)],
+                           -1).astype(np.int32)
+        scan = self.fns_eval.eval_scan
+        with trace.span("epoch.load"):
+            self.eval_generator.manual_seed(seed)
+            run = scan.load(self.model, self.graph, self.features,
+                            torch.from_numpy(seeds), torch.from_numpy(counts),
+                            torch.from_numpy(lab), self.eval_generator,
+                            uniforms)
+        with trace.span("epoch.steps"):
+            return scan.replay(run, self.model, self.graph, self.features,
+                               self.eval_generator, seeds.shape[0], uniforms)
 
     def _eval_seeds(self, which: str):
         """Every shard's (seeds, counts) of the valid or test set, in the
@@ -462,9 +501,14 @@ class Trainer:
                  uniforms: Optional[Callable] = None) -> float:
         """Accuracy over one shard's valid or test seeds; for ``lp_sage``
         the mean LP loss per valid pair (lower is better)."""
-        seeds, counts = self._eval_seeds(which)
-        c, n = self._eval_counts(seeds[shard], counts[shard], 12345,
-                                 uniforms).tolist()
+        with trace.epoch("eval") as root:
+            with trace.span("epoch.seeds"):
+                seeds, counts = self._eval_seeds(which)
+            root.steps = seeds.shape[1]
+            pair = self._eval_counts(seeds[shard], counts[shard], 12345,
+                                     uniforms)
+            with trace.span("epoch.read"):
+                c, n = pair.tolist()
         return c / max(n, 1.0)
 
     def save_checkpoint(self) -> None:

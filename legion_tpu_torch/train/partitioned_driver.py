@@ -27,7 +27,6 @@ the dataset's feature width, unpadded, as the reference builds it.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -53,6 +52,7 @@ from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels, log_metrics
 
 
@@ -79,7 +79,12 @@ def run_partitioned_training(cfg: Config, data: GraphData,
     "test_acc", "edge_cut", "mesh", "dist_caps", "caps", "setup_s",
     "trainer", "partition"}; a history record holds the epoch's per-step
     losses (mean over the ranks), its edges, seconds, edges/s, halo
-    overflow and validation figure. Rank 0 logs."""
+    overflow and validation figure. Rank 0 logs. The set-up's phases are
+    the spans ``setup.partition``, ``setup.shard``, ``setup.probe`` and
+    ``setup.owner`` of ``utils/trace.py`` (``setup_s``: their seconds),
+    each epoch a ``train`` root (``seconds``: its time up to the record
+    less its ``epoch.seeds``; the record carries its ``spans`` and
+    ``counts``)."""
     if mesh is None:
         mesh = Mesh(data=dist.get_world_size(), cache=1,
                     rank=dist.get_rank())
@@ -97,20 +102,21 @@ def run_partitioned_training(cfg: Config, data: GraphData,
 
     # ---- partition and this rank's shard ---------------------------------
     setup = {}
-    t0 = time.perf_counter()
-    if (data.partition is not None
-            and int(np.asarray(data.partition).max()) + 1 == k):
-        part = np.asarray(data.partition).astype(np.int32)
-        log(f"using precomputed {k}-way partition from dataset")
-    else:
-        part = partition_graph(data, k, mode="greedy")
-    cut = edge_cut_fraction(data, part)
-    setup["partition_s"] = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    shard = put_shard_distributed(data.indptr, data.indices, data.features,
-                                  part, k, rank, device)
-    setup["shard_s"] = time.perf_counter() - t1
-    log(f"partitioned {k} ways in {time.perf_counter() - t0:.1f}s, "
+    with trace.span("setup.partition") as span:
+        if (data.partition is not None
+                and int(np.asarray(data.partition).max()) + 1 == k):
+            part = np.asarray(data.partition).astype(np.int32)
+            log(f"using precomputed {k}-way partition from dataset")
+        else:
+            part = partition_graph(data, k, mode="greedy")
+        cut = edge_cut_fraction(data, part)
+    setup["partition_s"] = span.seconds
+    with trace.span("setup.shard") as span:
+        shard = put_shard_distributed(data.indptr, data.indices,
+                                      data.features, part, k, rank, device)
+    setup["shard_s"] = span.seconds
+    log(f"partitioned {k} ways in "
+        f"{setup['partition_s'] + setup['shard_s']:.1f}s, "
         f"edge cut {cut:.3f} (process {rank}/{k})")
 
     shards = shard_node_set(np.asarray(data.train_ids), k, part)
@@ -125,37 +131,40 @@ def run_partitioned_training(cfg: Config, data: GraphData,
         return eval_chunks(ids, part, k, cfg.sampler.eval_batch_size)
 
     # ---- the exact exchange's per-distance caps --------------------------
-    t1 = time.perf_counter()
-    dist_caps = None
-    if cfg.parallel.halo_exchange == "exact":
-        probe_b = max(b, cfg.sampler.eval_batch_size)
-        probe_caps = (tuple(max(c, e) for c, e in zip(caps, eval_caps))
-                      if probe_b > b else caps)
-        dist_caps = ()
-        if k > 1:           # one rank has no distance to probe
-            cap_sets = [probe_dist_caps(
-                data.indptr, data.indices, part, shards, fanouts,
-                probe_caps, k, probe_b, slack=cfg.parallel.halo_cap_slack,
-                probes=cfg.parallel.halo_probe_batches, seed=cfg.train.seed)]
-            for ids_e in (np.asarray(data.valid_ids),
-                          np.asarray(data.test_ids)):
-                if not len(ids_e):
-                    continue
-                seeds_e, _, steps_e = eval_schedule(ids_e)
-                cap_sets.append(probe_dist_caps_batches(
-                    data.indptr, data.indices, part,
-                    [(i, seeds_e[i, t]) for t in range(steps_e)
-                     for i in range(k)],
-                    fanouts, probe_caps, k,
-                    slack=cfg.parallel.halo_cap_slack, seed=cfg.train.seed))
-            dist_caps = tuple(max(c) for c in zip(*cap_sets))
-        log(f"halo exact exchange: per-distance caps {dist_caps} "
-            f"(frontier cap {probe_caps[-1]}, slack "
-            f"{cfg.parallel.halo_cap_slack})")
-    setup["probe_s"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    owner = owner_table(part, device) if dist_caps is not None else None
-    setup["owner_s"] = time.perf_counter() - t1
+    with trace.span("setup.probe") as span:
+        dist_caps = None
+        if cfg.parallel.halo_exchange == "exact":
+            probe_b = max(b, cfg.sampler.eval_batch_size)
+            probe_caps = (tuple(max(c, e) for c, e in zip(caps, eval_caps))
+                          if probe_b > b else caps)
+            dist_caps = ()
+            if k > 1:           # one rank has no distance to probe
+                cap_sets = [probe_dist_caps(
+                    data.indptr, data.indices, part, shards, fanouts,
+                    probe_caps, k, probe_b,
+                    slack=cfg.parallel.halo_cap_slack,
+                    probes=cfg.parallel.halo_probe_batches,
+                    seed=cfg.train.seed)]
+                for ids_e in (np.asarray(data.valid_ids),
+                              np.asarray(data.test_ids)):
+                    if not len(ids_e):
+                        continue
+                    seeds_e, _, steps_e = eval_schedule(ids_e)
+                    cap_sets.append(probe_dist_caps_batches(
+                        data.indptr, data.indices, part,
+                        [(i, seeds_e[i, t]) for t in range(steps_e)
+                         for i in range(k)],
+                        fanouts, probe_caps, k,
+                        slack=cfg.parallel.halo_cap_slack,
+                        seed=cfg.train.seed))
+                dist_caps = tuple(max(c) for c in zip(*cap_sets))
+            log(f"halo exact exchange: per-distance caps {dist_caps} "
+                f"(frontier cap {probe_caps[-1]}, slack "
+                f"{cfg.parallel.halo_cap_slack})")
+    setup["probe_s"] = span.seconds
+    with trace.span("setup.owner") as span:
+        owner = owner_table(part, device) if dist_caps is not None else None
+    setup["owner_s"] = span.seconds
 
     # ---- model and state: the same weights on every rank -----------------
     model = build_model(cfg.model.arch, data.feature_dim,
@@ -200,18 +209,25 @@ def run_partitioned_training(cfg: Config, data: GraphData,
 
     history = []
     for epoch in range(state.epoch, cfg.train.epochs):
-        ep_rng = np.random.default_rng(cfg.train.seed * 100003 + epoch)
-        s, _ = epoch_train_seeds(ep_rng, shards, plan)     # (k, steps, b)
-        t0 = time.perf_counter()
-        rec = tr.run_epoch(state, s[rank], labels_all[s[rank]])
-        dt = time.perf_counter() - t0
-        if rec["halo_overflow"] > 0:
-            log_metrics({"event": "halo_overflow", "epoch": epoch,
-                         "dropped_requests": rec["halo_overflow"],
-                         "hint": "raise parallel.halo_cap_slack"})
-        rec.update(epoch=epoch, loss=rec["losses"][-1],
-                   mean_loss=float(np.mean(rec["losses"])), seconds=dt,
-                   edges_per_s=rec["edges"] / dt, edge_cut=cut)
+        with trace.epoch("train") as root:
+            with trace.span("epoch.prepare"), trace.span("epoch.seeds"):
+                ep_rng = np.random.default_rng(cfg.train.seed * 100003
+                                               + epoch)
+                s, _ = epoch_train_seeds(ep_rng, shards, plan)  # (k, steps, b)
+            rec = tr.run_epoch(state, s[rank], labels_all[s[rank]])
+            root.steps = rec["steps"]
+            with trace.span("epoch.record"):
+                if rec["halo_overflow"] > 0:
+                    log_metrics({"event": "halo_overflow", "epoch": epoch,
+                                 "dropped_requests": rec["halo_overflow"],
+                                 "hint": "raise parallel.halo_cap_slack"})
+                dt = root.elapsed() - trace.seconds(root.tally,
+                                                    "epoch.seeds")
+                rec.update(epoch=epoch, loss=rec["losses"][-1],
+                           mean_loss=float(np.mean(rec["losses"])),
+                           seconds=dt, edges_per_s=rec["edges"] / dt,
+                           edge_cut=cut)
+        rec["spans"], rec["counts"] = root.entry["spans"], root.entry["counts"]
         rec["valid"] = eval_set(np.asarray(data.valid_ids), "valid")
         state.epoch = epoch + 1
         history.append(rec)

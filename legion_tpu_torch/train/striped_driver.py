@@ -17,7 +17,6 @@ that on one rank this driver is ``run_cached_training``.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -45,6 +44,7 @@ from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels
 
 
@@ -109,16 +109,18 @@ def run_striped_training(cfg: Config, data: GraphData,
     seeds, _ = epoch_train_seeds(rng, shards, plan)       # (n, steps, b)
 
     # ---- presampling (PreSc) over every rank's stream ----------------------
-    t0 = time.perf_counter()
-    steps = cfg.cache.presample_steps or plan.train_steps
-    pres = np.ascontiguousarray(seeds[:, :steps].reshape(-1, b))
-    hot = presample_hotness(
-        graph, torch.from_numpy(pres).to(device),
-        torch.full((pres.shape[0],), b, dtype=torch.int32, device=device),
-        fanouts, loose_caps, data.num_nodes,
-        generator=torch.Generator(device=device).manual_seed(cfg.train.seed))
-    max_frontier = int(hot.max_frontier)          # waits for the presample
-    presample_s = time.perf_counter() - t0
+    with trace.span("setup.presample") as span:
+        steps = cfg.cache.presample_steps or plan.train_steps
+        pres = np.ascontiguousarray(seeds[:, :steps].reshape(-1, b))
+        hot = presample_hotness(
+            graph, torch.from_numpy(pres).to(device),
+            torch.full((pres.shape[0],), b, dtype=torch.int32,
+                       device=device),
+            fanouts, loose_caps, data.num_nodes,
+            generator=torch.Generator(device=device).manual_seed(
+                cfg.train.seed))
+        max_frontier = int(hot.max_frontier)      # waits for the presample
+    presample_s = span.seconds
     log(f"presampling: {pres.shape[0]} steps in {presample_s:.1f}s, "
         f"max frontier {max_frontier}/{loose_caps[-1]}")
 
@@ -126,11 +128,13 @@ def run_striped_training(cfg: Config, data: GraphData,
     cache_dtype, row_bytes = cache_dtype_for(cfg.model.dtype,
                                              data.feature_dim)
     # the topology is whole in device memory: the budget goes to features
-    cost = solve_cost_model(
-        hot.node_hot.cpu().numpy().astype(np.int64),
-        hot.edge_hot.cpu().numpy(), data.degrees(), cfg.cache.budget_bytes,
-        feat_row_bytes=row_bytes, group_size=kg,
-        granularity=cfg.cache.cost_model_granularity, topo_cacheable=False)
+    with trace.span("setup.cost_model"):
+        cost = solve_cost_model(
+            hot.node_hot.cpu().numpy().astype(np.int64),
+            hot.edge_hot.cpu().numpy(), data.degrees(),
+            cfg.cache.budget_bytes, feat_row_bytes=row_bytes, group_size=kg,
+            granularity=cfg.cache.cost_model_granularity,
+            topo_cacheable=False)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"(x{kg} ranks/group) topo_cap={cost.topo_capacity}")
     caps = observed_caps(hot.max_per_hop, cfg.sampler.observed_cap_slack)
@@ -165,10 +169,11 @@ def run_striped_training(cfg: Config, data: GraphData,
     log(f"staging: probe max {probe_miss} misses/step, miss_cap {miss_cap}"
         f"/rank (frontier cap {caps[-1]}); owner cap {ocap} (probe max "
         f"{owner_max}/owner, Kg={kg})")
-    cache = StripedFeatureCache.build(data.features, cost.feat_order,
-                                      cost.feat_capacity, miss_cap, mesh,
-                                      dtype=cache_dtype, device=device,
-                                      owner_cap_rows=ocap)
+    with trace.span("setup.cache_build"):
+        cache = StripedFeatureCache.build(data.features, cost.feat_order,
+                                          cost.feat_capacity, miss_cap, mesh,
+                                          dtype=cache_dtype, device=device,
+                                          owner_cap_rows=ocap)
 
     # ---- model/state: the same weights on every rank -----------------------
     model = build_model(cfg.model.arch, data.feature_dim,

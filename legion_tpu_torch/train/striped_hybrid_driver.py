@@ -16,7 +16,6 @@ the group's budget (``group_size`` x a device's).
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -43,6 +42,7 @@ from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.striped_driver import rank_eval
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 restore_checkpoint)
+from legion_tpu_torch.utils import trace
 from legion_tpu_torch.utils.logging import eval_labels
 
 
@@ -116,21 +116,22 @@ def run_striped_hybrid_training(cfg: Config, data: GraphData,
     seeds, _ = epoch_train_seeds(rng, shards, plan)       # (n, steps, b)
 
     # ---- presampling (host CSR) over every rank's stream -------------------
-    t0 = time.perf_counter()
-    steps = cfg.cache.presample_steps or plan.train_steps
-    pres = seeds[:, :steps].reshape(-1, b)
-    node_hot, edge_hot, max_per_hop = presample_hotness_host(
-        indptr, indices, pres, fanouts, data.num_nodes, cfg.train.seed)
-    presample_s = time.perf_counter() - t0
+    with trace.span("setup.presample") as span:
+        steps = cfg.cache.presample_steps or plan.train_steps
+        pres = seeds[:, :steps].reshape(-1, b)
+        node_hot, edge_hot, max_per_hop = presample_hotness_host(
+            indptr, indices, pres, fanouts, data.num_nodes, cfg.train.seed)
+    presample_s = span.seconds
     log(f"host presampling: {pres.shape[0]} steps in {presample_s:.1f}s")
 
     # ---- cost model: one group budget split between the two caches --------
     cache_dtype, row_bytes = cache_dtype_for(cfg.model.dtype,
                                              data.feature_dim)
-    cost = solve_cost_model(node_hot, edge_hot, data.degrees(),
-                            cfg.cache.budget_bytes, feat_row_bytes=row_bytes,
-                            group_size=kg,
-                            granularity=cfg.cache.cost_model_granularity)
+    with trace.span("setup.cost_model"):
+        cost = solve_cost_model(
+            node_hot, edge_hot, data.degrees(), cfg.cache.budget_bytes,
+            feat_row_bytes=row_bytes, group_size=kg,
+            granularity=cfg.cache.cost_model_granularity)
     log(f"cost model: alpha={cost.alpha:.2f} feat_cap={cost.feat_capacity} "
         f"topo_cap={cost.topo_capacity} (x{kg} ranks/group)")
     caps = observed_caps(max_per_hop, cfg.sampler.observed_cap_slack)
@@ -149,12 +150,12 @@ def run_striped_hybrid_training(cfg: Config, data: GraphData,
             np.sort(np.asarray(cost.feat_order[:feat_n], np.int64)), kg,
             seed=cfg.train.seed)
         log(f"owner-cap probe (Kg={kg}): topo {tcaps}, feat {ocap_feat}")
-    topo = StripedTopoCache.build(indptr, indices, cost.topo_order,
-                                  cost.topo_capacity, mesh, device)
-    fcache = StripedFeatureCache.build(data.features, cost.feat_order,
-                                       cost.feat_capacity, miss_cap, mesh,
-                                       dtype=cache_dtype, device=device,
-                                       owner_cap_rows=ocap_feat)
+    with trace.span("setup.cache_build"):
+        topo = StripedTopoCache.build(indptr, indices, cost.topo_order,
+                                      cost.topo_capacity, mesh, device)
+        fcache = StripedFeatureCache.build(
+            data.features, cost.feat_order, cost.feat_capacity, miss_cap,
+            mesh, dtype=cache_dtype, device=device, owner_cap_rows=ocap_feat)
 
     # ---- model/state: the same weights on every rank -----------------------
     model = build_model(cfg.model.arch, data.feature_dim,

@@ -14,6 +14,7 @@ and ``train.cached_driver``) against ``legion_tpu``'s on the CPU.
   driver's keys."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -515,12 +516,20 @@ def test_run_cached_training_needs_host_features_and_the_cache(
 @pytest.mark.parametrize("what", ["profile_dir"])
 def test_run_cached_training_rejects_unported_settings(
         small_graph, host_features_run, tmp_path, what):
-    """``profile_dir`` is accepted and not read, as in the reference (only
-    the ``Trainer`` profiles): the same run, and nothing in the
-    directory. (The name dates from when the setting was refused.)"""
+    """``profile_dir``: the driver profiles its first epoch after the one
+    that captured the stages (epoch 1 of 2): the same run, and that
+    epoch's chrome trace alone in the directory, its host rows holding
+    the pipeline's spans. (The name dates from when the setting was
+    refused.)"""
     cfg = _cfg(port_config, small_graph.num_classes, budget_bytes=64 * 1024)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, **{what: str(tmp_path / "p")}))
     _same_history(run_cached_training(cfg, small_graph, "cpu",
                                       log=lambda s: None), host_features_run)
-    assert not (tmp_path / "p").exists()
+    assert [p.name for p in (tmp_path / "p").iterdir()] == [
+        "epoch_1.pt.trace.json"]
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "p" / "epoch_1.pt.trace.json").read_text())[
+            "traceEvents"]}
+    assert {"epoch", "pipeline.plan_wait", "pipeline.stage",
+            "stage.train_from"} <= names

@@ -42,6 +42,7 @@ from legion_tpu_torch.train.graphed import store
 from legion_tpu_torch.train.loop import Trainer
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 latest_checkpoint)
+from legion_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -381,8 +382,9 @@ def test_hybrid_trainer_epoch_matches_jax(small_graph):
     assert 0.0 < got["feat_hit_rate"] < 1.0 and got["host_feat_gb"] > 0
     assert got["edges_per_s"] > 0 and got["stage_s"] > 0
     assert got["host_sample_s"] > 0
-    for k in ("hot", "cold", "host_topo_bytes", "fetches"):
+    for k in ("hot", "cold", "host_topo_bytes"):
         assert tr.stats[k] == jtr.stats[k], k
+    assert got["fetches"] == jtr.stats["fetches"]
     assert state.step == 4
 
     # eval: the reference's own key, the same structure and budget
@@ -393,14 +395,15 @@ def test_hybrid_trainer_epoch_matches_jax(small_graph):
         eseeds[t, :40] = ids[t * 40:(t + 1) * 40]
     elabels = np.where(eseeds >= 0, np.asarray(g.labels)[
         np.clip(eseeds, 0, None)], -1).astype(np.int32)
-    f0 = tr.stats["fetches"]
     jacc = jtr.eval_epoch(want["state"].params, eseeds, counts, elabels)
     acc = tr.eval_epoch(tr.model, eseeds, counts, elabels,
                         uniforms=_schedule(r, r.jax.random.PRNGKey(4242)))
     assert acc == pytest.approx(jacc, abs=1e-6) and 0.0 < acc < 1.0
-    assert tr.stats["fetches"] - f0 == HOPS * 3 + 1
-    for k in ("hot", "cold", "host_topo_bytes", "fetches"):
+    eval_fetches = trace.epochs("eval")[-1]["counts"]["fetches"]
+    assert eval_fetches == HOPS * 3 + 1
+    for k in ("hot", "cold", "host_topo_bytes"):
         assert tr.stats[k] == jtr.stats[k], k
+    assert got["fetches"] + eval_fetches == jtr.stats["fetches"]
     assert np.isnan(tr.eval_epoch(tr.model, eseeds[:0], counts[:0],
                                   elabels[:0]))              # no step
 
@@ -456,7 +459,8 @@ def test_run_epoch_reports_this_epochs_figures(small_graph):
     a = tr.run_epoch(state, seeds, labels, 0)
     b = tr.run_epoch(state, seeds, labels, 0)
     assert a["fetches"] == b["fetches"] == HOPS * 4 + 1
-    assert tr.stats["fetches"] == 2 * a["fetches"]
+    assert [e["counts"]["fetches"] for e in trace.epochs("train")[-2:]] == [
+        a["counts"]["fetches"], b["counts"]["fetches"]] == [a["fetches"]] * 2
     # the same seeds under other uniforms: figures of one epoch's size
     for k in ("host_topo_gb", "topo_hot_fraction", "staging_overflow",
               "feat_hit_rate"):
@@ -565,10 +569,9 @@ def test_hybrid_eval_fetch_budget(small_graph, driver_runs):
         counts[t] = len(chunk)
     labels = np.where(seeds >= 0, np.asarray(g.labels)[
         np.clip(seeds, 0, None)], -1).astype(np.int32)
-    f0 = tr.stats["fetches"]
     acc = tr.eval_epoch(tr.model, seeds, counts, labels)
     assert 0.0 <= acc <= 1.0
-    assert tr.stats["fetches"] - f0 == HOPS * 3 + 1
+    assert trace.epochs("eval")[-1]["counts"]["fetches"] == HOPS * 3 + 1
     # the eval generator is seeded anew: the same figure again
     assert tr.eval_epoch(tr.model, seeds, counts, labels) == acc
 
@@ -744,9 +747,9 @@ def test_the_other_drivers_refuse_host_topology(small_graph):
 
 def test_run_hybrid_training_accepts_profile_dir(small_graph, driver_runs,
                                                  tmp_path):
-    """``profile_dir`` is accepted and not read, as in the reference (only
-    the ``Trainer`` profiles): the fixture's run exactly, and nothing in
-    the directory."""
+    """``profile_dir`` is accepted and not read, as in the reference (the
+    ``Trainer`` and the cached driver profile): the fixture's run
+    exactly, and nothing in the directory."""
     cfg = _cfg(port_config, small_graph.num_classes)
     res = run_hybrid_training(dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train,

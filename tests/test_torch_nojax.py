@@ -64,6 +64,7 @@ import legion_tpu_torch.train.striped_driver
 import legion_tpu_torch.train.striped_hybrid_driver
 import legion_tpu_torch.tools.cache_group_cell
 import legion_tpu_torch.utils.comm
+import legion_tpu_torch.utils.trace
 import legion_tpu_torch.train.__main__
 import legion_tpu_torch.data.partition
 import legion_tpu_torch.parallel.halo

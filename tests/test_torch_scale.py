@@ -17,6 +17,7 @@ from legion_tpu_torch.data import synthetic
 from legion_tpu_torch.tools import pa_cell, scale, smoke_pa_scale, \
     smoke_uk_scale
 from legion_tpu_torch.train import graphed
+from legion_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -179,12 +180,14 @@ def test_holed_twins_refuses_a_filesystem_that_writes_holes(tmp_path,
     assert big.num_edges == twin.num_edges + (1 << 10)
 
 
-def test_timed_stages_sums_the_stages_calls(monkeypatch):
-    monkeypatch.setattr(graphed.GraphedStep, "__call__",
-                        lambda self: time.sleep(0.01))
-    call = graphed.GraphedStep.__call__
+def test_timed_stages_sums_the_stages_calls():
+    """Two eager calls of a step whose body sleeps 10 ms, in an epoch that
+    closes inside the block: their ``stage.*`` spans sum to at least
+    20 ms, and a sleep in the block outside any stage does not count."""
+    step = graphed.GraphedStep(lambda: time.sleep(0.01), None, label="nap")
     with scale.timed_stages() as spent:
-        graphed.GraphedStep.__call__(None)
-        graphed.GraphedStep.__call__(None)
-    assert spent[0] >= 0.02
-    assert graphed.GraphedStep.__call__ is call
+        with trace.epoch("train"):
+            step()
+            step()
+        time.sleep(0.05)
+    assert 0.02 <= spent[0] < 0.05

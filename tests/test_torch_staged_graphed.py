@@ -62,7 +62,7 @@ from legion_tpu_torch.train import cached_driver, graphed
 from legion_tpu_torch.train import striped_driver, striped_hybrid_driver
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 state_tensors)
-from legion_tpu_torch.utils import comm
+from legion_tpu_torch.utils import comm, trace
 from tests.test_torch_graphed import _exempt, _NoHostSync, faked_capture
 
 torch.set_num_threads(2)
@@ -336,17 +336,18 @@ def test_hybrid_epoch_matches_the_reference(hybrid_ref, captured):
         seeds, labels = _seeds(g)
         got = tr.run_epoch(state, seeds, labels, ref.epoch,
                            uniforms=ref.train_u)
-        f0 = tr.stats["fetches"]
         acc = tr.eval_epoch(tr.model, *_eval_seeds(g), uniforms=ref.eval_u)
+        eval_fetches = trace.epochs("eval")[-1]["counts"]["fetches"]
     np.testing.assert_allclose(got["losses"], ref.losses, rtol=1e-4,
                                atol=1e-5)
     for k in ("steps", "staging_overflow", "fetches", "feat_hit_rate",
               "host_feat_gb", "host_topo_gb", "topo_hot_fraction"):
         assert got[k] == ref.rec[k], k
     assert got["fetches"] == hops * STEPS + 1
-    assert tr.stats["fetches"] - f0 == ref.eval_fetches == hops * EVAL_STEPS + 1
-    for k in ("hot", "cold", "host_topo_bytes", "fetches"):
+    assert eval_fetches == ref.eval_fetches == hops * EVAL_STEPS + 1
+    for k in ("hot", "cold", "host_topo_bytes"):
         assert tr.stats[k] == ref.stats[k], k
+    assert got["fetches"] + eval_fetches == ref.stats["fetches"]
     assert acc == pytest.approx(ref.acc, abs=1e-6)
     assert 0 < got["topo_hot_fraction"] < 1 and got["staging_overflow"] > 0
     if captured:   # start, hops 1..H-1, finish, train; the same for eval
