@@ -85,12 +85,12 @@ exits non-zero:
    plain version on the path's hop-1 and hop-2 inputs, and K2 forward and
    backward must agree with their plain versions, for every norm, on that
    batch's layer-1 block at the path's width (172 columns, bf16);
-7. the two dedups (``"dedup"``): ``grow_frontier`` (stable sort and a
-   ``cummax`` scan) against ``grow_frontier_scatter`` (position map; the
-   O(N) scratch fill it does every hop counted) on the same tensors: hop
-   1 of the main-path batch and both hops of a cached-path batch. Both
-   must give the same frontier as a set and blocks that decode to the
-   sampled neighbor ids, and the scatter dedup the same numbering twice;
+7. the dedup (``"dedup"``): ``grow_frontier``'s tail after its sort, the
+   kernel (``ops/dedup.py``) against its plain version on the same sorted
+   tensors, bitwise and with no host sync, at hop 1 of the main-path
+   batch and both hops of a cached-path batch: the kernel's time beside
+   its byte bound, the plain version's and ``torch.cummax``'s on a row of
+   the hop's length (the scan the kernel replaced);
 8. the host-topology path at uk-union class (``"hybrid_path"``;
    ``legion_tpu_torch.tools.hybrid_cell``): ``run_hybrid_training`` with
    tools/smoke_uk_scale.py's configuration on phase 6's graph, whose CSR
@@ -324,6 +324,7 @@ def require(cond, what):
 
 def kernel_table():
     """name -> (wrapper holding the launch count, TPU kernel it replaces)."""
+    from legion_tpu_torch.ops.dedup import dedup_tail
     from legion_tpu_torch.ops.gather import gather_rows
     from legion_tpu_torch.ops.identity_agg import (
         gathered_masked_mean, gathered_masked_mean_backward,
@@ -345,6 +346,8 @@ def kernel_table():
                              "legion_tpu/ops/select_pallas.py:46"),
         "grouped_masked_sum": (grouped_masked_sum,
                                "legion_tpu/ops/spmm_pallas.py:90"),
+        # no TPU kernel: the JAX dedup is jnp operations
+        "dedup_tail": (dedup_tail, None),
     }
 
 
@@ -860,7 +863,8 @@ TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
                "gathered_masked_mean_backward": "scatter_rows_kernel",
                "gather_rows": "gather_rows_kernel",
                "sample_neighbors": "sample_neighbors_kernel",
-               "grouped_masked_sum": "grouped_masked_sum_kernel"}
+               "grouped_masked_sum": "grouped_masked_sum_kernel",
+               "dedup_tail": "dedup_tail_kernel"}
 
 
 def traced_launches(kernels, fn):
@@ -1765,7 +1769,8 @@ def gcn_path(kernels, data, dtype):
     want = {"identity_masked_mean": (t if bf16 else 0, e if bf16 else 0),
             "grouped_masked_sum": (0 if bf16 else t, 0 if bf16 else e),
             "gathered_masked_mean": (t, e),
-            "gathered_masked_mean_backward": (t, 0)}
+            "gathered_masked_mean_backward": (t, 0),
+            "dedup_tail": (t, e)}
     for name, (nt, ne) in want.items():
         require((train_launches[name], eval_launches[name]) == (nt, ne),
                 f"GCN {dtype} launched {name} {nt} times in {t} train steps "
@@ -2024,10 +2029,11 @@ def mesh_dp(kernels, results, data, smi):
     want_train = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
                   "gathered_masked_mean": t,
                   "gathered_masked_mean_backward": t, "gather_rows": t,
-                  "grouped_masked_sum": 0}
+                  "grouped_masked_sum": 0, "dedup_tail": t}
     want_eval = dict(want_train, sample_neighbors=2 * e,
                      identity_masked_mean=e, gathered_masked_mean=e,
-                     gathered_masked_mean_backward=0, gather_rows=e)
+                     gathered_masked_mean_backward=0, gather_rows=e,
+                     dedup_tail=e)
     require(train_launches == want_train and eval_launches == want_eval,
             f"exact launches: train {train_launches} (want {want_train}), "
             f"eval {eval_launches} (want {want_eval})")
@@ -2181,7 +2187,8 @@ def cached_path(kernels, results, dedups):
         require(h["host_gb"] > 0, f"misses staged from the host in epoch {e}")
     h = hist[-1]
     for name in ("sample_neighbors", "gathered_masked_mean",
-                 "gathered_masked_mean_backward", "gather_rows"):
+                 "gathered_masked_mean_backward", "gather_rows",
+                 "dedup_tail"):
         require(launches[name] > 0, f"the cached path launched {name}")
     cost = {k: getattr(res["cost"], k) for k in (
         "feat_capacity", "topo_capacity", "alpha", "saved_feat_bytes")}
@@ -2236,9 +2243,11 @@ def cached_path(kernels, results, dedups):
     results["gathered_masked_mean"]["shapes"]["cached_pa_bf16"] = fwd
     results["gathered_masked_mean_backward"]["shapes"]["cached_pa_bf16"] = bwd
     del h_t, gd
-    dedups += dedup_cases("cached", graph, hop_frontiers(batch, caps),
-                          [batch.num_seeds, batch.blocks[0].num_src],
-                          cfg.sampler.fanouts, caps, seed=8)
+    cached_dedups = dedup_cases("cached", graph, hop_frontiers(batch, caps),
+                                [batch.num_seeds, batch.blocks[0].num_src],
+                                cfg.sampler.fanouts, caps, seed=8)
+    results["dedup_tail"]["cached_path_hops"] = cached_dedups
+    dedups += cached_dedups
     emit({"phase": "cached_path",
           "graph": {"nodes": data.num_nodes, "edges": data.num_edges,
                     "features": data.feature_dim,
@@ -2271,71 +2280,70 @@ def cached_path(kernels, results, dedups):
                    for r in hist]}
 
 
-def dedup_case(name, num_nodes, frontier_prev, num_prev, nbrs, cap_new):
-    """One hop's dedup both ways on the same tensors: ``grow_frontier``
-    (stable sort, ``cummax`` scan) and ``grow_frontier_scatter`` (position
-    map). The scatter call is timed as a batch makes it: a new stamp
-    value, the previous frontier entered into the map, then the hop with
-    its O(N) scratch fill; entering the frontier and the fill are also
-    timed alone. Both must number the same set of ids, decode every valid
-    slot to the neighbor id sampled there, and the scatter dedup must
-    give the same numbering twice (its winner election is a min, so the
-    atomics' order cannot show)."""
+def dedup_case(name, frontier_prev, num_prev, nbrs, cap_new):
+    """One hop's dedup on the card, its tail both ways on the same sorted
+    tensors: the kernel (``ops/dedup.py::dedup_tail``) against its plain
+    version, bitwise (frontier, count, positions), and the whole hop
+    (``grow_frontier``: the sort, then the kernel) equal to them; neither
+    may make the host wait for the device. Every valid slot must decode
+    to the neighbor id sampled there. Timed: the kernel warm (``ms``) and
+    with the L2 flushed (``cold_ms``), the plain version, ``torch.cummax``
+    over an int64 row of the hop's length (the plain version's
+    leader broadcast, the scan the kernel replaces; ``library_ms``) and
+    the whole hop; the bound is the kernel's bytes
+    (``dedup_traffic``) at the memory peak."""
     import torch
 
-    from legion_tpu_torch.sampling.sampler import (grow_frontier,
-                                                   grow_frontier_scatter,
-                                                   stamp_frontier)
-    dev = nbrs.device
-    pos_map = torch.zeros(num_nodes, dtype=torch.int32, device=dev)
-    stamp = torch.zeros(num_nodes, dtype=torch.int32, device=dev)
-    stamp_val = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def scatter():
-        stamp_val.add_(1)
-        stamp_frontier(frontier_prev, pos_map, stamp, stamp_val)
-        return grow_frontier_scatter(frontier_prev, num_prev, nbrs, cap_new,
-                                     pos_map, stamp, stamp_val)[:3]
-
-    def enter_only():
-        stamp_val.add_(1)
-        stamp_frontier(frontier_prev, pos_map, stamp, stamp_val)
-
-    mask = nbrs >= 0
-    # neither dedup may make the host wait for the device
+    from legion_tpu_torch.ops.dedup import (SENTINEL, dedup_tail,
+                                            dedup_tail_plain, dedup_traffic)
+    from legion_tpu_torch.sampling.sampler import grow_frontier
+    cat = torch.cat([torch.where(frontier_prev >= 0, frontier_prev, SENTINEL),
+                     torch.where(nbrs >= 0, nbrs, SENTINEL).reshape(-1)])
+    s, sorig = torch.sort(cat, stable=True)
+    args = (s, sorig, frontier_prev, num_prev.to(torch.int32), cap_new)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        fs, ns, bs = grow_frontier(frontier_prev, num_prev, nbrs, cap_new)
-        fc, nc, bc = scatter()
-        fc2, _, bc2 = scatter()
+        n0 = dedup_tail.launches
+        k = dedup_tail(*args)
+        p = dedup_tail_plain(*args)
+        hop = grow_frontier(frontier_prev, num_prev, nbrs, cap_new)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    require(int(ns) == int(nc) and int(ns) <= cap_new,
-            f"dedup {name}: both count {int(ns)} ids within the cap")
-    require(torch.equal(torch.sort(fs).values, torch.sort(fc).values),
-            f"dedup {name}: the same frontier as a set")
-    for what, f, b in (("sort", fs, bs), ("scatter", fc, bc)):
-        require(torch.equal(f[b.nbr_pos.long()][mask], nbrs[mask]),
-                f"dedup {name}: the {what} block decodes to the sampled ids")
-    require(torch.equal(fc, fc2) and torch.equal(bc.nbr_pos, bc2.nbr_pos),
-            f"dedup {name}: the scatter dedup numbers alike twice")
-    del fs, bs, fc, bc, fc2, bc2
-    return {"case": name, "num_nodes": num_nodes,
-            "shape": [*nbrs.shape], "prev_cap": frontier_prev.shape[0],
-            "cap_new": cap_new, "valid_slots": int(mask.sum()),
-            "num_prev": int(num_prev), "num_new": int(ns),
-            "sort_ms": time_ms(lambda: grow_frontier(
-                frontier_prev, num_prev, nbrs, cap_new)),
-            "scatter_ms": time_ms(scatter),
-            "scatter_enter_prev_ms": time_ms(enter_only),
-            "scatter_fill_ms": time_ms(lambda: torch.full(
-                (num_nodes + 1,), 2 ** 31 - 1, dtype=torch.int32,
-                device=dev))}
+    require(dedup_tail.launches == n0 + 2,
+            f"dedup {name}: the tail and the hop each launch the kernel once")
+    for what, a, b in zip(("frontier", "count", "positions"), k, p):
+        require(torch.equal(a, b), f"dedup {name}: the kernel's {what} are "
+                "bitwise the plain version's")
+    require(torch.equal(hop[0], k[0]) and torch.equal(hop[1], k[1])
+            and torch.equal(hop[2].nbr_pos.reshape(-1), k[2]),
+            f"dedup {name}: grow_frontier gives the tail's results")
+    mask = nbrs >= 0
+    require(int(k[1]) <= cap_new, f"dedup {name}: {int(k[1])} ids within "
+            f"the cap {cap_new}")
+    require(torch.equal(k[0][hop[2].nbr_pos.long()][mask], nbrs[mask]),
+            f"dedup {name}: the block decodes to the sampled ids")
+    total, prev_cap = s.shape[0], frontier_prev.shape[0]
+    idx = torch.arange(total, device=s.device)
+    num_new = int(k[1])
+    del k, p, hop
+    return {"case": name, "shape": [*nbrs.shape], "prev_cap": prev_cap,
+            "cap_new": cap_new, "total": total,
+            "valid_slots": int(mask.sum()), "num_prev": int(num_prev),
+            "num_new": num_new, "max_abs_err": 0.0,
+            **bound(dedup_traffic(total, prev_cap, cap_new), 0),
+            "ms": time_ms(lambda: dedup_tail(*args)),
+            "cold_ms": time_ms(lambda: dedup_tail(*args), cold=True),
+            "plain_ms": time_ms(lambda: dedup_tail_plain(*args)),
+            "library_ms": time_ms(lambda: torch.cummax(idx, 0)),
+            "library_call": "torch.cummax of an int64 row of the hop's "
+                            "length",
+            "hop_ms": time_ms(lambda: grow_frontier(frontier_prev, num_prev,
+                                                    nbrs, cap_new))}
 
 
 def dedup_cases(prefix, graph, frontiers, nums, fanouts, caps, seed):
     """``dedup_case`` for each hop of a batch: the hop's frontier and valid
-    count as the sort dedup left them, and neighbors sampled from it."""
+    count as the sampler left them, and neighbors sampled from it."""
     import torch
 
     from legion_tpu_torch.sampling.sampler import sample_neighbors
@@ -2344,9 +2352,8 @@ def dedup_cases(prefix, graph, frontiers, nums, fanouts, caps, seed):
     for k, (fr, num) in enumerate(zip(frontiers, nums)):
         u = torch.rand((fr.shape[0], fanouts[k]), generator=gen,
                        device=fr.device, dtype=torch.float32)
-        out.append(dedup_case(f"{prefix}_hop{k + 1}", graph.num_nodes, fr,
-                              num, sample_neighbors(graph, fr, u),
-                              caps[k + 1]))
+        out.append(dedup_case(f"{prefix}_hop{k + 1}", fr, num,
+                              sample_neighbors(graph, fr, u), caps[k + 1]))
     return out
 
 
@@ -2430,9 +2437,9 @@ def hybrid_launches(hist, data, hops):
     """The launches of a hybrid driver's run. Training: ``hops`` sampling
     launches a step (hops 1.. of this batch, hop 0 of the next) plus the
     epoch's prologue, K2 forward and backward once a step, K3 for the
-    cached and for the staged rows. The eval passes (valid after each
-    epoch, test) take batches of ``pa_cell.BATCH`` seeds and launch no
-    backward."""
+    cached and for the staged rows, the dedup's tail at every hop. The
+    eval passes (valid after each epoch, test) take batches of
+    ``pa_cell.BATCH`` seeds and launch no backward."""
     from legion_tpu_torch.tools import pa_cell
     train_steps = sum(h["steps"] for h in hist)
     eval_steps = [(len(ids) - 1) // pa_cell.BATCH + 1 for ids in (
@@ -2442,7 +2449,8 @@ def hybrid_launches(hist, data, hops):
             "gathered_masked_mean": steps,
             "gathered_masked_mean_backward": train_steps,
             "gather_rows": 2 * steps,
-            "identity_masked_mean": 0, "grouped_masked_sum": 0}
+            "identity_masked_mean": 0, "grouped_masked_sum": 0,
+            "dedup_tail": hops * steps}
 
 
 def require_hybrid_launches(launches, hist, data, hops, what):
@@ -2724,7 +2732,8 @@ def bigcsr(kernels, results, smi, ref):
         n = pa_cell.STEPS
         want = {"sample_neighbors": hops * n + 1, "gathered_masked_mean": n,
                 "gathered_masked_mean_backward": n, "gather_rows": 2 * n,
-                "identity_masked_mean": 0, "grouped_masked_sum": 0}
+                "identity_masked_mean": 0, "grouped_masked_sum": 0,
+                "dedup_tail": hops * n}
         require(traced == counted == want,
                 f"a steady epoch traced {traced} and counted {counted} "
                 f"launches, want {want}")
@@ -2970,7 +2979,7 @@ def mesh_sharded(kernels, data, dp_losses, dp_ms):
                        "hbm_sharded MeshTrainer against mesh_dp")
     want = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
             "gathered_masked_mean": t, "gathered_masked_mean_backward": t,
-            "gather_rows": 2 * t, "grouped_masked_sum": 0}
+            "gather_rows": 2 * t, "grouped_masked_sum": 0, "dedup_tail": t}
     require(launches == want, f"exact launches {launches} (want {want})")
     m, d = tr.caps[-1], tr.features.shape[1]
     a2a = t * comm.exact_exchange_bytes(m, 1, d)["all_to_all"]
@@ -3445,7 +3454,7 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
     want = {"sample_neighbors": 2 * (t + e), "identity_masked_mean": 0,
             "gathered_masked_mean": t + e,
             "gathered_masked_mean_backward": t, "gather_rows": t + e,
-            "grouped_masked_sum": 0}
+            "grouped_masked_sum": 0, "dedup_tail": 2 * (t + e)}
     require(launches == want, f"exact launches over {t} train and {e} eval "
             f"steps: {launches} (want {want})")
     same = (torch.equal(batch.frontier, pbatch.frontier)
@@ -3628,11 +3637,12 @@ def mesh_partitioned_k2(smi):
             want_t = {"sample_neighbors": per_hop * t,
                       "identity_masked_mean": 0, "gathered_masked_mean": t,
                       "gathered_masked_mean_backward": t,
-                      "gather_rows": k3 * t, "grouped_masked_sum": 0}
+                      "gather_rows": k3 * t, "grouped_masked_sum": 0,
+                      "dedup_tail": 2 * t}
             want_e = dict(want_t, sample_neighbors=per_hop * e,
                           gathered_masked_mean=e,
                           gathered_masked_mean_backward=0,
-                          gather_rows=k3 * e)
+                          gather_rows=k3 * e, dedup_tail=2 * e)
             require(r["train_launches"] == want_t
                     and r["eval_launches"] == want_e,
                     f"{what}: launches per step, train {r['train_launches']}"
@@ -3893,12 +3903,13 @@ def bench_phase(kernels, smi, data, main_rec):
     from legion_tpu_torch.data.format import save_dataset
     want = {"fanout": {"identity_masked_mean": 1, "gathered_masked_mean": 1,
                        "gathered_masked_mean_backward": 1, "gather_rows": 1,
-                       "sample_neighbors": 2, "grouped_masked_sum": 0},
+                       "sample_neighbors": 2, "grouped_masked_sum": 0,
+                       "dedup_tail": 1},
             "coo_segment": {"identity_masked_mean": 0,
                             "gathered_masked_mean": 0,
                             "gathered_masked_mean_backward": 0,
                             "gather_rows": 1, "sample_neighbors": 2,
-                            "grouped_masked_sum": 0}}
+                            "grouped_masked_sum": 0, "dedup_tail": 1}}
     main_per_step = per_step(main_rec["launches"], *main_rec["steps"])
     require(main_per_step == want["fanout"],
             f"the main path's launches per step {main_per_step}")
@@ -4083,6 +4094,8 @@ def main():
     dedups = dedup_cases("main", tr.graph, hop_frontiers(batch, tr.caps)[:1],
                          [batch.num_seeds], cfg.sampler.fanouts, tr.caps,
                          seed=2)
+    results["dedup_tail"].update({k: dedups[0][k] for k in KERNEL_KEYS},
+                                 main_path_hops=dedups)
     emit({"phase": "kernels", "caps": list(tr.caps),
           "shapes": {"table": list(table.shape), "ids": ids.shape[0],
                      "identity": [*m1.shape, x.shape[1], off],
@@ -4215,7 +4228,7 @@ def main():
     by_path["cached_path"], cached_ref = cached_path(kernels, results, dedups)
     torch.cuda.empty_cache()
 
-    # -- 7. the two dedups on the same tensors ------------------------------
+    # -- 7. the dedup's kernel against its plain version ---------------------
     emit({"phase": "dedup", "nvidia_smi": smi, "cases": dedups})
 
     # -- 8. the host-topology path at uk-union class ------------------------

@@ -1,12 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels of legion_tpu_torch.
 //
-// Each kernel replaces a Pallas TPU kernel of legion_tpu/ops/ and computes
-// what that kernel computes, redesigned for the H100 rather than copied
-// block by block. All are gathers, reductions or scatters with no matrix
-// product: at the main-path shapes they do < 1 FLOP per byte moved, far
-// below the ~295 FLOP/byte at which the H100's bf16 tensor cores would bound
-// them, so no kernel here is bound by operations. Two designs follow from
-// what does bound them:
+// Each kernel but the dedup's replaces a Pallas TPU kernel of legion_tpu/ops/
+// and computes what that kernel computes, redesigned for the H100 rather
+// than copied block by block; the dedup's tail (dedup_tail_kernel, last
+// below) replaces a chain of PyTorch passes. All are scans, gathers,
+// reductions or scatters with no matrix product: at the main-path shapes
+// they do < 1 FLOP per byte moved, far below the ~295 FLOP/byte at which
+// the H100's bf16 tensor cores would bound them, so no kernel here is bound
+// by operations. The designs follow from what does bound them:
 //
 //  * K1, K3 and K5 stream hundreds of megabytes from device memory, and
 //    bytes bound them: one thread per 16-byte word of an output row, each
@@ -25,6 +26,8 @@
 //    few to fill the card): the tile's ids are loaded once by its lanes, a
 //    tile with no neighbor loads nothing more, and each lane keeps its
 //    index loads in flight together.
+//  * The dedup's tail streams the sorted ids once; a decoupled look-back
+//    carries its one count across tiles, so it takes one launch.
 //
 // Built by legion_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -33,7 +36,8 @@
 // stream, launch without synchronising, allocate nothing, and return
 // cudaGetLastError(). Wrappers and plain PyTorch versions of each kernel:
 // legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py,
-// legion_tpu_torch/ops/sample.py and legion_tpu_torch/ops/spmm.py.
+// legion_tpu_torch/ops/sample.py, legion_tpu_torch/ops/spmm.py and
+// legion_tpu_torch/ops/dedup.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -898,6 +902,279 @@ void launch_grouped_sum(const void* x, const void* mask, void* out, int64_t p,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The dedup's tail: what grow_frontier (legion_tpu_torch/sampling/sampler.py)
+// does after its stable sort of [prev | neighbors] by id (s, the sorted ids,
+// padding as kSentinel; sorig, each entry's index before the sort).
+//
+//   first[i]  s[i] is not padding and differs from s[i-1]: a group leader;
+//             an old id when sorig[i] < prev_cap, else a new one
+//   rank[i]   new leaders in s[0..i], less one
+//   pos       the position of i's group: its leader's sorig if the leader
+//             is old, else num_prev + rank[i] (no leader lies between a
+//             group's leader and its members, so their rank is its rank)
+//   nbr_pos[sorig[i] - prev_cap] = pos, 0 where s[i] is padding
+//   frontier_new[sorig[i]] = s[i]  for an old leader below cap_new
+//   frontier_new[n_old + rank[i]] = s[i]  for a new leader whose
+//             num_prev + rank[i] < cap_new; every other slot -1
+//   num_new = num_prev + the count of new leaders (not clamped)
+//
+// n_old is the count of valid ids in frontier_prev. A frontier keeps its
+// valid ids distinct and in front (every frontier grow_frontier makes, and
+// the seeds), so old leaders fill [0, n_old) and the new ones follow: the
+// slots the plain version gives them by sorting (target, id) pairs, also
+// after an overflow (num_prev > prev_cap), where n_old < num_prev.
+//
+// Replaces no TPU kernel: the JAX dedup (legion_tpu/sampling/sampler.py,
+// grow_frontier) is jnp ops (an associative_scan with a "last leader wins"
+// operator and two sorts) that XLA lowers. The port ran it as a dozen
+// PyTorch passes, among them a one-row torch.cummax, which scans a row on a
+// single block (3.3 ms a step on the cached path, PERF.md section 5), and a
+// second stable sort for the frontier.
+//
+// Bound: bytes. It reads s (4 B) and sorig (8 B) once and writes nbr_pos
+// once (4 B an edge) and the frontier's filled slots: ~16 B an entry, ~33
+// MB and ~0.01 ms at 3.35 TB/s for 2M entries. Design: one pass, one
+// launch.
+//  * A block takes a tile of kDedupTile consecutive sorted entries, its
+//    tile number taken from an atomic counter in launch order, so a tile
+//    waits only on tiles that are already running; each thread loads
+//    kDedupItems entries with 16-byte loads.
+//  * The scan carries (count of new leaders, the last leader's encoded
+//    position: its sorig if old, -1 if new, kNoLeader before any): the
+//    reference's seg_copy operator with the count added. It runs in
+//    registers, across a warp by shuffles and across the block's warps
+//    through shared memory; across tiles only the count has to travel,
+//    by decoupled look-back (each tile publishes its count, then its
+//    inclusive prefix, in one 64-bit word; a warp reads 32 predecessors
+//    at a time).
+//  * A group that runs in from an earlier tile (a hub's repeats can cover
+//    many tiles) finds its leader by a warp's 32-way search of the sorted
+//    ids, and n_old comes from one more over frontier_prev, both while the
+//    other warps scan.
+//  * Writes go straight to their final places: nbr_pos through sorig,
+//    leaders into a frontier the wrapper filled with -1. The tile state
+//    (counter and words) is zeroed by a memset on the same stream, so a
+//    captured graph resets it on every replay.
+// ---------------------------------------------------------------------------
+constexpr int kDedupThreads = 256;
+constexpr int kDedupItems = 4;
+constexpr int kDedupTile = kDedupThreads * kDedupItems;
+constexpr int kDedupWarps = kDedupThreads / kWarp;
+constexpr int32_t kSentinel = 0x7fffffff;
+constexpr int32_t kNoLeader = -2;
+// a tile's word: its state in the high half, its count in the low half
+constexpr unsigned long long kTileAggregate = 1ull << 32;
+constexpr unsigned long long kTilePrefix = 2ull << 32;
+
+struct Carry {
+  int32_t count;  // new leaders
+  int32_t lead;   // the last leader's sorig if old, -1 if new, or kNoLeader
+};
+
+// a, then b
+__device__ __forceinline__ Carry combine(Carry a, Carry b) {
+  return {a.count + b.count, b.lead != kNoLeader ? b.lead : a.lead};
+}
+
+__device__ __forceinline__ Carry warp_inclusive(Carry c, int lane) {
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    Carry o;
+    o.count = __shfl_up_sync(kFullMask, c.count, d);
+    o.lead = __shfl_up_sync(kFullMask, c.lead, d);
+    if (lane >= d) c = combine(o, c);
+  }
+  return c;
+}
+
+__device__ __forceinline__ Carry warp_exclusive(Carry inclusive, int lane) {
+  Carry e;
+  e.count = __shfl_up_sync(kFullMask, inclusive.count, 1);
+  e.lead = __shfl_up_sync(kFullMask, inclusive.lead, 1);
+  return lane == 0 ? Carry{0, kNoLeader} : e;
+}
+
+// The least x in [lo, hi] with pred(x), for a pred that is false then true
+// and taken as true at hi; the whole warp calls it and gets the answer.
+// Each round the lanes probe 32 evenly spaced points.
+template <typename Pred>
+__device__ int64_t warp_search(int64_t lo, int64_t hi, int lane, Pred pred) {
+  while (lo < hi) {
+    const int64_t step = (hi - lo + kWarp - 1) / kWarp;
+    const int64_t x = lo + (lane + 1) * step - 1;
+    const unsigned m = __ballot_sync(kFullMask, x >= hi || pred(x));
+    if (m == 0) return hi;
+    const int t = __ffs(m) - 1;
+    const int64_t xt = lo + (t + 1) * step - 1;
+    hi = xt < hi ? xt : hi;
+    lo += t * step;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kDedupThreads)
+dedup_tail_kernel(const int32_t* __restrict__ s,
+                  const int64_t* __restrict__ sorig,
+                  const int32_t* __restrict__ frontier_prev,
+                  const int32_t* __restrict__ num_prev_in,
+                  int32_t* __restrict__ frontier_new,
+                  int32_t* __restrict__ num_new, int32_t* __restrict__ nbr_pos,
+                  unsigned long long* __restrict__ state, int64_t total,
+                  int64_t prev_cap, int64_t cap_new, int64_t tiles) {
+  __shared__ int64_t tile_sh, n_old_sh;
+  __shared__ int32_t head_sh, before_sh;
+  __shared__ Carry warp_sum[kDedupWarps], warp_before[kDedupWarps];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  if (threadIdx.x == 0) {
+    tile_sh = static_cast<int64_t>(atomicAdd(state, 1ull));
+  }
+  __syncthreads();
+  const int64_t tile = tile_sh;
+  const int64_t base = tile * kDedupTile;
+  const int64_t i0 = base + static_cast<int64_t>(threadIdx.x) * kDedupItems;
+  const int32_t num_prev = __ldg(num_prev_in);
+
+  // this thread's entries; past the end: padding with no origin
+  int32_t v[kDedupItems];
+  int64_t o[kDedupItems];
+  if (i0 + kDedupItems <= total) {
+    const int4 w = __ldcs(reinterpret_cast<const int4*>(s + i0));
+    const longlong2 a = __ldcs(reinterpret_cast<const longlong2*>(sorig + i0));
+    const longlong2 b =
+        __ldcs(reinterpret_cast<const longlong2*>(sorig + i0 + 2));
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+    o[0] = a.x, o[1] = a.y, o[2] = b.x, o[3] = b.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kDedupItems; ++k) {
+      const bool in = i0 + k < total;
+      v[k] = in ? s[i0 + k] : kSentinel;
+      o[k] = in ? sorig[i0 + k] : -1;
+    }
+  }
+  int32_t prev = __shfl_up_sync(kFullMask, v[kDedupItems - 1], 1);
+  if (lane == 0) prev = i0 > 0 && i0 <= total ? __ldg(s + i0 - 1) : kSentinel;
+
+  // the thread's scan over its entries
+  Carry local[kDedupItems];
+  unsigned first = 0;
+  Carry c{0, kNoLeader};
+#pragma unroll
+  for (int k = 0; k < kDedupItems; ++k) {
+    const bool lead = v[k] != kSentinel && v[k] != prev;
+    prev = v[k];
+    if (lead) {
+      first |= 1u << k;
+      c = o[k] < prev_cap ? Carry{c.count, static_cast<int32_t>(o[k])}
+                          : Carry{c.count + 1, -1};
+    }
+    local[k] = c;
+  }
+  const Carry inclusive = warp_inclusive(c, lane);
+  const Carry thread_before = warp_exclusive(inclusive, lane);
+  if (lane == kWarp - 1) warp_sum[warp] = inclusive;
+
+  if (warp == kDedupWarps - 1) {
+    // the leader of a group that runs in from the tile before
+    int32_t head = kNoLeader;
+    if (base > 0 && base < total) {
+      const int32_t x = __ldg(s + base);
+      if (x != kSentinel && __ldg(s + base - 1) == x) {
+        auto at_or_past = [&](int64_t q) { return __ldg(s + q) >= x; };
+        const int64_t lo = base > kWarp ? base - kWarp : 0;
+        int64_t y = warp_search(lo, base, lane, at_or_past);
+        if (y == lo && lo > 0) y = warp_search(0, lo, lane, at_or_past);
+        const int64_t so = __ldg(sorig + y);
+        head = so < prev_cap ? static_cast<int32_t>(so) : -1;
+      }
+    }
+    if (lane == 0) head_sh = head;
+  } else if (warp == kDedupWarps - 2) {
+    // n_old: the valid ids of frontier_prev stand in front; num_prev
+    // usually says where they end
+    const int64_t g = num_prev < prev_cap ? num_prev : prev_cap;
+    const bool ends_at_g = (g == 0 || __ldg(frontier_prev + g - 1) >= 0) &&
+                           (g == prev_cap || __ldg(frontier_prev + g) < 0);
+    const int64_t n_old =
+        ends_at_g ? g : warp_search(0, prev_cap, lane, [&](int64_t q) {
+          return __ldg(frontier_prev + q) < 0;
+        });
+    if (lane == 0) n_old_sh = n_old;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    const Carry ws =
+        lane < kDedupWarps ? warp_sum[lane] : Carry{0, kNoLeader};
+    const Carry wi = warp_inclusive(ws, lane);
+    const Carry we = warp_exclusive(wi, lane);
+    if (lane < kDedupWarps) warp_before[lane] = we;
+    const int32_t agg = __shfl_sync(kFullMask, wi.count, kDedupWarps - 1);
+    volatile unsigned long long* words = state + 1;
+    int32_t before = 0;
+    if (tile == 0) {
+      if (lane == 0) words[0] = kTilePrefix | static_cast<uint32_t>(agg);
+    } else {
+      if (lane == 0) {
+        words[tile] = kTileAggregate | static_cast<uint32_t>(agg);
+      }
+      // look back over the predecessors, 32 at a time, up to the nearest
+      // that has published its inclusive prefix
+      for (int64_t j = tile - 1;; j -= kWarp) {
+        const int64_t t = j - lane;
+        unsigned long long w = kTilePrefix;
+        if (t >= 0) {
+          do {
+            w = words[t];
+          } while ((w >> 32) == 0);
+        }
+        const unsigned done = __ballot_sync(kFullMask, w >= kTilePrefix);
+        const int last = done ? __ffs(done) - 1 : kWarp - 1;
+        int32_t add = lane <= last ? static_cast<int32_t>(w & 0xffffffffu) : 0;
+#pragma unroll
+        for (int d = kWarp / 2; d > 0; d >>= 1) {
+          add += __shfl_xor_sync(kFullMask, add, d);
+        }
+        before += add;
+        if (done) break;
+      }
+      if (lane == 0) {
+        words[tile] = kTilePrefix | static_cast<uint32_t>(before + agg);
+      }
+    }
+    if (lane == 0) {
+      before_sh = before;
+      if (tile == tiles - 1) *num_new = num_prev + before + agg;
+    }
+  }
+  __syncthreads();
+
+  const int32_t tile_before = before_sh;
+  const int64_t n_old = n_old_sh;
+  const Carry start =
+      combine(combine(Carry{0, head_sh}, warp_before[warp]), thread_before);
+#pragma unroll
+  for (int k = 0; k < kDedupItems; ++k) {
+    if (o[k] < 0) continue;
+    const Carry e = combine(start, local[k]);
+    const int32_t rank = tile_before + e.count - 1;
+    if (o[k] >= prev_cap) {
+      nbr_pos[o[k] - prev_cap] =
+          v[k] == kSentinel ? 0 : e.lead >= 0 ? e.lead : num_prev + rank;
+    }
+    if (first >> k & 1u) {
+      if (o[k] < prev_cap) {
+        if (o[k] < cap_new) frontier_new[o[k]] = v[k];
+      } else if (static_cast<int64_t>(num_prev) + rank < cap_new &&
+                 n_old + rank < cap_new) {
+        frontier_new[n_old + rank] = v[k];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1044,6 +1321,32 @@ int legion_grouped_masked_sum(const void* x, int dtype, const void* mask,
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// s (total,) int32 and sorig (total,) int64, both 16-byte aligned: the stable
+// sort of [frontier_prev | neighbors]; frontier_new (cap_new,) filled with -1;
+// nbr_pos (total - prev_cap,); state (tiles + 1,) 64-bit words, zeroed here.
+int legion_dedup_tail(const void* s, const void* sorig,
+                      const void* frontier_prev, const void* num_prev,
+                      void* frontier_new, void* num_new, void* nbr_pos,
+                      void* state, int64_t total, int64_t prev_cap,
+                      int64_t cap_new, void* stream) {
+  if (total <= 0 || !aligned(s, 16) || !aligned(sorig, 16)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = (total + kDedupTile - 1) / kDedupTile;
+  unsigned long long* words = static_cast<unsigned long long*>(state);
+  const cudaError_t err =
+      cudaMemsetAsync(words, 0, (tiles + 1) * sizeof(*words), st);
+  if (err != cudaSuccess) return err;
+  dedup_tail_kernel<<<static_cast<unsigned>(tiles), kDedupThreads, 0, st>>>(
+      static_cast<const int32_t*>(s), static_cast<const int64_t*>(sorig),
+      static_cast<const int32_t*>(frontier_prev),
+      static_cast<const int32_t*>(num_prev),
+      static_cast<int32_t*>(frontier_new), static_cast<int32_t*>(num_new),
+      static_cast<int32_t*>(nbr_pos), words, total, prev_cap, cap_new, tiles);
   return cudaGetLastError();
 }
 

@@ -54,6 +54,9 @@ _SIGNATURES = {
     "legion_sample_neighbors": (_P, _P, _P, _P, _P, _L, _I, _P),
     # x, dtype, mask, mask_is_weight, out, p, f, d, stream
     "legion_grouped_masked_sum": (_P, _I, _P, _I, _P, _L, _I, _I, _P),
+    # s, sorig, frontier_prev, num_prev, frontier_new, num_new, nbr_pos,
+    # state, total, prev_cap, cap_new, stream
+    "legion_dedup_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -26,8 +26,8 @@ against steady steps of the bench (replays of its captured step) under
 that stage's kernels a step.
 
 The stages are the port's step, not the TPU's: draws as index reads on
-a plain CSR (no line descriptors), hop 1's sort dedup (the ``cummax``
-broadcast beside it is not work the step must do), K3's row gather, K1's
+a plain CSR (no line descriptors), hop 1's sort dedup and its tail's
+bytes (``ops/dedup.py::dedup_traffic``), K3's row gather, K1's
 read pass, the GEMMs, K2's backward scatter, and the elementwise passes
 and Adam.
 """
@@ -40,6 +40,8 @@ import subprocess
 import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence
+
+from legion_tpu_torch.ops.dedup import dedup_traffic
 
 # Every rate: one run of ``--measure`` on an NVIDIA H100 80GB HBM3 at a
 # 700.00 W power limit, torch 2.11.0+cu128 (PERF.md §6 lists the run).
@@ -100,8 +102,12 @@ def step_roof_ms(batch: int, caps, fanouts, hidden: int, feat_dim: int,
     t_sample = (8 * (batch * f1 + valid2) + 4 * slots
                 + 12 * (batch + m_hop1)) / COPY_BYTES_PER_S
 
-    # 2. hop 1's dedup: two stable sorts over [seeds | draws]
-    t_dedup = 2 * batch * (1 + f1) / SORT_KEYS_PER_S
+    # 2. hop 1's dedup: one stable sort over [seeds | draws], then its
+    #    tail's bytes (the sorted ids and indices read, the positions and
+    #    the frontier written)
+    keys = batch * (1 + f1)
+    t_dedup = (keys / SORT_KEYS_PER_S
+               + dedup_traffic(keys, batch, m_hop1) / COPY_BYTES_PER_S)
 
     # 3. feature gather: the hop-1 frontier's rows are distinct, each one
     #    random row; the appended rows repeat hubs, which the L2 serves,
@@ -148,7 +154,7 @@ def sol_fraction(measured_step_ms: float, roof: Dict[str, float]) -> float:
 # is "elementwise"
 _KERNEL_STAGES = (
     ("sample", ("sample_neighbors",)),
-    ("dedup", ("radixsort", "radix_sort", "onesweep")),
+    ("dedup", ("radixsort", "radix_sort", "onesweep", "dedup_tail")),
     ("gather", ("gather_rows_kernel",)),
     ("aggregate", ("masked_agg_kernel", "gathered_agg_kernel")),
     ("bwd_scatter", ("scatter_rows_kernel", "narrow_rows_kernel")),

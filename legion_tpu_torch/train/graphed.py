@@ -78,6 +78,7 @@ from legion_tpu_torch.ops.gather import gather_rows
 from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
                                                gathered_masked_mean_backward,
                                                identity_masked_mean)
+from legion_tpu_torch.ops.dedup import dedup_tail
 from legion_tpu_torch.ops.sample import sample_neighbors
 from legion_tpu_torch.ops.spmm import grouped_masked_sum
 from legion_tpu_torch.train.train_state import TrainState, state_tensors
@@ -89,7 +90,7 @@ METRICS = ("loss", "edges", "frontier", "cap_overflow")
 # every kernel wrapper; each counts its launches in ``.launches``
 COUNTED = (identity_masked_mean, gathered_masked_mean,
            gathered_masked_mean_backward, gather_rows, sample_neighbors,
-           grouped_masked_sum)
+           grouped_masked_sum, dedup_tail)
 
 
 class GraphPool:

@@ -316,7 +316,8 @@ def _hand(stage, bf16):
     return 1e3 * {
         "sample": (12 * (8000 * 25 + 122240 * 10) + 12 * (8000 + 122240))
         / m.COPY_BYTES_PER_S,
-        "dedup": 2 * 8000 * 26 / m.SORT_KEYS_PER_S,
+        "dedup": 8000 * 26 / m.SORT_KEYS_PER_S
+        + (12 * 8000 * 26 + 4 * 8000 * 25 + 4 * 122240) / m.COPY_BYTES_PER_S,
         "gather": 122240 / m.ROW_GATHERS_PER_S
         + (1344640 - 122240) * 512 / m.COPY_BYTES_PER_S,
         "aggregate": (122240 * 10 * 512 + 122240 * 128 * a
@@ -367,6 +368,8 @@ def test_roof_total_is_the_sum_of_its_stages():
 @pytest.mark.parametrize("name,stage", [
     ("void sample_neighbors_kernel<16>(int const*, int const*)", "sample"),
     ("void cub::DeviceRadixSortOnesweepKernel<...>", "dedup"),
+    ("void (anonymous namespace)::dedup_tail_kernel(int const*, ...)",
+     "dedup"),
     ("void gather_rows_kernel<4>(...)", "gather"),
     ("void masked_agg_kernel<float, __nv_bfloat16>(...)", "aggregate"),
     ("void gathered_agg_kernel<__nv_bfloat16, 2, 4>(...)", "aggregate"),

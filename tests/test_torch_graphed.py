@@ -55,7 +55,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from legion_tpu_torch import config as port_config
 from legion_tpu_torch.models import sage as port_sage
 from legion_tpu_torch.models.convert import params_from_flax
-from legion_tpu_torch.ops import gather, identity_agg, sample, spmm
+from legion_tpu_torch.ops import dedup, gather, identity_agg, sample, spmm
 from legion_tpu_torch.parallel.trainer import MeshTrainer
 from legion_tpu_torch.sampling import sampler as port_sampler
 from legion_tpu_torch.train import graphed
@@ -518,6 +518,7 @@ def test_replays_count_the_launches_their_capture_recorded(
         monkeypatch.setattr(module, name, shim)
 
     counting(port_sampler, "sample_kernel", sample.sample_neighbors)
+    counting(port_sampler, "dedup_tail", dedup.dedup_tail)
     counting(port_sampler, "gather_rows", gather.gather_rows)
     counting(port_sage, "identity_masked_mean",
              identity_agg.identity_masked_mean)
@@ -540,9 +541,11 @@ def test_replays_count_the_launches_their_capture_recorded(
         tr.evaluate("valid")
         counts[captured] = (train, [fn.launches for fn in graphed.COUNTED])
     n, e = tr.plan.train_steps, tr.plan.valid_steps
-    # K1, K2, K2 backward (not counted here), K3, sampling, K5
+    # K1, K2, K2 backward (not counted here), K3, sampling, K5, the
+    # dedup's tail (hop 1; the last hop is appended)
     assert counts[True] == counts[False] == (
-        [n, n, 0, n, 2 * n, 0], [n + e, n + e, 0, n + e, 2 * (n + e), 0])
+        [n, n, 0, n, 2 * n, 0, n],
+        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e])
     assert len(fake_capture) == 2
     for fn in graphed.COUNTED:
         fn.launches = 0

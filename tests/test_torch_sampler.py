@@ -18,18 +18,14 @@ from legion_tpu.sampling import seeds as jax_seeds
 from legion_tpu.sampling.block import frontier_caps as jax_frontier_caps
 from legion_tpu.sampling.sampler import DeviceGraph as JaxDeviceGraph
 from legion_tpu.sampling.sampler import gather_features as jax_gather_features
-from legion_tpu.sampling.sampler import (
-    grow_frontier_scatter as jax_grow_frontier_scatter)
+from legion_tpu.sampling.sampler import grow_frontier as jax_grow_frontier
 from legion_tpu.sampling.sampler import sample_batch as jax_sample_batch
-from legion_tpu.sampling.sampler import (
-    sample_batch_scatter as jax_sample_batch_scatter)
 from legion_tpu_torch.cache.hotness import observed_caps
 from legion_tpu_torch.sampling import seeds
 from legion_tpu_torch.sampling.block import Block, SampledBatch, frontier_caps
 from legion_tpu_torch.sampling.sampler import (DeviceGraph, gather_features,
-                                               grow_frontier_scatter,
-                                               sample_batch,
-                                               sample_batch_scatter)
+                                               grow_frontier, sample_batch)
+from tests.test_torch_dedup_kernel import hop_cases
 
 torch.set_num_threads(2)
 
@@ -205,123 +201,33 @@ def test_sample_batch_matches_jax(small_graph, graph_kind, caps_kind,
         assert int(jb.blocks[0].num_src) > caps[1]
 
 
-_jax_sample_batch_scatter = jax.jit(jax_sample_batch_scatter,
-                                    static_argnums=(5, 6))
+_jax_grow_frontier = jax.jit(jax_grow_frontier, static_argnums=(3,))
 
 
-@pytest.mark.parametrize("caps_kind", ["exact", "roomy", "overflow"])
-@pytest.mark.parametrize("graph_kind", ["small", "hubs"])
-def test_sample_batch_scatter_matches_jax(small_graph, graph_kind, caps_kind):
-    """The position-map dedup: frontier (new ids in edge order), counts,
-    blocks, ``pos_map`` and ``stamp`` exactly the reference's over three
-    batches that reuse the carried state (the last one with no valid
-    seed, so both of its hops are empty), for loose, roomy and overflowing
-    caps."""
-    if graph_kind == "small":
-        indptr, indices = small_graph.indptr, small_graph.indices
-        fanouts = (5, 3)
-    else:
-        indptr, indices = hub_graph()
-        fanouts = (9, 4)
-    n = indptr.shape[0] - 1
-    rng = np.random.default_rng(1)
-    mid = {"exact": 72 * (1 + fanouts[0]), "roomy": 72 * (1 + fanouts[0]) + 96,
-           "overflow": 150}[caps_kind]
-    caps = (72, mid, mid * (1 + fanouts[-1]) + (40 if caps_kind == "roomy"
-                                                else 0))
-    if caps_kind == "overflow":
-        caps = (72, 150, 300)
-    jgraph = JaxDeviceGraph.from_host(indptr, indices)
-    tgraph = DeviceGraph.from_host(indptr, indices, "cpu")
-    jpm, jst = jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32)
-    tpm = torch.zeros(n, dtype=torch.int32)
-    tst = torch.zeros(n, dtype=torch.int32)
-    labels = np.arange(70, dtype=np.int32)
-    for step, n_valid in enumerate((64, 64, 0)):
-        # node 0 among the seeds of step 0, the slot dropped writes reuse
-        ids = np.r_[np.arange(5) if step == 0 else [],
-                    rng.permutation(np.arange(5, n))].astype(np.int32)
-        s = padded_seeds(ids, n_valid, 70)
-        key = jax.random.PRNGKey(step)
-        jb, jpm, jst = _jax_sample_batch_scatter(
-            key, jgraph, jnp.asarray(s), jnp.int32(n_valid),
-            jnp.asarray(labels), fanouts, caps, jpm, jst,
-            jnp.int32(step + 1))
-        tb, tpm, tst = sample_batch_scatter(
-            tgraph, torch.from_numpy(s),
-            torch.tensor(n_valid, dtype=torch.int32),
-            torch.from_numpy(labels), fanouts, caps, tpm, tst,
-            torch.tensor(step + 1, dtype=torch.int32),
-            uniforms=torch_uniforms(key, caps, fanouts))
-        _assert_batches_equal(jb, tb)
-        np.testing.assert_array_equal(tpm.numpy(), np.asarray(jpm))
-        np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
-        assert tpm.dtype == tst.dtype == torch.int32
-        if n_valid and caps_kind == "overflow":
-            assert int(jb.blocks[0].num_src) > caps[1]
-            assert int(jb.num_frontier) > caps[2]
-        if not n_valid:
-            assert int(tb.num_frontier) == 0 and (tb.frontier == -1).all()
-
-
-def test_grow_frontier_scatter_empty_hop_and_edge_order():
-    """One hop by hand: an all-invalid hop changes nothing, and new ids
-    come in edge order with repeats sharing the first one's position."""
-    n = 12
-    prev = np.array([7, 3, -1, -1], np.int32)
-    cases = [np.full((4, 3), -1, np.int32),
-             np.array([[9, 3, 9], [0, 11, -1], [-1] * 3, [-1] * 3], np.int32)]
-    for nbrs in cases:
-        jpm = jnp.zeros(n, jnp.int32).at[jnp.array([7, 3])].set(
-            jnp.arange(2, dtype=jnp.int32))
-        jst = jnp.zeros(n, jnp.int32).at[jnp.array([7, 3])].set(5)
-        tpm, tst = (torch.from_numpy(np.array(a)) for a in (jpm, jst))
-        want = jax_grow_frontier_scatter(
-            jnp.asarray(prev), jnp.int32(2), jnp.asarray(nbrs), 8, jpm, jst,
-            jnp.int32(5))
-        got = grow_frontier_scatter(
-            torch.from_numpy(prev), torch.tensor(2, dtype=torch.int32),
-            torch.from_numpy(nbrs), 8, tpm, tst,
-            torch.tensor(5, dtype=torch.int32))
-        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-        assert int(got[1]) == int(want[1])
-        np.testing.assert_array_equal(got[2].nbr_pos.numpy(),
-                                      np.asarray(want[2].nbr_pos))
-        np.testing.assert_array_equal(got[2].nbr_mask.numpy(),
-                                      np.asarray(want[2].nbr_mask))
-        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
-        np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
-        assert got[3] is tpm and got[4] is tst          # updated in place
-    assert got[0].tolist() == [7, 3, 9, 0, 11, -1, -1, -1]
-    assert got[2].nbr_pos.tolist()[:2] == [[2, 1, 2], [3, 4, 0]]
-
-
-def test_sample_batch_scatter_same_edges_as_the_sort_dedup(small_graph):
-    """Both dedups on the same neighbors (one hop: the second hop's rows
-    follow the frontier's order, which differs): the same frontier as a
-    set, and blocks that decode to the same (dst id, src id) edges."""
-    g = DeviceGraph.from_host(small_graph.indptr, small_graph.indices, "cpu")
-    b, fanouts = 64, (5,)
-    caps = frontier_caps(b, fanouts)
-    s = torch.from_numpy(small_graph.train_ids[:b].copy())
-    nb, lab = torch.tensor(b, dtype=torch.int32), torch.zeros_like(s)
-    u = torch_uniforms(jax.random.PRNGKey(4), caps, fanouts)
-    a = sample_batch(g, s, nb, lab, fanouts, caps, uniforms=u)
-    n = small_graph.num_nodes
-    c, _, _ = sample_batch_scatter(
-        g, s, nb, lab, fanouts, caps, torch.zeros(n, dtype=torch.int32),
-        torch.zeros(n, dtype=torch.int32), torch.tensor(1, dtype=torch.int32),
-        generator=None, uniforms=u)
-    assert int(a.num_frontier) == int(c.num_frontier)
-    assert (set(a.frontier[a.frontier >= 0].tolist())
-            == set(c.frontier[c.frontier >= 0].tolist()))
-
-    def edges(batch):
-        blk, fr = batch.blocks[0], batch.frontier
-        d, f = np.nonzero(blk.nbr_mask.numpy())
-        return sorted(zip(fr[d].tolist(),
-                          fr[blk.nbr_pos[d, f].long()].tolist()))
-    assert edges(a) == edges(c) and len(edges(a)) > b
+@pytest.mark.parametrize("name", sorted(hop_cases()))
+def test_grow_frontier_matches_jax_on_its_contract_cases(name):
+    """One hop of the sort dedup, whose tail runs as its plain version on
+    the CPU: frontier, count and block exactly the reference's on each
+    contract case of ``tests/test_torch_dedup_kernel.py`` (the card test
+    there holds the kernel to the plain version on the same inputs)."""
+    prev, num, nbrs, cap = hop_cases()[name]
+    want = _jax_grow_frontier(jnp.asarray(prev), jnp.int32(num),
+                              jnp.asarray(nbrs), cap)
+    got = grow_frontier(torch.from_numpy(prev),
+                        torch.tensor(num, dtype=torch.int32),
+                        torch.from_numpy(nbrs), cap)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[0].dtype == torch.int32 and got[0].shape == (cap,)
+    assert int(got[1]) == int(want[1]) and got[1].dtype == torch.int32
+    for field in ("nbr_pos", "nbr_mask", "num_src", "num_dst"):
+        np.testing.assert_array_equal(
+            getattr(got[2], field).numpy(), np.asarray(getattr(want[2],
+                                                               field)))
+    assert got[2].nbr_pos.dtype == torch.int32
+    if name.startswith("overflow"):
+        assert int(got[1]) >= cap and (got[0] >= 0).all()
+    if name in ("empty_hop", "all_padding"):
+        assert int(got[1]) == num and (got[2].nbr_pos == 0).all()
 
 
 def test_sample_batch_generator_invariants(small_graph):

@@ -53,7 +53,7 @@ from legion_tpu_torch.cache.pipeline import CachedTrainer
 from legion_tpu_torch.cache.topo_cache import TopoCache
 from legion_tpu_torch.data.synthetic import random_power_law_graph
 from legion_tpu_torch.models import build_model
-from legion_tpu_torch.ops import gather, identity_agg, sample, spmm
+from legion_tpu_torch.ops import dedup, gather, identity_agg, sample, spmm
 from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.sampling import sampler as port_sampler
 from legion_tpu_torch.sampling.block import SampledBatch, frontier_caps
@@ -523,6 +523,7 @@ def _counting(monkeypatch):
             return fn(*args, **kwargs)
         monkeypatch.setattr(module, name, shim)
     count(port_sampler, "sample_kernel", sample.sample_neighbors)
+    count(port_sampler, "dedup_tail", dedup.dedup_tail)
     count(topo_cache, "sample_neighbors", sample.sample_neighbors)
     count(feature_cache, "gather_rows", gather.gather_rows)
     count(sage, "gathered_masked_mean", identity_agg.gathered_masked_mean)
@@ -534,7 +535,7 @@ def test_replays_count_the_launches_of_the_steps(monkeypatch, path, n):
     the eager run, captured or not (a capture counts nothing, a replay
     what its capture recorded): sampling H a step plus one a pass on the
     hybrid, H a step on the cached path, K3 twice a step (the cached and
-    the staged rows)."""
+    the staged rows), the dedup's tail H a step on both."""
     _counting(monkeypatch)
     g = _graph()
     seeds, labels = _seeds(g)
@@ -556,7 +557,7 @@ def test_replays_count_the_launches_of_the_steps(monkeypatch, path, n):
     train, both = counts[True]
     names = [fn.__name__ for fn in graphed.COUNTED]
     at = {k: names.index(k) for k in ("sample_neighbors", "gather_rows",
-                                      "gathered_masked_mean")}
+                                      "gathered_masked_mean", "dedup_tail")}
     hops = len(tr.fanouts)
     extra = 0 if path == "cached" else 1      # the prologue's hop 0
     assert train[at["sample_neighbors"]] == hops * STEPS + extra
@@ -564,6 +565,9 @@ def test_replays_count_the_launches_of_the_steps(monkeypatch, path, n):
         + 2 * extra
     assert train[at["gather_rows"]] == 2 * STEPS
     assert both[at["gather_rows"]] == 2 * (STEPS + EVAL_STEPS)
+    # both paths dedup every hop, the prologue's hop 0 none
+    assert train[at["dedup_tail"]] == hops * STEPS
+    assert both[at["dedup_tail"]] == hops * (STEPS + EVAL_STEPS)
     assert train[at["gathered_masked_mean"]] > 0
 
 
