@@ -4,8 +4,9 @@ names ``BENCHMARK.json`` gives.
 
 * ``workloads/<cell>.json``: ``config``, ``traffic``, ``chips``, ``why``;
 * ``configs/<config>.json``: the graph's sizes (top-level numbers), the
-  model (``model``), the placement of features and topology, and the
-  driver that runs it (``driver``: a module of ``drivers/``);
+  model (``model``: its ``arch`` names a module of ``models/``), the
+  placement of features and topology, and the driver that runs it
+  (``driver``: a module of ``drivers/``);
 * ``traffic/<traffic>.json``: the mini-batches (batch, fanouts), the
   cache budget as a share of the feature table, and the driver's warm-up
   epochs before the window.
@@ -13,10 +14,11 @@ names ``BENCHMARK.json`` gives.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
-from typing import Dict
+from typing import Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -49,6 +51,19 @@ def row_bytes(cell: Dict) -> int:
     return cell["configuration"]["feature_dim"] * size
 
 
+# keys of a configuration's ``model`` that the harness reads itself: the
+# parameters' dtype, and the optimizer the reference follows
+HARNESS_MODEL_KEYS = ("param_dtype", "learning_rate", "adam_betas",
+                      "adam_eps")
+
+
+def model_keys() -> List[str]:
+    """The keys of a configuration's ``model`` that the port's
+    ``ModelConfig`` declares (imports the port)."""
+    from legion_tpu_torch.config import ModelConfig
+    return [f.name for f in dataclasses.fields(ModelConfig)]
+
+
 def port_config(cell: Dict, seed: int, epochs: int):
     """The port's ``Config`` for ``cell`` (imports the port)."""
     from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
@@ -56,6 +71,11 @@ def port_config(cell: Dict, seed: int, epochs: int):
                                          TrainConfig)
     conf, mix = cell["configuration"], cell["traffic_mix"]
     g, m = conf, conf["model"]
+    unknown = set(m) - set(model_keys()) - set(HARNESS_MODEL_KEYS)
+    if unknown:
+        raise ValueError(f"configuration {conf['name']!r}: model keys "
+                         f"{sorted(unknown)} are neither ModelConfig "
+                         "fields nor the harness's")
     share = mix.get("cache_share")
     cache = CacheConfig()
     if share is not None:
@@ -74,9 +94,7 @@ def port_config(cell: Dict, seed: int, epochs: int):
             fanouts=tuple(mix["fanouts"]), batch_size=mix["batch_size"],
             eval_batch_size=mix["batch_size"],
             dedup_last=conf["dedup_last"]),
-        model=ModelConfig(arch=m["arch"], hidden_dim=m["hidden_dim"],
-                          num_layers=m["num_layers"], dropout=m["dropout"],
-                          dtype=m["dtype"]),
+        model=ModelConfig(**{k: m[k] for k in model_keys() if k in m}),
         train=TrainConfig(learning_rate=m["learning_rate"], epochs=epochs,
                           seed=int(seed)),
         cache=cache)

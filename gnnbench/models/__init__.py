@@ -1,0 +1,42 @@
+"""What the harness knows of an architecture: one module per value of a
+configuration's ``model.arch``, found by that name (``module``). A new
+architecture is a new file here; nothing else in the harness changes.
+
+A module holds, in plain PyTorch and importing nothing of the port:
+
+* ``logits(weights, x, blocks, drop, keep, lowp)``: the float32 forward
+  the reference follows. ``weights`` maps the port's parameter names to
+  tensors; ``x`` is the rows the first layer takes, padded to
+  ``in_width(weights)`` columns; ``blocks`` come in sampling order, each
+  ``(nbr_pos, nbr_mask)`` as ``reference.py`` describes them; ``drop[i]``
+  holds the kept entries of layer ``i``'s output (None: no dropout
+  there), kept values scaled by ``1 / keep``; with ``lowp`` every
+  product's operands are rounded through ``reference.quantize``.
+* ``in_width(weights)``: the padded width of the rows the first layer
+  takes.
+* ``flops(sizes, model)``: the matrix-product operations of one train
+  step at ``sizes.realized``'s sizes and the configuration's ``model``,
+  or None where the module does not count them (``step_mfu`` is then
+  left out).
+
+The reference reads layer ``i``'s dropout mask from the input the
+program hands layer ``i + 1`` (``observe.py``): the port's model takes
+``forward(blocks, x, ...)``, holds its layers in ``model.layers``, and
+hands each layer the previous one's output after its dropout.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def module(arch: str):
+    """The module of architecture ``arch`` (``models/<arch>.py``)."""
+    path = os.path.join(HERE, f"{arch}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no benchmark module for arch {arch!r}: "
+                         f"{path} does not exist")
+    return importlib.import_module(f"gnnbench.models.{arch}")

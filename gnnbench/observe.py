@@ -8,7 +8,7 @@ changing what the device executes:
   ``cache/pipeline.py``): its train loss is wrapped to note the batch it
   is handed (the sampled blocks, the frontier, the seeds and labels);
 * forward pre-hooks on the model: the feature rows it is handed, and the
-  hidden rows its last layer is handed (after dropout);
+  hidden rows each layer after the first is handed (after dropout);
 * ``GraphedStep.__call__`` (``train/graphed.py``): after each call that
   trained, the device is synchronised and the step's tensors copied to
   the host, with the optimizer's first moments after the first step and
@@ -78,13 +78,14 @@ class Observer:
                                         else value)
 
     def watch_model(self, model: torch.nn.Module) -> None:
-        """Hooks on ``model``: the rows it is handed, and its last
-        layer's input."""
+        """Hooks on ``model``: the rows it is handed, and the input of
+        each layer ``i`` after the first (noted as ``h<i>``)."""
         self.model = model
         model.register_forward_pre_hook(
             lambda mod, args: self.note("x", args[1]))
-        model.layers[-1].register_forward_pre_hook(
-            lambda mod, args: self.note("h", args[1]))
+        for i, layer in enumerate(model.layers[1:], start=1):
+            layer.register_forward_pre_hook(
+                lambda mod, args, key=f"h{i}": self.note(key, args[1]))
 
     # -- the steps ----------------------------------------------------------
 
@@ -114,7 +115,8 @@ class Observer:
             "seeds": _host(b.seeds), "labels": _host(b.labels),
             "num_seeds": int(b.num_seeds), "frontier": _host(b.frontier),
             "num_frontier": int(b.num_frontier), "blocks": blocks,
-            "h": _host(refs.get("h")),
+            "h": [_host(refs.get(f"h{i}"))
+                  for i in range(len(self.model.layers))],
             "x": x if isinstance(x, torch.Tensor) and x.device.type == "cpu"
             else None})
         names = [k for k, _ in self.model.named_parameters()]

@@ -1,9 +1,10 @@
-"""The plain reference that decides ``correct``: GraphSAGE (mean
-aggregator), its masked cross-entropy, its gradients and Adam, in float32
-plain PyTorch, and a check of sampled blocks against the CSR they were
-drawn from. It imports nothing of the port: it reads the cell's inputs
-(the arrays ``graphgen`` made and handed to the program) and the
-program's outputs, which it judges.
+"""The plain reference that decides ``correct``: the configuration's
+model (its forward from ``models.module(arch)``), its masked
+cross-entropy, its gradients and Adam, in float32 plain PyTorch, and a
+check of sampled blocks against the CSR they were drawn from. It imports
+nothing of the port: it reads the cell's inputs (the arrays ``graphgen``
+made and handed to the program) and the program's outputs, which it
+judges.
 
 A step ``s`` the program ran is a dict of host tensors:
 
@@ -14,14 +15,15 @@ A step ``s`` the program ran is a dict of host tensors:
   num_dst, identity_offset)``; the dst rows of hop k are rows
   ``[0, nbr_pos.shape[0])`` of the frontier, its src rows are
   ``frontier[nbr_pos]``;
-* ``h``: the hidden rows that reached the last layer, after dropout
-  (their zeros give the dropout mask the program drew);
+* ``h``: by layer, the hidden rows that reached layer ``i``, after
+  dropout (their zeros give the dropout mask the program drew on layer
+  ``i - 1``'s output), None where nothing was noted (always layer 0);
 * ``x``: the feature rows the program delivered to the model, where the
   step was observed outside a graph replay (else None).
 
 Sampling and dropout are random, so the reference follows the program's
 draws: it checks each drawn block against the CSR (``sampler_faults``)
-and takes the dropout mask from ``h``, then computes everything else
+and takes the dropout masks from ``h``, then computes everything else
 from the inputs and its own weights.
 """
 
@@ -33,6 +35,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gnnbench import models
 
 # the float8 format the control rounds every matrix operand to
 FP8 = torch.float8_e4m3fn
@@ -146,34 +150,6 @@ def quantize(t: torch.Tensor) -> torch.Tensor:
     return t + (q - t.detach())
 
 
-def sage_logits(weights: Dict[str, torch.Tensor], x: torch.Tensor,
-                blocks: Sequence, drop: Sequence[Optional[torch.Tensor]],
-                keep: float, lowp: bool = False) -> torch.Tensor:
-    """Per layer ``h' = W_self h_dst + b + W_neigh mean(h_src[nbr])``, ReLU
-    and dropout (``drop[i]``: the kept entries of layer i's output) between
-    layers. ``blocks`` in sampling order; the model takes them outermost
-    first. ``lowp`` rounds every product's operands to float8."""
-    q = quantize if lowp else (lambda t: t)
-    h = x
-    n = len(blocks)
-    for i in range(n):
-        pos, mask = blocks[n - 1 - i][0], blocks[n - 1 - i][1]
-        p = pos.shape[0]
-        m = mask.to(h.dtype)
-        rows = h[pos.reshape(-1)].reshape(pos.shape[0], pos.shape[1], -1)
-        agg = (rows * m[..., None]).sum(1) / m.sum(1, keepdim=True).clamp(
-            min=1.0)
-        ws, bs, wn = (weights[f"layers.{i}.fc_self.weight"],
-                      weights[f"layers.{i}.fc_self.bias"],
-                      weights[f"layers.{i}.fc_neigh.weight"])
-        h = (q(h[:p]) @ q(ws).T + bs) + q(agg) @ q(wn).T
-        if i != n - 1:
-            h = F.relu(h)
-            if drop[i] is not None:
-                h = torch.where(drop[i], h / keep, torch.zeros_like(h))
-    return h
-
-
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
               num: int) -> torch.Tensor:
     """Mean cross-entropy over the first ``num`` rows."""
@@ -207,11 +183,12 @@ class Adam:
 
 def drop_masks(step: Dict, layers: int, device) -> List[Optional[torch.Tensor]]:
     """Layer i's kept entries, read from the hidden rows the program fed
-    the next layer (a kept entry of a positive ReLU output is nonzero; a
+    layer i + 1 (a kept entry of a positive ReLU output is nonzero; a
     zero one contributes nothing either way)."""
     masks: List[Optional[torch.Tensor]] = [None] * layers
-    if layers >= 2 and step.get("h") is not None:
-        masks[layers - 2] = step["h"].to(device) != 0
+    for i, h in enumerate(step["h"][1:layers], start=1):
+        if h is not None:
+            masks[i - 1] = h.to(device) != 0
     return masks
 
 
@@ -222,6 +199,7 @@ def follow(steps: Sequence[Dict], weights0: Dict[str, torch.Tensor],
     gradient, and the parameters after the last. ``lowp``: every product
     in float8 (the control). ``keep_half``: the loss over the first half
     of each batch's seeds only (a planted fault)."""
+    arch = models.module(model["arch"])
     dev = features.device
     params = {k: v.to(dev, torch.float32).clone() for k, v in weights0.items()}
     opt = Adam(params, model["learning_rate"], tuple(model["adam_betas"]),
@@ -231,13 +209,13 @@ def follow(steps: Sequence[Dict], weights0: Dict[str, torch.Tensor],
     losses, first_grad = [], None
     for step in steps:
         fr = step["frontier"].to(dev).long()
-        pad = params["layers.0.fc_self.weight"].shape[1]
+        pad = arch.in_width(params)
         x = torch.zeros((fr.shape[0], pad), dtype=torch.float32, device=dev)
         live = fr >= 0
         x[live, :d] = features[fr[live]]
         blocks = [(b[0].to(dev).long(), b[1].to(dev)) for b in step["blocks"]]
         leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-        logits = sage_logits(leaves, x, blocks,
+        logits = arch.logits(leaves, x, blocks,
                              drop_masks(step, len(blocks), dev), keep, lowp)
         num = int(step["num_seeds"])
         loss = masked_ce(logits, step["labels"].to(dev),

@@ -15,7 +15,8 @@ from gnnbench.tests.conftest import SEED, tiny_cell
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sage-products.b8000",
-                                  "sage-papers100m.cache15"])
+                                  "sage-papers100m.cache15",
+                                  "sage-products.b8000.3layers"])
 def test_tiny_cell_on_the_card(card, name):
     c = tiny_cell(name)
     res = run.run_cell(c, SEED, 0.5, False, card, [], c["limits"],

@@ -15,7 +15,8 @@ import torch
 from gnnbench import run
 from gnnbench.tests.conftest import SEED, tiny_cell
 
-CELLS = ["sage-products.b8000", "sage-papers100m.cache15"]
+CELLS = ["sage-products.b8000", "sage-papers100m.cache15",
+         "sage-products.b8000.3layers"]
 
 
 def _run(name):

@@ -90,7 +90,8 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 @pytest.mark.parametrize("name", ["sage-products.b8000",
                                   "sage-papers100m.cache15",
-                                  "sage-papers100m.cache100"])
+                                  "sage-papers100m.cache100",
+                                  "sage-products.b8000.3layers"])
 def test_tiny_cell_runs_correct_on_the_cpu(name):
     c = tiny_cell(name)
     names = [m["name"] for m in cells.benchmark()["end_to_end"]]
