@@ -51,7 +51,18 @@ exits non-zero:
    per train and eval step, K2 forward once per step and backward once
    per train step, K5 never; float32: K5 once per train and eval step,
    K1 never), held again in a ``torch.profiler`` trace of 5 replays of
-   the captured step (each kernel by name);
+   the captured step (each kernel by name). Then GAT (``"gat"``: PyG's
+   ogbn-products example, 3 layers of 4 heads of 128, fanout [10,10,10],
+   every hop deduplicated, bf16): its edge-softmax kernels against their
+   plain version at layer 0's and layer 2's shapes on one batch (output
+   and dz within 1 bf16 ulp, the score gradients element by element
+   within 1 bf16 ulp plus 1e-4 of the magnitude of the terms each sums,
+   a check that must refuse da_src with its ordinary rows zeroed; times,
+   plain time and byte bound), one epoch and a validation
+   pass (finite losses, no cap overflow, scored slots counted), and the
+   launches a step, counted and traced: the attention's forward and
+   backward 3 times each, the sampling kernel and the dedup's tail 3
+   times, K3 once;
 5. learning: the reference's verify recipe (50k-node planted-label
    graph, 2 epochs) must reach validation accuracy > 0.15 (7x chance),
    one batch's logits from the kernels must match the plain versions on
@@ -864,7 +875,10 @@ TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
                "gather_rows": "gather_rows_kernel",
                "sample_neighbors": "sample_neighbors_kernel",
                "grouped_masked_sum": "grouped_masked_sum_kernel",
-               "dedup_tail": "dedup_tail_kernel"}
+               "dedup_tail": "dedup_tail_kernel",
+               "edge_softmax_aggregate": "edge_softmax_fwd_kernel",
+               # one src-row pass a backward call
+               "edge_softmax_aggregate_backward": "edge_softmax_src_kernel"}
 
 
 def traced_launches(kernels, fn):
@@ -1795,6 +1809,246 @@ def gcn_path(kernels, data, dtype):
     return launches
 
 
+def gat_kernels():
+    """name -> (wrapper, TPU kernel it replaces) of GAT's attention: none,
+    ``legion_tpu`` has no GAT."""
+    from legion_tpu_torch.ops.gat_attention import (
+        edge_softmax_aggregate, edge_softmax_aggregate_backward)
+    return {"edge_softmax_aggregate": (edge_softmax_aggregate, None),
+            "edge_softmax_aggregate_backward": (
+                edge_softmax_aggregate_backward, None)}
+
+
+def score_grad_scale(z, a_src, a_dst, pos, mask, num_dst, g,
+                     chunk=1 << 15):
+    """(mag_src (S, H), mag_dst (D, H), named (S,)) in float32: the summed
+    magnitudes of the terms each score gradient adds up, and the slots
+    that name each src row. Slot s of dst row d adds leaky'(raw) * alpha_s
+    * (g[d] . z[j_s] - sum_t alpha_t g[d] . z[j_t]) to da_src[j_s] and to
+    da_dst[d]; its magnitude takes |g[d]| . |z[j]| for each dot. Two float32
+    sums of those terms in different orders differ by float32 ulps of
+    that magnitude, not of the (cancelling) sum. Chunks of dst rows keep the (rows, F + 1, H, C)
+    gathers small."""
+    import torch
+    import torch.nn.functional as F
+
+    from legion_tpu_torch.ops import gat_attention as ga
+    s, h, _ = z.shape
+    dn = pos.shape[0]
+    dev = z.device
+    ok = ga.scored(pos, mask, s, num_dst)                     # (D, F+1)
+    za, asrc, adst = z.float().abs(), a_src.float(), a_dst.float()
+    mag_src = torch.zeros((s, h), dtype=torch.float32, device=dev)
+    mag_dst = torch.zeros((dn, h), dtype=torch.float32, device=dev)
+    named = torch.zeros((s,), dtype=torch.float32, device=dev)
+    for d0 in range(0, dn, chunk):
+        d1 = min(dn, d0 + chunk)
+        rows = torch.arange(d0, d1, device=dev)[:, None]
+        p = torch.cat([pos[d0:d1].clamp(0, s - 1), rows], 1).long()
+        live = ok[d0:d1]
+        raw = asrc[p] + adst[d0:d1, None, :]                  # (c, F+1, H)
+        e = F.leaky_relu(raw, ga.NEGATIVE_SLOPE).masked_fill(
+            ~live[..., None], float("-inf"))
+        alpha = torch.softmax(e, 1).nan_to_num(0.0)
+        gz = (g[d0:d1].float().abs()[:, None] * za[p]).sum(-1)
+        slope = torch.where(raw > 0, 1.0, ga.NEGATIVE_SLOPE)
+        term = slope * alpha * (gz + (alpha * gz).sum(1, keepdim=True))
+        term = term * live[..., None]
+        mag_dst[d0:d1] = term.sum(1)
+        mag_src.index_add_(0, p.reshape(-1), term.reshape(-1, h))
+        named.index_add_(0, p.reshape(-1), live.reshape(-1).float())
+    return mag_src, mag_dst, named
+
+
+def within_score_grad(k, p, mag, rel=1e-4):
+    """(ok, worst): element by element within 1 bf16 ulp relative (8e-3,
+    as ``within_bf16``) plus ``rel`` of the element's summed term
+    magnitudes (``mag``), the room two float32 sums of the same terms in
+    other orders need; worst is the largest |err| over its room. No
+    absolute floor: an element no slot reaches reads 0 on both sides."""
+    import torch
+    err = (k.float() - p.float()).abs()
+    room = 8e-3 * p.float().abs() + rel * mag
+    worst = (err / room.clamp(min=torch.finfo(torch.float32).tiny)).max()
+    return bool((err <= room).all()), float(worst)
+
+
+def check_gat_attention(z, a, dn, blk, heads, fanout, g):
+    """The edge-softmax kernels against their plain version on one layer's
+    inputs: z (S, H, C), the scores a (S, 2H), the block and an upstream
+    gradient g (D, H, C). The output and dz within 1 bf16 ulp relative
+    (8e-3) plus 1e-3 (both round one f32 sum); the score gradients element
+    by element within 1 bf16 ulp of their value plus 1e-4 of the magnitude
+    of the terms each sums (``score_grad_scale``: a hub's da_src sums
+    thousands of terms that cancel, an ordinary row's a few, so one bound
+    for all would be loose on the ordinary rows). That check must refuse
+    the kernel's da_src with the rows that 1 or 2 slots name zeroed. Times
+    of the forward and of the backward (CUDA events), the plain forward's,
+    and their byte bound at this block's live sizes."""
+    import torch
+
+    from legion_tpu_torch.ops import gat_attention as ga
+    h = heads
+    s, _, c = z.shape
+    pos, mask, nd = blk.nbr_pos, blk.nbr_mask, blk.num_dst
+    got, want = [], []
+    for fn, out in ((ga.edge_softmax_aggregate, got),
+                    (ga.edge_softmax_aggregate_plain, want)):
+        zz, aa = (t.detach().clone().requires_grad_(True) for t in (z, a))
+        with torch.enable_grad():
+            o = fn(zz, aa[:, :h], aa[:dn, h:], pos, mask, nd)
+            o.backward(g)
+        torch.cuda.synchronize()
+        out += [o.detach(), zz.grad, aa.grad[:, :h], aa.grad[:dn, h:]]
+        del zz, aa, o
+    errs = [float((k.float() - p.float()).abs().max())
+            for k, p in zip(got, want)]
+    what = f"GAT attention at {[s, dn, fanout, h, c]}"
+    require(within_bf16(got[0], want[0]), f"{what}: forward within 1 ulp")
+    require(within_bf16(got[1], want[1]), f"{what}: dz within 1 ulp")
+    mag_src, mag_dst, named = score_grad_scale(
+        z.detach(), a.detach()[:, :h], a.detach()[:dn, h:], pos, mask, nd, g)
+    worst = {}
+    for i, name, mag in ((2, "da_src", mag_src), (3, "da_dst", mag_dst)):
+        ok, worst[name] = within_score_grad(got[i], want[i], mag)
+        require(ok, f"{what}: {name} element by element within 1 ulp + "
+                f"1e-4 of its terms' magnitude, worst at {worst[name]} of "
+                f"its room")
+    few = (named >= 1) & (named <= 2)
+    fault = got[2].clone()
+    fault[few] = 0
+    require(bool(few.any()) and not within_score_grad(fault, want[2],
+                                                      mag_src)[0],
+            f"{what}: the da_src check refuses the rows 1 or 2 slots name "
+            f"zeroed")
+    top = float(want[2].float().abs().max())
+    src_abs = want[2].float().abs()[named > 0]
+    zd, ad = z.detach(), a.detach()
+    out, stats = ga._forward_cuda(zd, ad[:, :h], ad[:dn, h:], pos, mask, nd)
+    live = int(nd)
+    traffic = ga.edge_softmax_traffic(int(blk.num_src), live, fanout, h, c,
+                                      z.element_size())
+    rec = {"shape": [s, dn, fanout, h, c], "live_dst": live,
+           "scored_slots": int(ga.scored_slots(pos, mask, s, nd)),
+           "max_abs_err": errs[0],
+           "max_abs_err_grads": dict(zip(("dz", "da_src", "da_dst"),
+                                         errs[1:])),
+           # the score gradients' worst |err| over its room (<= 1 passes),
+           # da_src's scale, and whether the former rule (2 % of the
+           # largest |da_src|) would have passed the zeroed rows
+           "score_grads_worst_share_of_room": worst,
+           "da_src_abs": {"max": top,
+                          "median": float(src_abs.median()),
+                          "median_few": float(want[2].float().abs()[
+                              few].median())},
+           "rows_named_by_1_or_2": int(few.sum()),
+           "max_named": int(named.max()),
+           "former_rule_passes_fault": bool(
+               float((fault.float() - want[2].float()).abs().max())
+               <= 2e-2 * top + 1e-3),
+           "ms": time_ms(lambda: ga._forward_cuda(
+               zd, ad[:, :h], ad[:dn, h:], pos, mask, nd), reps=5),
+           "plain_ms": time_ms(lambda: ga.edge_softmax_aggregate_plain(
+               zd, ad[:, :h], ad[:dn, h:], pos, mask, nd), reps=2,
+               trials=3),
+           "backward_ms": time_ms(lambda: ga.edge_softmax_aggregate_backward(
+               g, zd, ad[:, :h], ad[:dn, h:], pos, mask, nd, stats), reps=5),
+           **bound(traffic["forward"], 0),
+           "backward_bound_ms": bound(traffic["backward"], 0)["bound_ms"],
+           "library_ms": None}
+    return rec
+
+
+def gat_path(kernels, data):
+    """GAT (PyG's ogbn-products example: 3 layers, 4 heads of 128, fanout
+    [10, 10, 10], every hop deduplicated, bf16) on the main path's graph
+    through the Trainer at batch 8000: the edge-softmax kernels against
+    their plain version at layer 0's and layer 2's shapes on one sampled
+    batch; one epoch (finite losses, no cap overflow, the ``attn_slots``
+    counter) and a validation pass; and the launches of 5 replays of the
+    captured step, each kernel counted by name in a ``torch.profiler``
+    trace: the sampling kernel and the dedup's tail 3 times a step, K3
+    once, the attention's forward 3 times and its backward 3 times (one
+    ``edge_softmax_src_kernel`` each), K1, K2 and K5 never."""
+    import torch
+
+    from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
+                                         SamplerConfig, TrainConfig)
+    from legion_tpu_torch.sampling.sampler import (gather_features,
+                                                   sample_batch)
+    from legion_tpu_torch.train.loop import Trainer
+    dev = torch.device("cuda")
+    fanouts, heads = (10, 10, 10), 4
+    cfg = Config(
+        dataset=DatasetConfig(num_classes=CLASSES),
+        sampler=SamplerConfig(fanouts=fanouts, batch_size=8000,
+                              dedup_last=True),
+        model=ModelConfig(arch="gat", hidden_dim=128, num_layers=3,
+                          dropout=0.5, dtype="bfloat16", num_heads=heads),
+        train=TrainConfig(learning_rate=0.001))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b = cfg.sampler.batch_size
+    seed_ids = data.train_ids[:b].copy()
+    batch = sample_batch(
+        tr.graph, torch.from_numpy(seed_ids).to(dev),
+        torch.tensor(b, dtype=torch.int32, device=dev),
+        torch.from_numpy(data.labels[seed_ids]).to(dev), fanouts, tr.caps,
+        dedup_last=True, generator=torch.Generator(device=dev).manual_seed(0))
+    blocks = tuple(reversed(batch.blocks))          # model order
+    gen = torch.Generator(device=dev).manual_seed(3)
+    checks = {}
+    with torch.no_grad():
+        h = gather_features(tr.features, batch.frontier)
+        for i, (layer, blk) in enumerate(zip(tr.model.layers, blocks)):
+            if i in (0, 2):
+                _, z, a = layer.project(h)
+                g = torch.randn((blk.dst_cap,) + z.shape[1:], generator=gen,
+                                device=dev).to(z.dtype)
+                checks[f"layer{i}"] = check_gat_attention(
+                    z, a, blk.dst_cap, blk, heads, fanouts[2 - i], g)
+                del z, a, g
+            h = layer(blk, h)
+            if i < 2:
+                h = torch.nn.functional.elu(h)
+    del h
+    torch.cuda.synchronize()
+    all_kernels = {**kernels, **gat_kernels()}
+    reset_launches(all_kernels)
+    rec = tr.train_one_epoch(0)
+    train_launches = read_launches(all_kernels)
+    valid_acc = tr.evaluate("valid")
+    require(all(math.isfinite(v) for v in rec["losses"]), "finite GAT losses")
+    require(rec["cap_overflow"] == 0, "no cap overflow in GAT")
+    require(rec["counts"].get("attn_slots", 0) > 0,
+            "GAT's epoch counts its scored slots")
+    per_step = {k: 0 for k in all_kernels}
+    per_step.update(sample_neighbors=3, dedup_tail=3, gather_rows=1,
+                    edge_softmax_aggregate=3,
+                    edge_softmax_aggregate_backward=3)
+    t = rec["steps"]
+    require(train_launches == {k: t * n for k, n in per_step.items()},
+            f"GAT launched {train_launches} in {t} train steps, want "
+            f"{per_step} a step")
+    traced = replays_traced(all_kernels, trainer_scan(tr, 5), 5, per_step,
+                            "GAT")
+    line = {"phase": "gat", "trainer_init_s": init_s, "caps": list(tr.caps),
+            "steps": t, "losses": rec["losses"],
+            "cap_overflow": rec["cap_overflow"],
+            "attn_slots_per_step": rec["counts"]["attn_slots"] / t,
+            "ms_per_step": 1e3 * rec["epoch_s"] / t,
+            "edges_per_s": rec["edges_per_s"], "valid_acc": valid_acc,
+            "launches_per_step": per_step, "replays_traced": traced,
+            "kernel_checks": checks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    del tr
+    torch.cuda.empty_cache()
+    return line
+
+
 def gcn_learns(data):
     """GCN (float32, hidden 256) on the planted-label graph for 2 epochs:
     the loss must fall. Accuracy is not judged: GraphConv has no
@@ -1953,6 +2207,7 @@ def mesh_dp(kernels, results, data, smi):
                                          TrainConfig)
     from legion_tpu_torch.parallel import mesh
     from legion_tpu_torch.parallel.trainer import MeshTrainer
+    from legion_tpu_torch.train import graphed as graphed_mod
     from legion_tpu_torch.train.loop import Trainer
     from legion_tpu_torch.utils import comm
     cfg = Config(
@@ -2023,7 +2278,8 @@ def mesh_dp(kernels, results, data, smi):
             f"one all-reduce of {pb} parameter bytes in a step, got "
             f"{step_calls} / {step_counts}")
     require(epoch_calls == {"all_reduce": t + 1}
-            and epoch_counts["all_reduce"] == t * pb + t * 4 * 8,
+            and epoch_counts["all_reduce"]
+            == t * pb + t * len(graphed_mod.METRICS) * 8,
             f"an epoch of {t} steps: one parameter-sized all-reduce a step "
             f"and one of the metrics, got {epoch_calls} / {epoch_counts}")
     want_train = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
@@ -3638,7 +3894,8 @@ def mesh_partitioned_k2(smi):
                       "identity_masked_mean": 0, "gathered_masked_mean": t,
                       "gathered_masked_mean_backward": t,
                       "gather_rows": k3 * t, "grouped_masked_sum": 0,
-                      "dedup_tail": 2 * t}
+                      "dedup_tail": 2 * t, "edge_softmax_aggregate": 0,
+                      "edge_softmax_aggregate_backward": 0}
             want_e = dict(want_t, sample_neighbors=per_hop * e,
                           gathered_masked_mean=e,
                           gathered_masked_mean_backward=0,
@@ -4158,6 +4415,11 @@ def main():
         announce(f"gcn_{dtype}")
         by_path[f"gcn_{dtype}"] = gcn_path(kernels, data, dtype)
         torch.cuda.empty_cache()
+    # GAT (PyG's products example) on the same graph: its attention
+    # kernels at layers 0 and 2, an epoch, and its launches a step
+    announce("gat")
+    gat_path(kernels, data)
+    torch.cuda.empty_cache()
     # MeshTrainer at world size 1 through NCCL on the same graph, then on
     # the table striped over its one-rank cache group
     announce("mesh_dp")

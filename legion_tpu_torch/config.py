@@ -3,9 +3,12 @@
 The reference's dataclass tree with its names, defaults and field order,
 so that a JSON file written by either package loads in the other.
 ``legion_tpu.config`` is not imported: the port and its smoke script load
-nothing of the JAX package. ``TrainConfig.scan_unroll`` is not a field
-(it tunes ``lax.scan``; the port's epoch is a Python loop) and is one of
-the removed keys ``Config.from_json`` tolerates.
+nothing of the JAX package. ``ModelConfig.num_heads`` (GAT's heads) is the
+port's own field: ``to_json`` writes it only where it is not 1, so every
+config the reference can express round-trips through both.
+``TrainConfig.scan_unroll`` is not a field (it tunes ``lax.scan``; the
+port's epoch is a Python loop) and is one of the removed keys
+``Config.from_json`` tolerates.
 
 Which path reads each field:
 
@@ -107,12 +110,15 @@ class SamplerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    arch: str = "sage"                  # sage | gcn | lp_sage
-    hidden_dim: int = 256
+    arch: str = "sage"                  # sage | gcn | lp_sage | gat
+    hidden_dim: int = 256               # gat: the width of one head
     num_layers: int = 2
     dropout: float = 0.5
     # Compute dtype for dense layers; params stay float32.
     dtype: str = "float32"
+    # gat's attention heads (the other archs have none: 1). Not a field of
+    # the reference's ModelConfig: to_json leaves it out while it is 1.
+    num_heads: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +188,11 @@ class Config:
         default_factory=ParallelConfig)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        if d["model"]["num_heads"] == 1:
+            # the reference's JSON, which has no head count
+            del d["model"]["num_heads"]
+        return json.dumps(d, indent=2)
 
     # keys of older config versions, and the reference's scan_unroll: the
     # only unknown keys from_json tolerates; anything else (a typo such as

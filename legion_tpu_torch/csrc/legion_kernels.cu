@@ -1,13 +1,15 @@
 // Hand-written Hopper (sm_90a) kernels of legion_tpu_torch.
 //
-// Each kernel but the dedup's replaces a Pallas TPU kernel of legion_tpu/ops/
-// and computes what that kernel computes, redesigned for the H100 rather
-// than copied block by block; the dedup's tail (dedup_tail_kernel, last
-// below) replaces a chain of PyTorch passes. All are scans, gathers,
-// reductions or scatters with no matrix product: at the main-path shapes
-// they do < 1 FLOP per byte moved, far below the ~295 FLOP/byte at which
-// the H100's bf16 tensor cores would bound them, so no kernel here is bound
-// by operations. The designs follow from what does bound them:
+// Each kernel but the dedup's and GAT's replaces a Pallas TPU kernel of
+// legion_tpu/ops/ and computes what that kernel computes, redesigned for
+// the H100 rather than copied block by block; the dedup's tail
+// (dedup_tail_kernel) replaces a chain of PyTorch passes, and GAT's
+// edge-softmax kernels (last below) replace none: legion_tpu has no GAT.
+// All are scans, gathers, reductions or scatters with no matrix product: at
+// the main-path shapes they do < 1 FLOP per byte moved, far below the ~295
+// FLOP/byte at which the H100's bf16 tensor cores would bound them, so no
+// kernel here is bound by operations. The designs follow from what does
+// bound them:
 //
 //  * K1, K3 and K5 stream hundreds of megabytes from device memory, and
 //    bytes bound them: one thread per 16-byte word of an output row, each
@@ -28,6 +30,12 @@
 //    index loads in flight together.
 //  * The dedup's tail streams the sorted ids once; a decoupled look-back
 //    carries its one count across tiles, so it takes one launch.
+//  * GAT's edge-softmax aggregation (last below) gathers each slot's row
+//    segment as K2 does, with one warp per (dst row, head) so that a
+//    head's softmax is a warp's reductions; its backward turns the slots
+//    around by position and gathers again, one warp per src row, since
+//    float atomics into rows far larger than the L2 cost a device-memory
+//    round trip each.
 //
 // Built by legion_tpu_torch/ops/_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -36,8 +44,8 @@
 // stream, launch without synchronising, allocate nothing, and return
 // cudaGetLastError(). Wrappers and plain PyTorch versions of each kernel:
 // legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py,
-// legion_tpu_torch/ops/sample.py, legion_tpu_torch/ops/spmm.py and
-// legion_tpu_torch/ops/dedup.py.
+// legion_tpu_torch/ops/sample.py, legion_tpu_torch/ops/spmm.py,
+// legion_tpu_torch/ops/dedup.py and legion_tpu_torch/ops/gat_attention.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1347,6 +1355,799 @@ int legion_dedup_tail(const void* s, const void* sorig,
       static_cast<const int32_t*>(num_prev),
       static_cast<int32_t*>(frontier_new), static_cast<int32_t*>(num_new),
       static_cast<int32_t*>(nbr_pos), words, total, prev_cap, cap_new, tiles);
+  return cudaGetLastError();
+}
+
+}  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// GAT's edge-softmax aggregation (legion_tpu_torch/ops/gat_attention.py):
+// for each dst row d < *num_dst and head h, over the valid sampled slots of
+// row d whose position is not d, plus one self slot at position d,
+//
+//   e     = leaky_relu(a_src[j, h] + a_dst[d, h], 0.2)
+//   alpha = softmax over the row's scored slots of e
+//   out[d, h, :] = sum alpha * z[j, h, :]
+//
+// Replaces no TPU kernel: legion_tpu has no GAT. PyTorch would compute it
+// as a gather of every slot's z row into a (D, F + 1, H, C) tensor (9.4 GB
+// in float32 at the products cell's layer 0) and several passes over it.
+//
+// Bound: bytes. A score is 2 flops a slot and the weighted sum 2 a
+// column, against 2 bytes (bf16) read a column: under 1 flop a byte. At
+// layer 0 of the products cell the rows are 1,024 bytes (4 heads of 128
+// bf16) and each src row is named by about three slots, so the least
+// bytes are the 1.4M src rows read once; a gather reads each slot's row
+// segment (256 B a head) once, from the L2 where a neighbour row was read
+// recently, else from device memory.
+//
+// Forward (edge_softmax_fwd_kernel): one warp per (dst row, head), so a
+// head's softmax is one warp's reductions and no block-level
+// synchronisation is needed. Lane j scores slot j (a_src and a_dst are
+// precomputed (S, H) and (D, H) score matrices, the products of z with the
+// attention vectors, so scoring reads no z row); an online max-and-sum
+// per lane and two butterfly reductions give the row's softmax, whose
+// (max, 1 / sum) the kernel keeps for the backward (8 bytes a row and
+// head). Then the lanes walk the scored slots (ballot, then shuffles of
+// each slot's row and weight), four at a time so that four VEC-wide loads
+// of the slot rows' head segments are in flight, and sum in f32
+// registers; VEC = 4 where the head width allows 32 lanes of 4. The
+// output row is written once, in z's type. Rows at or past *num_dst (read
+// on the device, so a captured step needs no host value) are zero.
+//
+// Backward: d out -> dz, da_src, da_dst. dz[j] = sum over the slots that
+// name j of alpha * g[d] is a sum over a src row's slots, so the backward
+// turns the slots around (a counting sort by position: count, then
+// PyTorch's cumsum of the counts, then place, with int atomics on arrays
+// that stay in the L2; then each placed slot's weights for every head) and
+// runs one warp per src row (edge_softmax_src_kernel): it holds z[j] in
+// registers, reads each naming dst row's gradient once, sums alpha * g in
+// f32 registers and writes dz[j] once in z's type, and in the same pass
+// takes each slot's dot g[d] . z[j] per head, the gradient of its weight.
+// No f32 staging of dz and no float atomics into rows far larger than the
+// L2: on an H100 at the products cell's layer-0 shapes a scatter with
+// 16-byte f32 atomics took 13.2 ms against the forward's 2.2, this pass
+// 5.5 (one warp a (row, head): 6.3; a (row, 256-column pass): 9.7). Then
+// one warp per (dst row, head) (edge_softmax_dst_kernel) runs the
+// softmax's and the leaky ReLU's backward over the row's slots: da_dst is
+// one value a (row, head), written once; da_src gets one f32 atomic a
+// slot into an (S, H) staging array that fits the L2, cast to z's type
+// by edge_softmax_cast_kernel. edge_softmax_zero_kernel zeroes the
+// counts, the ranks and that array in one pass.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr float kGatSlope = 0.2f;
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+__device__ __forceinline__ float warp_max_f(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum_f(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// Slot s of dst row d: the sampled slot s < f (scored if valid, not d and
+// inside the n rows), or the self slot s == f (scored).
+struct GatSlot {
+  int64_t row;
+  bool ok;
+};
+
+__device__ __forceinline__ GatSlot gat_slot(const int32_t* __restrict__ pos,
+                                            const uint8_t* __restrict__ mask,
+                                            int64_t d, int f, int s,
+                                            int64_t n) {
+  if (s == f) return {d, true};
+  if (s > f) return {0, false};
+  const int64_t p = pos[d * f + s];
+  return {p, mask[d * f + s] != 0 && p != d && p >= 0 && p < n};
+}
+
+__device__ __forceinline__ float leaky(float x) {
+  return x > 0.0f ? x : kGatSlope * x;
+}
+
+// The weight of a slot whose raw score is x, under its row's softmax.
+__device__ __forceinline__ float gat_weight(float x, float2 sm) {
+  return expf(leaky(x) - sm.x) * sm.y;
+}
+
+// The softmax of row d, head h: (max, 1 / sum) over its scored slots.
+template <typename T>
+__device__ __forceinline__ float2 gat_softmax(
+    const T* __restrict__ a_src, int64_t lds, const int32_t* __restrict__ pos,
+    const uint8_t* __restrict__ mask, int64_t d, int f, int h, int64_t n,
+    float adst, int lane) {
+  float m = neg_inf(), sum = 0.0f;
+  for (int s0 = 0; s0 <= f; s0 += kWarp) {
+    const GatSlot sl = gat_slot(pos, mask, d, f, s0 + lane, n);
+    if (sl.ok) {
+      const float e = leaky(to_f32(a_src[sl.row * lds + h]) + adst);
+      if (e > m) {
+        sum = sum * expf(m - e) + 1.0f;
+        m = e;
+      } else {
+        sum += expf(e - m);
+      }
+    }
+  }
+  const float top = warp_max_f(m);
+  const float total = warp_sum_f(m == neg_inf() ? 0.0f : sum * expf(m - top));
+  return make_float2(top, 1.0f / total);
+}
+
+// out: (p, heads, c); stats: (p, heads) (max, 1 / sum), for the backward.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_fwd_kernel(const T* __restrict__ z, const T* __restrict__ a_src,
+                        int64_t lds, const T* __restrict__ a_dst, int64_t ldd,
+                        const int32_t* __restrict__ pos,
+                        const uint8_t* __restrict__ mask,
+                        const int32_t* __restrict__ num_dst,
+                        T* __restrict__ out, float2* __restrict__ stats,
+                        int64_t n, int64_t p, int f, int heads, int c) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                       threadIdx.x / kWarp;
+  if (item >= p * heads) return;
+  const int64_t d = item / heads;
+  const int h = static_cast<int>(item - d * heads);
+  T* o = out + item * c;
+  if (d >= *num_dst) {
+    for (int cc = lane; cc < c; cc += kWarp) o[cc] = from_f32<T>(0.0f);
+    if (lane == 0) stats[item] = make_float2(0.0f, 0.0f);
+    return;
+  }
+  const float adst = to_f32(a_dst[d * ldd + h]);
+  const float2 sm = gat_softmax(a_src, lds, pos, mask, d, f, h, n, adst, lane);
+  if (lane == 0) stats[item] = sm;
+  for (int c0 = 0; c0 < c; c0 += kWarp * VEC) {
+    const int cc = c0 + lane * VEC;
+    const bool col = cc < c;
+    float acc[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+    for (int s0 = 0; s0 <= f; s0 += kWarp) {
+      const GatSlot sl = gat_slot(pos, mask, d, f, s0 + lane, n);
+      const float alpha =
+          sl.ok ? gat_weight(to_f32(a_src[sl.row * lds + h]) + adst, sm)
+                : 0.0f;
+      unsigned todo = __ballot_sync(kFullMask, sl.ok);
+      while (todo) {
+        int64_t rows[4];
+        float w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          rows[k] = -1;
+          w[k] = 0.0f;
+          if (todo) {
+            const int j = __ffs(todo) - 1;
+            todo &= todo - 1;
+            rows[k] = __shfl_sync(kFullMask, sl.row, j);
+            w[k] = __shfl_sync(kFullMask, alpha, j);
+          }
+        }
+        float v[4][VEC];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (col && rows[k] >= 0) {
+            load_vec<VEC>(z + (rows[k] * heads + h) * c + cc, v[k]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) v[k][i] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] += w[k] * v[k][i];
+      }
+    }
+    if (col) store_vec<VEC>(o + cc, acc);
+  }
+}
+
+// The slots turned around, one thread a slot entry e = d * (f + 1) + s:
+// counts of each position (at cnt[row + 1]), then each scored entry placed
+// at off[row] + its rank among the row's (cur: zeroed ranks).
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_count_kernel(const int32_t* __restrict__ pos,
+                          const uint8_t* __restrict__ mask,
+                          const int32_t* __restrict__ num_dst,
+                          int32_t* __restrict__ cnt, int64_t n, int64_t p,
+                          int f) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= p * (f + 1)) return;
+  const int64_t d = e / (f + 1);
+  if (d >= *num_dst) return;
+  const GatSlot sl =
+      gat_slot(pos, mask, d, f, static_cast<int>(e - d * (f + 1)), n);
+  if (sl.ok) atomicAdd(cnt + sl.row + 1, 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_place_kernel(const int32_t* __restrict__ pos,
+                          const uint8_t* __restrict__ mask,
+                          const int32_t* __restrict__ num_dst,
+                          const int32_t* __restrict__ off,
+                          int32_t* __restrict__ cur,
+                          int32_t* __restrict__ entries, int64_t n, int64_t p,
+                          int f) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (e >= p * (f + 1)) return;
+  const int64_t d = e / (f + 1);
+  if (d >= *num_dst) return;
+  const GatSlot sl =
+      gat_slot(pos, mask, d, f, static_cast<int>(e - d * (f + 1)), n);
+  if (sl.ok) {
+    entries[off[sl.row] + atomicAdd(cur + sl.row, 1)] =
+        static_cast<int32_t>(e);
+  }
+}
+
+// Each placed entry's weights, one thread an entry, heads side by side:
+// w[k, h] = alpha of entry entries[k] under head h.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_weights_kernel(const T* __restrict__ a_src, int64_t lds,
+                            const T* __restrict__ a_dst, int64_t ldd,
+                            const int32_t* __restrict__ pos,
+                            const float2* __restrict__ stats,
+                            const int32_t* __restrict__ off,
+                            const int32_t* __restrict__ entries,
+                            float* __restrict__ w, int64_t n, int f,
+                            int heads) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (k >= off[n]) return;
+  const int32_t e = entries[k];
+  const int64_t d = e / (f + 1);
+  const int s = static_cast<int>(e - d * (f + 1));
+  const int64_t row = s == f ? d : pos[e - d];
+  for (int h = 0; h < heads; ++h) {
+    w[k * heads + h] = gat_weight(to_f32(a_src[row * lds + h]) +
+                                      to_f32(a_dst[d * ldd + h]),
+                                  stats[d * heads + h]);
+  }
+}
+
+// f32 adds of VEC values into p (aligned to 4 * min(VEC, 4) bytes), 16
+// bytes an atomic where VEC allows.
+template <int VEC>
+__device__ __forceinline__ void add_f32(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC <= 4) {
+    add_vec<VEC>(p, v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; q += 4) {
+      const float part[4] = {v[q], v[q + 1], v[q + 2], v[q + 3]};
+      add_vec<4>(p + q, part);
+    }
+  }
+}
+
+// The entries [lo, hi) that name src row j, every head: sum w * g[d] into
+// dz_row (stored, in T) or, for a part of a heavy row, into stage_row (f32
+// atomics); dalpha[e, h] = g[d, h] . z[j, h]. A lane holds NCH chunks of
+// VEC columns (chunk i at column (i * 32 + lane) * VEC of a pass), so the
+// whole row is one pass where it fits and the warp's chain of dependent
+// loads (entries, then gradient rows) is walked once; entries go two at a
+// time. A head's dot is a butterfly over the lanes, the other heads'
+// columns masked out.
+// VEC elements of T as loaded, one word, unpacked to f32 where used: a
+// bf16 row segment keeps half the registers of its f32 copy.
+template <int VEC, typename T>
+struct Packed {
+  typename Word<static_cast<int>(VEC * sizeof(T))>::type w;
+  __device__ __forceinline__ void load(const T* p) {
+    w = *reinterpret_cast<const decltype(w)*>(p);
+  }
+  __device__ __forceinline__ void zero() { w = decltype(w){}; }
+  __device__ __forceinline__ float at(int i) const {
+    return to_f32(reinterpret_cast<const T*>(&w)[i]);
+  }
+};
+
+template <typename T, int VEC, int NCH>
+__device__ __forceinline__ void gat_src_entries(
+    const T* __restrict__ g, const T* __restrict__ z,
+    const int32_t* __restrict__ entries, const float* __restrict__ w,
+    T* __restrict__ dz_row, float* __restrict__ stage_row,
+    float* __restrict__ dalpha, int64_t j, int64_t lo, int64_t hi, int f,
+    int heads, int c, int lane) {
+  const int width = heads * c;
+  for (int c0 = 0; c0 < width; c0 += kWarp * VEC * NCH) {
+    int cc[NCH], hd[NCH];
+    Packed<VEC, T> zv[NCH];
+    float acc[NCH][VEC];
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      cc[i] = c0 + (i * kWarp + lane) * VEC;
+      hd[i] = cc[i] < width ? cc[i] / c : -1;
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[i][u] = 0.0f;
+      zv[i].zero();
+      if (hd[i] >= 0 && hi > lo) zv[i].load(z + j * width + cc[i]);
+    }
+    const int h_lo = c0 / c;
+    const int h_hi = min(heads - 1, (c0 + kWarp * VEC * NCH - 1) / c);
+    for (int64_t k0 = lo; k0 < hi; k0 += 2) {
+      int32_t es[2];
+      Packed<VEC, T> v[2][NCH];
+      float wk[2][NCH];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const bool live = k0 + k < hi;
+        es[k] = live ? entries[k0 + k] : -1;
+        const T* grow = g + (live ? es[k] / (f + 1) : 0) * width;
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          wk[k][i] = live && hd[i] >= 0 ? w[(k0 + k) * heads + hd[i]] : 0.0f;
+          v[k][i].zero();
+          if (live && hd[i] >= 0) v[k][i].load(grow + cc[i]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float dot[NCH];
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          dot[i] = 0.0f;
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            const float x = v[k][i].at(u);
+            acc[i][u] += wk[k][i] * x;
+            dot[i] += x * zv[i].at(u);
+          }
+        }
+        if (es[k] < 0) continue;
+        for (int hh = h_lo; hh <= h_hi; ++hh) {
+          float mine = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NCH; ++i) mine += hd[i] == hh ? dot[i] : 0.0f;
+          const float t = warp_sum_f(mine);
+          if (lane == 0) {
+            // a head that began in an earlier pass adds to its dot (a
+            // read back that stalls the warp, so only then)
+            float* at = dalpha + static_cast<int64_t>(es[k]) * heads + hh;
+            if (hh * c >= c0) {
+              *at = t;
+            } else {
+              *at += t;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      if (hd[i] < 0) continue;
+      if (stage_row != nullptr) {
+        add_f32<VEC>(stage_row + cc[i], acc[i]);
+      } else {
+        store_vec<VEC>(dz_row + cc[i], acc[i]);
+      }
+    }
+  }
+}
+
+// One warp per src row j named by at most `chunk` entries: its dz row,
+// written once (zero for a row no slot names). Rows named by more (the
+// hubs of a skewed graph: one can be named by tens of thousands of slots,
+// which one warp would walk alone while the rest of the card idles) are
+// left to edge_softmax_heavy_kernel.
+template <typename T, int VEC, int NCH>
+__global__ void __launch_bounds__(kThreads, 4)
+edge_softmax_src_kernel(const T* __restrict__ g, const T* __restrict__ z,
+                        const int32_t* __restrict__ off,
+                        const int32_t* __restrict__ entries,
+                        const float* __restrict__ w, T* __restrict__ dz,
+                        float* __restrict__ dalpha, int64_t n, int f,
+                        int heads, int c, int chunk) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / kWarp;
+  if (j >= n) return;
+  const int64_t lo = off[j], hi = off[j + 1];
+  if (hi - lo > chunk) return;
+  gat_src_entries<T, VEC, NCH>(g, z, entries, w, dz + j * heads * c,
+                               nullptr, dalpha, j, lo, hi, f, heads, c,
+                               lane);
+}
+
+// One warp per `chunk` entries of a heavy row: hrank (inclusive count of
+// heavy rows up to each row) numbers the heavy rows, cprefix (inclusive
+// count of their chunks) numbers the chunks; a warp finds its row by a
+// binary search over cprefix and adds its part of dz into the row's f32
+// staging row (zeroed), which edge_softmax_finish_kernel casts.
+template <typename T, int VEC, int NCH>
+__global__ void __launch_bounds__(kThreads, 4)
+edge_softmax_heavy_kernel(const T* __restrict__ g, const T* __restrict__ z,
+                          const int32_t* __restrict__ off,
+                          const int32_t* __restrict__ entries,
+                          const float* __restrict__ w,
+                          const int32_t* __restrict__ hrank,
+                          const int32_t* __restrict__ cprefix,
+                          float* __restrict__ stage,
+                          float* __restrict__ dalpha, int64_t n, int f,
+                          int heads, int c, int chunk) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t q = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / kWarp;
+  if (n == 0 || q >= cprefix[n - 1]) return;
+  int64_t a = 0, b = n - 1;          // the first row whose prefix passes q
+  while (a < b) {
+    const int64_t m = (a + b) / 2;
+    if (cprefix[m] > q) {
+      b = m;
+    } else {
+      a = m + 1;
+    }
+  }
+  const int64_t lo_row = off[a], hi_row = off[a + 1];
+  const int64_t chunks = (hi_row - lo_row + chunk - 1) / chunk;
+  const int64_t first = cprefix[a] - chunks;
+  const int64_t lo = lo_row + (q - first) * chunk;
+  const int64_t hi = min(hi_row, lo + chunk);
+  gat_src_entries<T, VEC, NCH>(
+      g, z, entries, w, nullptr,
+      stage + static_cast<int64_t>(hrank[a] - 1) * heads * c, dalpha, a, lo,
+      hi, f, heads, c, lane);
+}
+
+// The heavy rows' f32 staging: its rows up to the count of heavy rows
+// (hrank's last) zeroed, one warp a row; then each heavy row cast into its
+// dz row.
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_zero_rows_kernel(float* __restrict__ stage,
+                              const int32_t* __restrict__ hrank, int64_t n,
+                              int width, int64_t rows) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / kWarp;
+  if (r >= rows || r >= hrank[n - 1]) return;
+  for (int cc = lane; cc < width; cc += kWarp) stage[r * width + cc] = 0.0f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_finish_kernel(const float* __restrict__ stage,
+                           const int32_t* __restrict__ off,
+                           const int32_t* __restrict__ hrank,
+                           T* __restrict__ dz, int64_t n, int width,
+                           int chunk) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                    threadIdx.x / kWarp;
+  if (j >= n || off[j + 1] - off[j] <= chunk) return;
+  const float* src = stage + static_cast<int64_t>(hrank[j] - 1) * width;
+  for (int cc = lane; cc < width; cc += kWarp)
+    dz[j * width + cc] = from_f32<T>(src[cc]);
+}
+
+// One warp per (dst row d, head h), lane s on slot s: the softmax's and
+// the leaky ReLU's backward; da_dst written once, da_s (f32, zeroed) one
+// atomic a slot.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_dst_kernel(const T* __restrict__ a_src, int64_t lds,
+                        const T* __restrict__ a_dst, int64_t ldd,
+                        const int32_t* __restrict__ pos,
+                        const uint8_t* __restrict__ mask,
+                        const int32_t* __restrict__ num_dst,
+                        const float2* __restrict__ stats,
+                        const float* __restrict__ dalpha,
+                        float* __restrict__ da_s, T* __restrict__ da_dst,
+                        int64_t n, int64_t p, int f, int heads) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock +
+                       threadIdx.x / kWarp;
+  if (item >= p * heads) return;
+  const int64_t d = item / heads;
+  const int h = static_cast<int>(item - d * heads);
+  if (d >= *num_dst) {
+    if (lane == 0) da_dst[item] = from_f32<T>(0.0f);
+    return;
+  }
+  const float adst = to_f32(a_dst[d * ldd + h]);
+  const float2 sm = stats[item];
+  float t = 0.0f;
+  for (int s = lane; s <= f; s += kWarp) {
+    const GatSlot sl = gat_slot(pos, mask, d, f, s, n);
+    if (sl.ok) {
+      t += gat_weight(to_f32(a_src[sl.row * lds + h]) + adst, sm) *
+           dalpha[(d * (f + 1) + s) * heads + h];
+    }
+  }
+  t = warp_sum_f(t);
+  float ddst = 0.0f;
+  for (int s = lane; s <= f; s += kWarp) {
+    const GatSlot sl = gat_slot(pos, mask, d, f, s, n);
+    if (!sl.ok) continue;
+    const float raw = to_f32(a_src[sl.row * lds + h]) + adst;
+    const float de = gat_weight(raw, sm) *
+                     (dalpha[(d * (f + 1) + s) * heads + h] - t);
+    const float ds = raw > 0.0f ? de : kGatSlope * de;
+    atomicAdd(da_s + sl.row * heads + h, ds);
+    ddst += ds;
+  }
+  ddst = warp_sum_f(ddst);
+  if (lane == 0) da_dst[item] = from_f32<T>(ddst);
+}
+
+// A zero fill of 4-byte words and a cast of f32 to T: one thread per 4
+// consecutive elements.
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_zero_kernel(float* __restrict__ buf, int64_t total) {
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i0 + 4 <= total) {
+    *reinterpret_cast<float4*>(buf + i0) = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int64_t i = i0; i < total; ++i) buf[i] = 0.0f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+edge_softmax_cast_kernel(const float* __restrict__ in, T* __restrict__ out,
+                         int64_t total) {
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  for (int64_t i = i0; i < total && i < i0 + 4; ++i)
+    out[i] = from_f32<T>(in[i]);
+}
+
+// The widest of 4, 2, 1 elements that divides the head width, leaves no
+// lane of a 32-lane pass idle (or is 1), and keeps both pointers aligned.
+template <typename T>
+int gat_vec(int c, const void* a, const void* b) {
+  for (int v = 4; v > 1; v >>= 1) {
+    const int bytes = v * static_cast<int>(sizeof(T));
+    if (c % v == 0 && c / v >= kWarp && aligned(a, bytes) && aligned(b, bytes))
+      return v;
+  }
+  return 1;
+}
+
+inline unsigned warps_for(int64_t items) {
+  return static_cast<unsigned>((items + kRowsPerBlock - 1) / kRowsPerBlock);
+}
+
+inline unsigned threads_for(int64_t items) {
+  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
+}
+
+template <typename T>
+void launch_gat_fwd(const void* z, const void* as, int64_t lds,
+                    const void* ad, int64_t ldd, const int32_t* pos,
+                    const uint8_t* mask, const int32_t* num_dst, void* out,
+                    float2* stats, int64_t n, int64_t p, int f, int heads,
+                    int c, cudaStream_t s) {
+  const T* zt = static_cast<const T*>(z);
+  const T* ast = static_cast<const T*>(as);
+  const T* adt = static_cast<const T*>(ad);
+  T* o = static_cast<T*>(out);
+  const unsigned blocks = warps_for(p * heads);
+  switch (gat_vec<T>(c, z, out)) {
+    case 4:
+      edge_softmax_fwd_kernel<T, 4><<<blocks, kThreads, 0, s>>>(
+          zt, ast, lds, adt, ldd, pos, mask, num_dst, o, stats, n, p, f,
+          heads, c);
+      break;
+    case 2:
+      edge_softmax_fwd_kernel<T, 2><<<blocks, kThreads, 0, s>>>(
+          zt, ast, lds, adt, ldd, pos, mask, num_dst, o, stats, n, p, f,
+          heads, c);
+      break;
+    default:
+      edge_softmax_fwd_kernel<T, 1><<<blocks, kThreads, 0, s>>>(
+          zt, ast, lds, adt, ldd, pos, mask, num_dst, o, stats, n, p, f,
+          heads, c);
+  }
+}
+
+// The src pass's VEC: the widest of 8, 4, 2, 1 elements (16 bytes at
+// most) that divides the head width and keeps both pointers aligned.
+template <typename T>
+int gat_row_vec(int c, const void* a, const void* b) {
+  for (int v = 16 / static_cast<int>(sizeof(T)); v > 1; v >>= 1) {
+    const int bytes = v * static_cast<int>(sizeof(T));
+    if (c % v == 0 && aligned(a, bytes) && aligned(b, bytes)) return v;
+  }
+  return 1;
+}
+
+// The src pass's kernels. NCH = 2 chunks a lane: a row of 4 heads of 128
+// bf16 is one pass; wider rows (or float32 ones) take more passes, and
+// fewer template instances keep the build short.
+struct GatHeavy {
+  const int32_t* hrank;
+  const int32_t* cprefix;
+  float* stage;
+  int64_t chunks_bound;
+  int64_t stage_rows;
+};
+
+template <typename T, int VEC>
+void launch_gat_src(const T* g, const T* z, const int32_t* off,
+                    const int32_t* entries, const float* w, T* dz,
+                    float* dalpha, const GatHeavy& hv, int64_t n, int f,
+                    int heads, int c, int chunk, cudaStream_t s) {
+  constexpr int kNch = 2;
+  const int64_t width = static_cast<int64_t>(heads) * c;
+  edge_softmax_src_kernel<T, VEC, kNch><<<warps_for(n), kThreads, 0, s>>>(
+      g, z, off, entries, w, dz, dalpha, n, f, heads, c, chunk);
+  edge_softmax_zero_rows_kernel<<<warps_for(hv.stage_rows), kThreads, 0,
+                                  s>>>(hv.stage, hv.hrank, n,
+                                       static_cast<int>(width),
+                                       hv.stage_rows);
+  edge_softmax_heavy_kernel<T, VEC, kNch>
+      <<<warps_for(hv.chunks_bound), kThreads, 0, s>>>(
+          g, z, off, entries, w, hv.hrank, hv.cprefix, hv.stage, dalpha, n,
+          f, heads, c, chunk);
+  edge_softmax_finish_kernel<T><<<warps_for(n), kThreads, 0, s>>>(
+      hv.stage, off, hv.hrank, dz, n, static_cast<int>(width), chunk);
+}
+
+template <typename T>
+void launch_gat_bwd(const void* g, const void* z, const void* as,
+                    int64_t lds, const void* ad, int64_t ldd,
+                    const int32_t* pos, const uint8_t* mask,
+                    const int32_t* num_dst, const float2* stats,
+                    const int32_t* off, int32_t* cur, int32_t* entries,
+                    float* w, float* dalpha, float* da_s, const GatHeavy& hv,
+                    void* dz, void* da_src, void* da_dst, int64_t n,
+                    int64_t p, int f, int heads, int c, int chunk,
+                    cudaStream_t s) {
+  const T* gt = static_cast<const T*>(g);
+  const T* zt = static_cast<const T*>(z);
+  const T* ast = static_cast<const T*>(as);
+  const T* adt = static_cast<const T*>(ad);
+  const int64_t slots = p * (f + 1);
+  edge_softmax_place_kernel<<<threads_for(slots), kThreads, 0, s>>>(
+      pos, mask, num_dst, off, cur, entries, n, p, f);
+  edge_softmax_weights_kernel<T><<<threads_for(slots), kThreads, 0, s>>>(
+      ast, lds, adt, ldd, pos, stats, off, entries, w, n, f, heads);
+  T* dzt = static_cast<T*>(dz);
+  switch (gat_row_vec<T>(c, z, g)) {
+    case 8:  // bf16 only (16 bytes); a float row takes 4 at most
+      launch_gat_src<T, 16 / sizeof(T)>(gt, zt, off, entries, w, dzt, dalpha,
+                                        hv, n, f, heads, c, chunk, s);
+      break;
+    case 4:
+      launch_gat_src<T, 4>(gt, zt, off, entries, w, dzt, dalpha, hv, n, f,
+                           heads, c, chunk, s);
+      break;
+    case 2:
+      launch_gat_src<T, 2>(gt, zt, off, entries, w, dzt, dalpha, hv, n, f,
+                           heads, c, chunk, s);
+      break;
+    default:
+      launch_gat_src<T, 1>(gt, zt, off, entries, w, dzt, dalpha, hv, n, f,
+                           heads, c, chunk, s);
+  }
+  edge_softmax_dst_kernel<T><<<warps_for(p * heads), kThreads, 0, s>>>(
+      ast, lds, adt, ldd, pos, mask, num_dst, stats, dalpha, da_s,
+      static_cast<T*>(da_dst), n, p, f, heads);
+  edge_softmax_cast_kernel<T><<<threads_for((n * heads + 3) / 4), kThreads,
+                                0, s>>>(da_s, static_cast<T*>(da_src),
+                                        n * heads);
+}
+
+}  // namespace
+
+extern "C" {
+
+// z: (n, heads, c) contiguous; a_src rows lds apart, a_dst rows ldd apart,
+// heads side by side; out: (p, heads, c) contiguous; stats: (p, heads)
+// float2.
+int legion_edge_softmax_fwd(const void* z, const void* a_src, int64_t lds,
+                            const void* a_dst, int64_t ldd, int dtype,
+                            const void* pos, const void* mask,
+                            const void* num_dst, void* out, void* stats,
+                            int64_t n, int64_t p, int f, int heads, int c,
+                            void* stream) {
+  if (p * heads * c == 0) return cudaSuccess;
+  if (p > n || !aligned(stats, 8)) {
+    return cudaErrorInvalidValue;
+  }
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  const uint8_t* ms = static_cast<const uint8_t*>(mask);
+  const int32_t* nd = static_cast<const int32_t*>(num_dst);
+  float2* st = static_cast<float2*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    launch_gat_fwd<float>(z, a_src, lds, a_dst, ldd, ps, ms, nd, out, st, n,
+                          p, f, heads, c, s);
+  } else if (dtype == kBF16) {
+    launch_gat_fwd<__nv_bfloat16>(z, a_src, lds, a_dst, ldd, ps, ms, nd, out,
+                                  st, n, p, f, heads, c, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// The backward's first half: words (4-byte) zeroed, then cnt = words[0, n]
+// counts each scored position at cnt[row + 1]. The caller takes the
+// inclusive cumsum of cnt as off (n + 1) before the second half.
+int legion_edge_softmax_bwd_count(const void* pos, const void* mask,
+                                  const void* num_dst, void* words,
+                                  int64_t total_words, int64_t n, int64_t p,
+                                  int f, void* stream) {
+  if (!aligned(words, 16)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  edge_softmax_zero_kernel<<<threads_for((total_words + 3) / 4), kThreads, 0,
+                             s>>>(static_cast<float*>(words), total_words);
+  if (p * (f + 1) > 0) {
+    edge_softmax_count_kernel<<<threads_for(p * (f + 1)), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(pos), static_cast<const uint8_t*>(mask),
+        static_cast<const int32_t*>(num_dst), static_cast<int32_t*>(words),
+        n, p, f);
+  }
+  return cudaGetLastError();
+}
+
+// The second half: g (p, heads, c) contiguous; stats from the forward;
+// off (n + 1); cur (n) and da_s (n * heads f32) zeroed; entries (p * (f +
+// 1)), w and dalpha (p * (f + 1) * heads f32 each) scratch; the rows named
+// by more than `chunk` entries: hrank and cprefix (n each, inclusive
+// counts of heavy rows and of their chunks), their f32 staging `stage`
+// (stage_rows rows of heads * c) and a bound on their chunks; out dz (n,
+// heads, c), da_src (n, heads), da_dst (p, heads), all in dtype.
+int legion_edge_softmax_bwd(const void* g, const void* z, const void* a_src,
+                            int64_t lds, const void* a_dst, int64_t ldd,
+                            int dtype, const void* pos, const void* mask,
+                            const void* num_dst, const void* stats,
+                            const void* off, void* cur, void* entries,
+                            void* w, void* dalpha, void* da_s,
+                            const void* hrank, const void* cprefix,
+                            void* stage, int64_t stage_rows,
+                            int64_t chunks_bound, int chunk, void* dz,
+                            void* da_src, void* da_dst, int64_t n, int64_t p,
+                            int f, int heads, int c, void* stream) {
+  if (n * heads * c == 0) return cudaSuccess;
+  if (p > n || chunk < 1 || !aligned(stage, 16)) return cudaErrorInvalidValue;
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  const uint8_t* ms = static_cast<const uint8_t*>(mask);
+  const int32_t* nd = static_cast<const int32_t*>(num_dst);
+  const float2* st = static_cast<const float2*>(stats);
+  const int32_t* of = static_cast<const int32_t*>(off);
+  int32_t* cu = static_cast<int32_t*>(cur);
+  int32_t* en = static_cast<int32_t*>(entries);
+  float* wt = static_cast<float*>(w);
+  float* dal = static_cast<float*>(dalpha);
+  float* das = static_cast<float*>(da_s);
+  const GatHeavy hv{static_cast<const int32_t*>(hrank),
+                    static_cast<const int32_t*>(cprefix),
+                    static_cast<float*>(stage), chunks_bound, stage_rows};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    launch_gat_bwd<float>(g, z, a_src, lds, a_dst, ldd, ps, ms, nd, st, of,
+                          cu, en, wt, dal, das, hv, dz, da_src, da_dst, n, p,
+                          f, heads, c, chunk, s);
+  } else if (dtype == kBF16) {
+    launch_gat_bwd<__nv_bfloat16>(g, z, a_src, lds, a_dst, ldd, ps, ms, nd,
+                                  st, of, cu, en, wt, dal, das, hv, dz,
+                                  da_src, da_dst, n, p, f, heads, c, chunk,
+                                  s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

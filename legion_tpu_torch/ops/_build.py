@@ -57,6 +57,18 @@ _SIGNATURES = {
     # s, sorig, frontier_prev, num_prev, frontier_new, num_new, nbr_pos,
     # state, total, prev_cap, cap_new, stream
     "legion_dedup_tail": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
+    # z, a_src, lds, a_dst, ldd, dtype, pos, mask, num_dst, out, stats, n,
+    # p, f, heads, c, stream
+    "legion_edge_softmax_fwd": (_P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P,
+                                _L, _L, _I, _I, _I, _P),
+    # pos, mask, num_dst, words, total_words, n, p, f, stream
+    "legion_edge_softmax_bwd_count": (_P, _P, _P, _P, _L, _L, _L, _I, _P),
+    # g, z, a_src, lds, a_dst, ldd, dtype, pos, mask, num_dst, stats, off,
+    # cur, entries, w, dalpha, da_s, hrank, cprefix, stage, stage_rows,
+    # chunks_bound, chunk, dz, da_src, da_dst, n, p, f, heads, c, stream
+    "legion_edge_softmax_bwd": (_P, _P, _P, _L, _P, _L, _I, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
+                                _I, _P, _P, _P, _L, _L, _I, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

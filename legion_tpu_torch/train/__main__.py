@@ -7,7 +7,9 @@ builds the whole ``Config`` and runs the driver that config selects.
     python -m legion_tpu_torch.train --device cpu --devices 2 --synthetic 3000
 
 The flags are ``train.py``'s, with its names and defaults, plus
-``--device {cuda,cpu}`` (default ``cuda``; nothing falls back to the CPU).
+``--device {cuda,cpu}`` (default ``cuda``; nothing falls back to the CPU)
+and GAT's ``--arch gat --num-heads N`` (``--hidden-dim`` is then a head's
+width, and every hop is deduplicated).
 It prints the config JSON before it trains, warns about every flag the
 chosen driver cannot honour, and dispatches as ``train.py`` does: to
 ``Trainer``, ``run_cached_training``, ``run_hybrid_training``, or, with
@@ -38,11 +40,11 @@ from legion_tpu_torch.data.format import load_dataset
 from legion_tpu_torch.data.synthetic import random_power_law_graph
 
 # the tuning flags whose explicit values --config ignores (train.py's list)
-TUNING_FLAGS = ("arch", "hidden_dim", "dropout", "dtype", "fanouts",
-                "batch_size", "lr", "epochs", "seed", "cache_budget_gb",
-                "cache_group", "features", "topology", "halo_exchange",
-                "halo_cap_slack", "checkpoint_dir", "profile_dir",
-                "devices", "dataset", "data_dir", "synthetic")
+TUNING_FLAGS = ("arch", "num_heads", "hidden_dim", "dropout", "dtype",
+                "fanouts", "batch_size", "lr", "epochs", "seed",
+                "cache_budget_gb", "cache_group", "features", "topology",
+                "halo_exchange", "halo_cap_slack", "checkpoint_dir",
+                "profile_dir", "devices", "dataset", "data_dir", "synthetic")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +56,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--synthetic", type=int, default=0,
                     help="generate a synthetic graph with N nodes")
     ap.add_argument("--arch", default="sage",
-                    choices=["sage", "gcn", "lp_sage"])
+                    choices=["sage", "gcn", "lp_sage", "gat"],
+                    help="gat: PyG's GATConv stack (--hidden-dim is a "
+                         "head's width; every hop deduplicated)")
+    ap.add_argument("--num-heads", type=int, default=1,
+                    help="attention heads (gat only)")
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--fanouts", default="25,10")
     ap.add_argument("--hidden-dim", type=int, default=256)
@@ -194,11 +200,15 @@ def setup(args, ap):
                                     else dcfg.topology_placement))
         cfg = Config(
             dataset=dcfg,
+            # GAT reads a slot that names its own dst row, which only a
+            # deduplicated hop shows
             sampler=SamplerConfig(fanouts=fanouts,
-                                  batch_size=args.batch_size),
+                                  batch_size=args.batch_size,
+                                  dedup_last=args.arch == "gat"),
             model=ModelConfig(arch=args.arch, hidden_dim=args.hidden_dim,
                               num_layers=len(fanouts),
-                              dropout=args.dropout, dtype=args.dtype),
+                              dropout=args.dropout, dtype=args.dtype,
+                              num_heads=args.num_heads),
             train=TrainConfig(learning_rate=args.lr, epochs=args.epochs,
                               seed=args.seed,
                               checkpoint_dir=args.checkpoint_dir,

@@ -13,8 +13,8 @@ launches PyTorch makes when it dispatches the step op by op.
   test passes are copied into static ``(cap_k, fanout_k)`` buffers before
   each replay.
 * **Static outputs.** Each step writes its (loss, edges, frontier,
-  cap_overflow) into row ``counter`` of a ``(rows, 4)`` float64 device
-  tensor, so the epoch still has one device->host read.
+  cap_overflow, attn_slots) into row ``counter`` of a ``(rows, 5)``
+  float64 device tensor, so the epoch still has one device->host read.
 * **The warm-up is the first step.** The capturing call runs its step
   once on a side stream, as PyTorch's whole-network capture recipe warms
   up: that builds the kernels, makes Adam's state and sets up cuBLAS, and
@@ -74,6 +74,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from legion_tpu_torch.ops.gat_attention import (
+    edge_softmax_aggregate, edge_softmax_aggregate_backward)
 from legion_tpu_torch.ops.gather import gather_rows
 from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
                                                gathered_masked_mean_backward,
@@ -84,13 +86,18 @@ from legion_tpu_torch.ops.spmm import grouped_masked_sum
 from legion_tpu_torch.train.train_state import TrainState, state_tensors
 from legion_tpu_torch.utils import comm, trace
 
+# the counters a model may add to its step's metrics through its
+# ``step_counts(blocks, rows)`` (GAT: attn_slots); the step reports 0 for
+# those its model does not count
+MODEL_COUNTS = ("attn_slots",)
 # what a train step reports, in the columns of the epoch's metrics
-METRICS = ("loss", "edges", "frontier", "cap_overflow")
+METRICS = ("loss", "edges", "frontier", "cap_overflow") + MODEL_COUNTS
 
 # every kernel wrapper; each counts its launches in ``.launches``
 COUNTED = (identity_masked_mean, gathered_masked_mean,
            gathered_masked_mean_backward, gather_rows, sample_neighbors,
-           grouped_masked_sum, dedup_tail)
+           grouped_masked_sum, dedup_tail, edge_softmax_aggregate,
+           edge_softmax_aggregate_backward)
 
 
 class GraphPool:
@@ -385,7 +392,8 @@ class EpochScan(_Scan):
     and labels through the train step (``step_fn``, without the host's
     step count), as the reference's ``epoch_scan``. Updates ``state`` in
     place, ``state.step`` included, and returns the steps' (loss, edges,
-    frontier, cap_overflow) as a ``(steps, 4)`` float64 device tensor.
+    frontier, cap_overflow, attn_slots) as a ``(steps, 5)`` float64 device
+    tensor.
     ``uniforms(step, hop)`` replaces the generator's sampling draws
     (parity tests; ``step`` is the state's global step), each of shape
     ``uniform_shapes[hop]``. The call is ``load`` (the run that serves

@@ -41,7 +41,8 @@ from legion_tpu_torch.sampling.sampler import (DeviceGraph, gather_features,
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
                                              epoch_train_seeds,
                                              make_seed_plan, shard_node_set)
-from legion_tpu_torch.train.graphed import EpochScan, EvalScan, GraphPool
+from legion_tpu_torch.train.graphed import (MODEL_COUNTS, EpochScan,
+                                            EvalScan, GraphPool)
 from legion_tpu_torch.train.train_state import (TrainState,
                                                 create_train_state,
                                                 restore_checkpoint,
@@ -199,8 +200,18 @@ def make_step_fns(cfg: Config, caps: Sequence[int],
                 overflow = overflow + (blk.num_src - cap).clamp(min=0)
         if fetch_overflow is not None:
             overflow = overflow + fetch_overflow
-        return {"loss": loss.detach(), "edges": edges,
-                "frontier": batch.num_frontier, "cap_overflow": overflow}
+        metrics = {"loss": loss.detach(), "edges": edges,
+                   "frontier": batch.num_frontier, "cap_overflow": overflow}
+        # the model's own counters (block k's layer takes the frontier's
+        # rows up to caps[k + 1]); 0 for those it does not count
+        step_counts = getattr(state.model, "step_counts", None)
+        if step_counts is not None:
+            metrics.update(step_counts(batch.blocks, caps[1:]))
+        for name in MODEL_COUNTS:
+            if name not in metrics:
+                metrics[name] = torch.zeros((), dtype=torch.int32,
+                                            device=seeds.device)
+        return metrics
 
     def train_step(state: TrainState, graph: DeviceGraph, feats, seeds,
                    num_seeds, labels,
@@ -315,7 +326,8 @@ class Trainer:
         self.model = build_model(
             cfg.model.arch, self.features.shape[1], cfg.model.hidden_dim,
             num_classes, cfg.model.num_layers, cfg.model.dropout,
-            dtype=cfg.model.dtype, generator=init_gen).to(self.device)
+            dtype=cfg.model.dtype, generator=init_gen,
+            num_heads=cfg.model.num_heads).to(self.device)
         self.state = create_train_state(self.model, cfg.train.learning_rate,
                                         rank_seed(cfg.train.seed, rank),
                                         self.device)
@@ -392,8 +404,8 @@ class Trainer:
     def _train_steps(self, seeds: np.ndarray,
                      uniforms: Optional[Callable]) -> torch.Tensor:
         """Train on (steps, batch) seeds through ``epoch_scan``; returns
-        the steps' (loss, edges, frontier, cap_overflow) as a (steps, 4)
-        float64 device tensor. ``uniforms(step, hop)`` replaces the
+        the steps' (loss, edges, frontier, cap_overflow, attn_slots) as a
+        (steps, 5) float64 device tensor. ``uniforms(step, hop)`` replaces the
         generator's sampling draws (parity tests); ``step`` is the state's
         global step."""
         run = self._load_epoch(seeds, uniforms)
@@ -403,9 +415,15 @@ class Trainer:
 
     def _epoch_record(self, epoch: int, metrics: torch.Tensor,
                       dt: float) -> Dict:
-        """The epoch's record from its (steps, 4) host metrics."""
+        """The epoch's record from its (steps, 5) host metrics; each
+        counter the model counted (``MODEL_COUNTS``, non-zero) goes to the
+        tracer under its name."""
         losses = metrics[:, 0].to(torch.float32).numpy()
         overflow = int(metrics[:, 3].sum())
+        for col, name in enumerate(MODEL_COUNTS, 4):
+            total = sum_edge_counts(metrics[:, col])
+            if total:
+                trace.count(name, total)
         if overflow > 0:
             log_metrics({"event": "cap_overflow", "epoch": epoch,
                          "dropped_frontier_ids": overflow,
@@ -420,7 +438,7 @@ class Trainer:
         return rec
 
     def _read_metrics(self, metrics: torch.Tensor) -> torch.Tensor:
-        """The epoch's (steps, 4) metrics on the host: its only device ->
+        """The epoch's (steps, 5) metrics on the host: its only device ->
         host read."""
         return metrics.cpu()
 

@@ -171,6 +171,7 @@ def run_partitioned_training(cfg: Config, data: GraphData,
                         cfg.model.hidden_dim, num_classes,
                         cfg.model.num_layers, cfg.model.dropout,
                         dtype=cfg.model.dtype,
+                        num_heads=cfg.model.num_heads,
                         generator=torch.Generator().manual_seed(
                             cfg.train.seed)).to(device)
     state = create_train_state(model, cfg.train.learning_rate,

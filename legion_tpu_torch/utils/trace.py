@@ -31,7 +31,10 @@ call's warm-up and capture; ``pipeline.dispatch``,
 ``pipeline.plan_wait``, ``pipeline.stage``, ``pipeline.consume``;
 ``hybrid.fetch``, ``hybrid.host_sample``; ``setup.*``; counters
 ``h2d_bytes`` (bytes copied host->device), ``fetches``,
-``host_topo_copied_bytes``.
+``host_topo_copied_bytes``, ``attn_slots`` (GAT: the slots its attention
+scored in the epoch, self slots included, over every layer; counted on
+the device in each step and read with the epoch's metrics, so it adds no
+sync).
 
 One thread drives a trainer, and the tracer is the process's, as the
 launch counts of ``train/graphed.py`` and the collectives' counts of

@@ -109,6 +109,20 @@ def test_cli_trains_from_packed_dir(packed_dir, capsys):
         packed_dir
 
 
+def test_cli_trains_gat(capsys):
+    """``--arch gat --num-heads 2``: one CPU epoch of GAT through the
+    Trainer, three hops from three fanouts, every hop deduplicated."""
+    cli.main(["--synthetic", "1500", "--arch", "gat", "--num-heads", "2",
+              "--hidden-dim", "8", "--fanouts", "4,3,2", "--batch-size",
+              "64", "--epochs", "1", "--lr", "0.001", "--device", "cpu"])
+    out = capsys.readouterr().out
+    cfg = json.loads(out[:out.index("\n}\n") + 2])
+    assert cfg["model"]["arch"] == "gat" and cfg["model"]["num_heads"] == 2
+    assert cfg["model"]["num_layers"] == 3
+    assert cfg["sampler"]["dedup_last"] is True
+    assert "Val Acc" in out and "Accuracy on test data" in out
+
+
 def test_cli_registry_mismatch_fails_loudly(packed_dir, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--dataset", "PR", "--data-dir", packed_dir, "--device",

@@ -40,15 +40,21 @@ def _defaults(cls):
 def test_config_sections_match_reference(name):
     port, ref = (_defaults(getattr(port_config, name)),
                   _defaults(getattr(jax_config, name)))
-    assert port == {k: ref[k] for k in port}, "a field's default differs"
+    # the port's own fields, at the defaults that keep the reference's
+    # behaviour: GAT's heads (the reference has no GAT)
+    own = {"ModelConfig": {"num_heads": 1}}.get(name, {})
+    assert {k: port[k] for k in port if k not in ref} == own
+    assert {k: v for k, v in port.items() if k in ref} == \
+        {k: ref[k] for k in port if k in ref}, "a field's default differs"
     assert getattr(port_config, name).__dataclass_params__.frozen
 
 
 def test_config_holds_the_ported_fields():
     """The reference's fields, less ``TrainConfig.scan_unroll`` (it tunes
-    ``lax.scan``; the port's epoch is a Python loop): the fields left out
-    before the command line and the cost model's group came in now
-    construct."""
+    ``lax.scan``; the port's epoch is a Python loop) and with
+    ``ModelConfig.num_heads`` (GAT, which the reference lacks): the fields
+    left out before the command line and the cost model's group came in
+    now construct."""
     cfg = port_config.Config()
     got = {f.name: sorted(_defaults(type(getattr(cfg, f.name))))
            for f in dataclasses.fields(cfg)}
@@ -56,6 +62,8 @@ def test_config_holds_the_ported_fields():
     want = {f.name: sorted(_defaults(type(getattr(ref, f.name))))
             for f in dataclasses.fields(ref)}
     want["train"].remove("scan_unroll")
+    # and one field of the port's own: GAT's heads
+    want["model"] = sorted(want["model"] + ["num_heads"])
     assert got == want
     with pytest.raises(TypeError):
         port_config.TrainConfig(scan_unroll=2)

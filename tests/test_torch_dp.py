@@ -34,6 +34,7 @@ from legion_tpu_torch.data.synthetic import random_power_law_graph
 from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.parallel.dp import GradMean
 from legion_tpu_torch.parallel.trainer import MeshTrainer
+from legion_tpu_torch.train.graphed import METRICS
 from legion_tpu_torch.train.loop import Trainer, make_step_fns
 from legion_tpu_torch.utils import comm
 
@@ -266,8 +267,8 @@ def test_eval_counts_are_summed_over_ranks(world_run, small_graph):
 def test_one_param_sized_all_reduce_a_step(world_run):
     """The wrapper counts one all-reduce in a step, of the parameter bytes
     (``tests/test_comm_accounting.py:186``'s bound), and the closed forms
-    agree with the counts; over the epoch one more, of the (steps, 4)
-    float64 metrics."""
+    agree with the counts; over the epoch one more, of the (steps, 5)
+    float64 metrics (``graphed.METRICS``)."""
     world, _, ranks = world_run
     for r in ranks:
         pb, got = r["param_bytes"], r["step_counts"]
@@ -278,7 +279,7 @@ def test_one_param_sized_all_reduce_a_step(world_run):
             / world)
         assert r["epoch_calls"] == {"all_reduce": r["steps"] + 1}
         assert r["epoch_counts"]["all_reduce"] == (
-            r["steps"] * pb + r["steps"] * 4 * 8)
+            r["steps"] * pb + r["steps"] * len(METRICS) * 8)
 
 
 def test_applied_gradient_is_the_mean_of_the_ranks(world_run):

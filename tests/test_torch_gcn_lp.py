@@ -201,7 +201,7 @@ def test_lp_sage_is_the_sage_encoder(small_graph):
 
 def test_build_model_and_convert_reject_the_unknown():
     with pytest.raises(ValueError, match="unknown arch"):
-        build_model("gat", 16, 8, 3, 2, 0.0)
+        build_model("gin", 16, 8, 3, 2, 0.0)
     with pytest.raises(ValueError, match="param group"):
         params_from_flax({"head": {}})
     with pytest.raises(ValueError, match="param groups"):

@@ -349,7 +349,8 @@ def test_three_replays_three_rows(small_graph, fake_capture):
         twin.state, twin.graph, twin.features, torch.from_numpy(seeds[i]),
         torch.tensor(BATCH, dtype=torch.int32),
         torch.from_numpy(labels[i])) for i in range(3)]
-    assert m.shape == (3, 4) and len(set(m[:, 0].tolist())) == 3
+    assert m.shape == (3, len(graphed.METRICS))
+    assert len(set(m[:, 0].tolist())) == 3
     for i, w in enumerate(want):
         assert m[i].tolist() == [float(w[k]) for k in graphed.METRICS]
     assert tr.state.step == twin.state.step == 3
@@ -542,10 +543,11 @@ def test_replays_count_the_launches_their_capture_recorded(
         counts[captured] = (train, [fn.launches for fn in graphed.COUNTED])
     n, e = tr.plan.train_steps, tr.plan.valid_steps
     # K1, K2, K2 backward (not counted here), K3, sampling, K5, the
-    # dedup's tail (hop 1; the last hop is appended)
+    # dedup's tail (hop 1; the last hop is appended), GAT's attention and
+    # its backward (SAGE runs neither)
     assert counts[True] == counts[False] == (
-        [n, n, 0, n, 2 * n, 0, n],
-        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e])
+        [n, n, 0, n, 2 * n, 0, n, 0, 0],
+        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e, 0, 0])
     assert len(fake_capture) == 2
     for fn in graphed.COUNTED:
         fn.launches = 0

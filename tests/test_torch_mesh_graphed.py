@@ -142,7 +142,7 @@ def _load(state, snap):
 
 def _eager_loop(fns, state, graph, feats, seeds, labels):
     """The parent's eager loop: ``fns.train_step`` a row, its metrics as
-    the scan's (steps, 4) float64 rows."""
+    the scan's (steps, len(METRICS)) float64 rows."""
     nb = torch.tensor(seeds.shape[1], dtype=torch.int32, device=feats.device)
     return torch.stack([torch.stack([m[k].to(torch.float64)
                                      for k in graphed.METRICS])
@@ -462,7 +462,9 @@ def _closed_forms(r, variant):
     steps, pb = r["steps"], r["param_bytes"]
     calls = {"all_reduce": steps + 1}
     if variant in DP:
-        nbytes = {"all_reduce": steps * pb + steps * 4 * 8}
+        # the gradients a step, and the epoch's (steps, 5) float64 metrics
+        nbytes = {"all_reduce": steps * pb
+                  + steps * len(graphed.METRICS) * 8}
         ran = {"all_reduce": steps + 1}
         if variant == "hbm_sharded":
             calls["all_to_all"] = ran["all_to_all_single"] = 2 * steps

@@ -1,6 +1,7 @@
 """The port must not load JAX: importing legion_tpu_torch and its sampling,
-ops, models, cache, data, train (its command line included), parallel,
-utils and tools modules and its benchmark in a fresh interpreter leaves
+ops, models (GAT and its plain reference too), cache, data, train (its
+command line included), parallel, utils and tools modules and its
+benchmark in a fresh interpreter leaves
 jax, flax, optax and orbax out of sys.modules, and bench.py and the root
 tools/ too."""
 
@@ -37,6 +38,9 @@ import legion_tpu_torch.ops.identity_agg
 import legion_tpu_torch.ops.segment
 import legion_tpu_torch.ops.spmm
 import legion_tpu_torch.models.gcn
+import legion_tpu_torch.models.gat
+import legion_tpu_torch.models.gat_reference
+import legion_tpu_torch.ops.gat_attention
 import legion_tpu_torch.train.train_state
 import legion_tpu_torch.sampling.sampler
 import legion_tpu_torch.sampling.seeds
