@@ -95,7 +95,10 @@ exits non-zero:
    and K3 must have launched, the sampling kernel must be bitwise its
    plain version on the path's hop-1 and hop-2 inputs, and K2 forward and
    backward must agree with their plain versions, for every norm, on that
-   batch's layer-1 block at the path's width (172 columns, bf16);
+   batch's layer-1 block at the path's width (172 columns, bf16), and the
+   gathered feature mean (layer 0, which widens) with its plain version
+   on that batch's layer-0 block over seeded bf16 rows 128 wide, timed
+   warm and cold beside the PyTorch chain it replaced;
 7. the dedup (``"dedup"``): ``grow_frontier``'s tail after its sort, the
    kernel (``ops/dedup.py``) against its plain version on the same sorted
    tensors, bitwise and with no host sync, at hop 1 of the main-path
@@ -112,7 +115,8 @@ exits non-zero:
    no cap overflow, ids >= 2^24 in a sampled frontier, and exact launch
    counts: the sampling kernel twice a step plus once an epoch (on the
    sub-CSR), K2 forward once a step, backward once a train step, K3
-   twice a step, K1 and K5 never.
+   twice a step, the gathered feature mean once a step (layer 0 widens),
+   K1 and K5 never.
 
 9. data-parallel training (``"mesh_dp"``, run after phase 4 on its graph):
    ``MeshTrainer`` at world size 1 through NCCL with the main path's
@@ -163,7 +167,8 @@ exits non-zero:
    logits within 3e-2 x max|logit| of the CPU plain path; the sampling
    kernel on the compact CSR, K3 on the self-served gather and K2 on
    layer 1's block against their plain versions, and K2 at layer 0's block
-   shape, which the path does not run (layer 0 widens); set-up seconds
+   shape, which the path does not run (layer 0 widens and takes the
+   gathered feature mean); set-up seconds
    (partition, shard, owner table), peak host RSS and device memory,
    ms/step and edges/s beside phase 6's ms/step;
 14. the same path at two gloo ranks sharing the card against one rank
@@ -319,6 +324,10 @@ SOURCE = "legion_tpu_torch/csrc/legion_kernels.cu"
 # bench_graph's full size (the ogbn-products stand-in) and its classes
 NODES, CLASSES = 2_449_029, 47
 
+# the width of the raw rows the gathered feature mean is checked and
+# timed on: the benchmark's papers100M cell's 128 features
+FEATURE_MEAN_WIDTH = 128
+
 # what the kernels line holds of each kernel, beside its launch counts
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -338,8 +347,8 @@ def kernel_table():
     from legion_tpu_torch.ops.dedup import dedup_tail
     from legion_tpu_torch.ops.gather import gather_rows
     from legion_tpu_torch.ops.identity_agg import (
-        gathered_masked_mean, gathered_masked_mean_backward,
-        identity_masked_mean)
+        gathered_feature_mean, gathered_masked_mean,
+        gathered_masked_mean_backward, identity_masked_mean)
     from legion_tpu_torch.ops.sample import sample_neighbors
     from legion_tpu_torch.ops.spmm import grouped_masked_sum
     return {
@@ -359,6 +368,8 @@ def kernel_table():
                                "legion_tpu/ops/spmm_pallas.py:90"),
         # no TPU kernel: the JAX dedup is jnp operations
         "dedup_tail": (dedup_tail, None),
+        # no TPU kernel: the reference leaves this mean to XLA
+        "gathered_feature_mean": (gathered_feature_mean, None),
     }
 
 
@@ -647,6 +658,79 @@ def check_identity_mean(x, m1, off):
                 lambda: identity_masked_mean_plain(x, m1, off))}
 
 
+def check_feature_mean(x, pos, mask):
+    """The gathered feature mean (bf16 out, as SAGE's layer 0 runs it on a
+    deduplicated outer block that it widens) against its plain version on
+    raw rows x (S, D) and the block's positions and mask (P, f), within
+    one flipped bf16 rounding; no valid slot may lie past the rows. Timed
+    warm and with the L2 flushed before each call (``cold_ms``, as in a
+    step), beside its plain version, the PyTorch chain it replaced
+    (``chain_ms``: ``fanout_gather_mean``'s gather, NaN select, mask
+    product, sum and divide) and ``embedding_bag`` (mode "mean") on the
+    same rows. The bound reads each distinct row the valid slots name
+    once, 5 bytes a slot and writes the bf16 rows; ``slot_bytes`` counts a
+    row read for every valid slot instead."""
+    import torch
+
+    from legion_tpu_torch.ops.identity_agg import (
+        gathered_feature_mean, gathered_feature_mean_plain)
+    from legion_tpu_torch.ops.segment import fanout_gather_mean
+    from legion_tpu_torch.sampling.block import Block
+    (p, f), (s, d) = mask.shape, x.shape
+    es = x.element_size()
+    read = pos[mask]
+    require(read.numel() == 0 or int(read.max()) < s,
+            "every valid slot names one of the rows")
+    slots, rows = int(read.numel()), int(torch.unique(read).numel())
+    what = f"gathered_feature_mean at {[p, f, s, d]} {x.dtype}"
+    k = gathered_feature_mean(x, pos, mask)
+    want = gathered_feature_mean_plain(x, pos, mask)
+    require(within_bf16(k, want), f"{what} within tolerance")
+    err = float((k.float() - want.float()).abs().max())
+    del k, want
+    blk = Block(nbr_pos=pos, nbr_mask=mask,
+                num_src=torch.tensor(s, dtype=torch.int32, device=x.device),
+                num_dst=torch.tensor(p, dtype=torch.int32, device=x.device))
+    idx, pad = bag_index(s, pos, mask)
+    return {"shape": [p, f, s, d], "dtype": str(x.dtype).split(".")[-1],
+            "valid_slots": slots, "distinct_rows": rows,
+            **bound(rows * d * es + 5 * mask.numel() + p * d * 2, slots * d),
+            "slot_bytes": slots * d * es + 5 * mask.numel() + p * d * 2,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: gathered_feature_mean(x, pos, mask)),
+            "cold_ms": time_ms(lambda: gathered_feature_mean(x, pos, mask),
+                               cold=True),
+            "plain_ms": time_ms(
+                lambda: gathered_feature_mean_plain(x, pos, mask)),
+            "chain_ms": time_ms(lambda: fanout_gather_mean(x, blk)),
+            "chain_cold_ms": time_ms(lambda: fanout_gather_mean(x, blk),
+                                     cold=True),
+            "library_ms": library_bag(x, idx, pad, "mean")}
+
+
+def check_feature_mean_rows(x, pos, mask, out_dtype):
+    """The gathered feature mean against its plain version on the rows a
+    path hands it (x at the path's own width and dtype) and out_dtype, the
+    model's compute dtype: a float32 result within 1e-5 of the mean of the
+    magnitudes (another order of the same f32 sum), a bf16 one within one
+    flipped rounding."""
+    import torch
+
+    from legion_tpu_torch.ops.identity_agg import (
+        gathered_feature_mean, gathered_feature_mean_plain)
+    (p, f), (s, d) = mask.shape, x.shape
+    k = gathered_feature_mean(x, pos, mask, out_dtype)
+    want = gathered_feature_mean_plain(x, pos, mask, out_dtype)
+    ok = (within_f32(k, want, gathered_feature_mean_plain(
+        x.abs(), pos, mask, torch.float32))
+          if out_dtype == torch.float32 else within_bf16(k, want))
+    require(ok, f"gathered_feature_mean at {[p, f, s, d]} {x.dtype} -> "
+                f"{out_dtype} within tolerance")
+    return {"shape": [p, f, s, d], "dtype": str(x.dtype).split(".")[-1],
+            "out_dtype": str(out_dtype).split(".")[-1],
+            "max_abs_err": float((k.float() - want.float()).abs().max())}
+
+
 def layer1_inputs(tr, batch, x):
     """What a step of ``tr`` on ``batch`` (features x gathered) hands K2
     at layer 1: the transformed activations h_t, the block's positions and
@@ -876,6 +960,7 @@ TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
                "sample_neighbors": "sample_neighbors_kernel",
                "grouped_masked_sum": "grouped_masked_sum_kernel",
                "dedup_tail": "dedup_tail_kernel",
+               "gathered_feature_mean": "feature_mean_kernel",
                "edge_softmax_aggregate": "edge_softmax_fwd_kernel",
                # one src-row pass a backward call
                "edge_softmax_aggregate_backward": "edge_softmax_src_kernel"}
@@ -1784,7 +1869,7 @@ def gcn_path(kernels, data, dtype):
             "grouped_masked_sum": (0 if bf16 else t, 0 if bf16 else e),
             "gathered_masked_mean": (t, e),
             "gathered_masked_mean_backward": (t, 0),
-            "dedup_tail": (t, e)}
+            "dedup_tail": (t, e), "gathered_feature_mean": (0, 0)}
     for name, (nt, ne) in want.items():
         require((train_launches[name], eval_launches[name]) == (nt, ne),
                 f"GCN {dtype} launched {name} {nt} times in {t} train steps "
@@ -2285,7 +2370,8 @@ def mesh_dp(kernels, results, data, smi):
     want_train = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
                   "gathered_masked_mean": t,
                   "gathered_masked_mean_backward": t, "gather_rows": t,
-                  "grouped_masked_sum": 0, "dedup_tail": t}
+                  "grouped_masked_sum": 0, "dedup_tail": t,
+                  "gathered_feature_mean": 0}
     want_eval = dict(want_train, sample_neighbors=2 * e,
                      identity_masked_mean=e, gathered_masked_mean=e,
                      gathered_masked_mean_backward=0, gather_rows=e,
@@ -2444,7 +2530,7 @@ def cached_path(kernels, results, dedups):
     h = hist[-1]
     for name in ("sample_neighbors", "gathered_masked_mean",
                  "gathered_masked_mean_backward", "gather_rows",
-                 "dedup_tail"):
+                 "dedup_tail", "gathered_feature_mean"):
         require(launches[name] > 0, f"the cached path launched {name}")
     cost = {k: getattr(res["cost"], k) for k in (
         "feat_capacity", "topo_capacity", "alpha", "saved_feat_bytes")}
@@ -2499,6 +2585,26 @@ def cached_path(kernels, results, dedups):
     results["gathered_masked_mean"]["shapes"]["cached_pa_bf16"] = fwd
     results["gathered_masked_mean_backward"]["shapes"]["cached_pa_bf16"] = bwd
     del h_t, gd
+    # the gathered feature mean on that batch's layer-0 block, over raw
+    # bf16 rows 128 wide (the benchmark's papers100M width; this graph's
+    # are 32) drawn from a seed
+    blk0 = batch.blocks[-1]
+    x0 = torch.randn((caps[2], FEATURE_MEAN_WIDTH), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    fmean = check_feature_mean(x0, blk0.nbr_pos, blk0.nbr_mask)
+    # and on the rows the path itself hands it for that batch: the
+    # graph's own features, at their width, in the cache's dtype
+    nf = int(batch.num_frontier)
+    x0 = torch.zeros((caps[2], data.feature_dim),
+                     dtype=cache_dtype_for(cfg.model.dtype,
+                                           data.feature_dim)[0], device=dev)
+    x0[:nf] = torch.as_tensor(data.features[
+        batch.frontier[:nf].cpu().numpy()]).to(dev, x0.dtype)
+    fmean["path_rows"] = check_feature_mean_rows(
+        x0, blk0.nbr_pos, blk0.nbr_mask, getattr(torch, cfg.model.dtype))
+    results["gathered_feature_mean"].update(
+        {k: fmean[k] for k in KERNEL_KEYS}, cached_pa_bf16=fmean)
+    del x0
     cached_dedups = dedup_cases("cached", graph, hop_frontiers(batch, caps),
                                 [batch.num_seeds, batch.blocks[0].num_src],
                                 cfg.sampler.fanouts, caps, seed=8)
@@ -2527,6 +2633,7 @@ def cached_path(kernels, results, dedups):
           "num_frontier": int(batch.num_frontier),
           "sample_neighbors_hops": hops, "k2": {"forward": fwd,
                                                 "backward": bwd},
+          "gathered_feature_mean": fmean,
           "peak_mem_gb": peak,
           "cost_model": cost, "captured": captured})
     return launches, {
@@ -2693,7 +2800,8 @@ def hybrid_launches(hist, data, hops):
     """The launches of a hybrid driver's run. Training: ``hops`` sampling
     launches a step (hops 1.. of this batch, hop 0 of the next) plus the
     epoch's prologue, K2 forward and backward once a step, K3 for the
-    cached and for the staged rows, the dedup's tail at every hop. The
+    cached and for the staged rows, the dedup's tail at every hop, the
+    gathered feature mean once a step (layer 0 widens 32 -> 256). The
     eval passes (valid after each epoch, test) take batches of
     ``pa_cell.BATCH`` seeds and launch no backward."""
     from legion_tpu_torch.tools import pa_cell
@@ -2706,7 +2814,7 @@ def hybrid_launches(hist, data, hops):
             "gathered_masked_mean_backward": train_steps,
             "gather_rows": 2 * steps,
             "identity_masked_mean": 0, "grouped_masked_sum": 0,
-            "dedup_tail": hops * steps}
+            "dedup_tail": hops * steps, "gathered_feature_mean": steps}
 
 
 def require_hybrid_launches(launches, hist, data, hops, what):
@@ -2989,7 +3097,7 @@ def bigcsr(kernels, results, smi, ref):
         want = {"sample_neighbors": hops * n + 1, "gathered_masked_mean": n,
                 "gathered_masked_mean_backward": n, "gather_rows": 2 * n,
                 "identity_masked_mean": 0, "grouped_masked_sum": 0,
-                "dedup_tail": hops * n}
+                "dedup_tail": hops * n, "gathered_feature_mean": n}
         require(traced == counted == want,
                 f"a steady epoch traced {traced} and counted {counted} "
                 f"launches, want {want}")
@@ -3235,7 +3343,8 @@ def mesh_sharded(kernels, data, dp_losses, dp_ms):
                        "hbm_sharded MeshTrainer against mesh_dp")
     want = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
             "gathered_masked_mean": t, "gathered_masked_mean_backward": t,
-            "gather_rows": 2 * t, "grouped_masked_sum": 0, "dedup_tail": t}
+            "gather_rows": 2 * t, "grouped_masked_sum": 0, "dedup_tail": t,
+            "gathered_feature_mean": 0}
     require(launches == want, f"exact launches {launches} (want {want})")
     m, d = tr.caps[-1], tr.features.shape[1]
     a2a = t * comm.exact_exchange_bytes(m, 1, d)["all_to_all"]
@@ -3604,10 +3713,11 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
     two epochs of 10 steps, each followed by eval on the valid set, then
     the test set. Finite losses, no halo overflow, exact launch counts
     (per train step the sampling kernel twice, K3, K2 forward and
-    backward once each; per eval step the same but K2 backward; K1 and K5
-    never). On one more batch, sampled with one set of grids through the
-    exact exchange and through the psum exchange (whose all-gather and
-    reduce-scatter run through NCCL): bitwise the same draws and feature
+    backward and the gathered feature mean once each; per eval step the
+    same but K2 backward; K1 and K5 never). On one more batch, sampled
+    with one set of grids through the exact exchange and through the psum
+    exchange (whose all-gather and reduce-scatter run through NCCL):
+    bitwise the same draws and feature
     matrix, ids >= 2^24 in the frontier, and the logits within 3e-2 x
     max|logit| of the same batch through the plain versions on the CPU.
     Then every kernel of the path against its plain version on that
@@ -3616,9 +3726,9 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
     of the whole frontier, K2 forward and backward on layer 1's block; and
     K2 at layer 0's block shape (the block's positions into the
     transformed features, width 256), which the path does not run: layer 0
-    widens 32 -> 256 and aggregates the raw features with the plain
-    gather, as the reference's model does. Returns the run's launch
-    counts."""
+    widens 32 -> 256 and aggregates the raw features first, as the
+    reference's model does, with the gathered feature mean. Returns the
+    run's launch counts."""
     import resource
     import types
 
@@ -3710,7 +3820,8 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
     want = {"sample_neighbors": 2 * (t + e), "identity_masked_mean": 0,
             "gathered_masked_mean": t + e,
             "gathered_masked_mean_backward": t, "gather_rows": t + e,
-            "grouped_masked_sum": 0, "dedup_tail": 2 * (t + e)}
+            "grouped_masked_sum": 0, "dedup_tail": 2 * (t + e),
+            "gathered_feature_mean": t + e}
     require(launches == want, f"exact launches over {t} train and {e} eval "
             f"steps: {launches} (want {want})")
     same = (torch.equal(batch.frontier, pbatch.frontier)
@@ -3895,11 +4006,13 @@ def mesh_partitioned_k2(smi):
                       "gathered_masked_mean_backward": t,
                       "gather_rows": k3 * t, "grouped_masked_sum": 0,
                       "dedup_tail": 2 * t, "edge_softmax_aggregate": 0,
-                      "edge_softmax_aggregate_backward": 0}
+                      "edge_softmax_aggregate_backward": 0,
+                      "gathered_feature_mean": t}
             want_e = dict(want_t, sample_neighbors=per_hop * e,
                           gathered_masked_mean=e,
                           gathered_masked_mean_backward=0,
-                          gather_rows=k3 * e, dedup_tail=2 * e)
+                          gather_rows=k3 * e, dedup_tail=2 * e,
+                          gathered_feature_mean=e)
             require(r["train_launches"] == want_t
                     and r["eval_launches"] == want_e,
                     f"{what}: launches per step, train {r['train_launches']}"
@@ -4161,12 +4274,13 @@ def bench_phase(kernels, smi, data, main_rec):
     want = {"fanout": {"identity_masked_mean": 1, "gathered_masked_mean": 1,
                        "gathered_masked_mean_backward": 1, "gather_rows": 1,
                        "sample_neighbors": 2, "grouped_masked_sum": 0,
-                       "dedup_tail": 1},
+                       "dedup_tail": 1, "gathered_feature_mean": 0},
             "coo_segment": {"identity_masked_mean": 0,
                             "gathered_masked_mean": 0,
                             "gathered_masked_mean_backward": 0,
                             "gather_rows": 1, "sample_neighbors": 2,
-                            "grouped_masked_sum": 0, "dedup_tail": 1}}
+                            "grouped_masked_sum": 0, "dedup_tail": 1,
+                            "gathered_feature_mean": 0}}
     main_per_step = per_step(main_rec["launches"], *main_rec["steps"])
     require(main_per_step == want["fanout"],
             f"the main path's launches per step {main_per_step}")
@@ -4373,8 +4487,9 @@ def main():
         require(rec["cap_overflow"] == 0,
                 f"no cap overflow in epoch {rec['epoch']}")
     for name, n in launches.items():
-        if name == "grouped_masked_sum":     # GCN's kernel, below
-            require(n == 0, "SAGE does not reach grouped_masked_sum")
+        # GCN's kernel, below; the feature mean: the cached path's layer 0
+        if name in ("grouped_masked_sum", "gathered_feature_mean"):
+            require(n == 0, f"the main path does not reach {name}")
         else:
             require(n > 0, f"the main path launched {name}")
     emit({"phase": "main_path",
@@ -4533,14 +4648,16 @@ def main():
     announce("summary")
 
     print(smi, flush=True)
-    # launches: the count on the SAGE main path (phase 4), and for K5, which
-    # SAGE does not reach, on the float32 GCN path; launches_by_path holds
-    # every full-width path's count, each taken with the counts set to 0
-    # just before the path ran and read just after
+    # launches: the count on the SAGE main path (phase 4), for K5, which
+    # SAGE does not reach, on the float32 GCN path, and for the gathered
+    # feature mean on the cached path; launches_by_path holds every
+    # full-width path's count, each taken with the counts set to 0 just
+    # before the path ran and read just after
+    home = {"grouped_masked_sum": "gcn_float32",
+            "gathered_feature_mean": "cached_path"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": tpu,
-         "launches": by_path["gcn_float32" if name == "grouped_masked_sum"
-                             else "main_path"][name],
+         "launches": by_path[home.get(name, "main_path")][name],
          "launches_by_path": {p: n[name] for p, n in by_path.items()},
          **{k: results[name][k] for k in KERNEL_KEYS}}
         for name, (_, tpu) in kernels.items()]})

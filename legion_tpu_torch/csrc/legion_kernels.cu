@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of legion_tpu_torch.
 //
-// Each kernel but the dedup's and GAT's replaces a Pallas TPU kernel of
-// legion_tpu/ops/ and computes what that kernel computes, redesigned for
-// the H100 rather than copied block by block; the dedup's tail
-// (dedup_tail_kernel) replaces a chain of PyTorch passes, and GAT's
+// Each kernel but the dedup's, the gathered feature mean's and GAT's
+// replaces a Pallas TPU kernel of legion_tpu/ops/ and computes what that
+// kernel computes, redesigned for the H100 rather than copied block by
+// block; the dedup's tail (dedup_tail_kernel) and the gathered feature mean
+// (feature_mean_kernel) replace chains of PyTorch passes, and GAT's
 // edge-softmax kernels (last below) replace none: legion_tpu has no GAT.
 // All are scans, gathers, reductions or scatters with no matrix product: at
 // the main-path shapes they do < 1 FLOP per byte moved, far below the ~295
@@ -28,6 +29,10 @@
 //    few to fill the card): the tile's ids are loaded once by its lanes, a
 //    tile with no neighbor loads nothing more, and each lane keeps its
 //    index loads in flight together.
+//  * The gathered feature mean reads random 256-byte feature rows named
+//    by an index: bytes bound it, and what reaches them is the number of
+//    row loads in flight. One thread per 16-byte word of a dst row, as K1,
+//    and every valid slot's load of a chunk issued before the first add.
 //  * The dedup's tail streams the sorted ids once; a decoupled look-back
 //    carries its one count across tiles, so it takes one launch.
 //  * GAT's edge-softmax aggregation (last below) gathers each slot's row
@@ -517,6 +522,100 @@ narrow_rows_kernel(const float* __restrict__ in, Tout* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
+// The gathered feature mean: K2's forward contract with norm "mean" over
+// raw feature rows, which carry no gradient, emitted in a type of its own.
+//
+//   out[r, c] = (sum_{j < f, mask[r, j]} x[pos[r, j], c]) / max(count, 1)
+//
+// Replaces no TPU kernel: where SAGE's layer 0 widens a deduplicated outer
+// block, legion_tpu aggregates first and leaves the mean to XLA
+// (legion_tpu/models/sage.py, ops/segment.py fanout_gather_mean). The
+// port ran it as five PyTorch passes over a (P, f, D) tensor: the int64
+// row gather, take_rows' NaN select, the mask product, the sum and a
+// divide. A valid slot whose position lies outside the n rows makes its
+// output row NaN and is never dereferenced, as in K2.
+//
+// Bound: bytes, and the rows are random. At the cached path's layer 0
+// (P ~ 93k dst rows, f = 10, D = 128 bf16) it reads up to 930k rows of
+// 256 bytes (238 MB) named by an index, and writes 24 MB; K2's warp per
+// dst row walks 47-wide rows out of the L2 and would leave most of a
+// warp's lanes idle on a 256-byte row. Design: one thread per (dst row,
+// 16-byte word of the row), as K1, so a group of D / VEC lanes (16 for 128
+// bf16) reads each slot's row in coalesced 16-byte loads. A row gather
+// from device memory is bound by the loads in flight, so the slots go in
+// chunks of kSlots = 16 (one chunk for f <= 16, several for a longer f):
+// a lane reads the chunk's positions and mask bytes (the group's lanes
+// read the same addresses, which the hardware serves as one request), then
+// issues every valid in-range slot's load before the first add, up to 256
+// bytes a lane in flight. Sums in f32,
+// the divide and the rounding to the output type once, each output word
+// written once. D not a multiple of VEC, or a pointer not 16-byte
+// aligned, takes single-element loads.
+// ---------------------------------------------------------------------------
+constexpr int kSlots = 16;
+
+template <typename Tin, typename Tout, int VEC>
+__global__ void __launch_bounds__(kThreads)
+feature_mean_kernel(const Tin* __restrict__ x,
+                    const int32_t* __restrict__ pos,
+                    const uint8_t* __restrict__ mask, Tout* __restrict__ out,
+                    int64_t n, int64_t p, int f, int d) {
+  using Raw = typename Word<static_cast<int>(VEC * sizeof(Tin))>::type;
+  constexpr int kOut = VEC * sizeof(Tout) > 16
+                           ? 16 / static_cast<int>(sizeof(Tout)) : VEC;
+  const int groups = d / VEC;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (t >= p * groups) return;
+  const int64_t r = t / groups;
+  const int c = static_cast<int>(t - r * groups) * VEC;
+  const int32_t* pr = pos + r * f;
+  const uint8_t* mr = mask + r * f;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+  int cnt = 0;
+  bool filled = false;
+  for (int j0 = 0; j0 < f; j0 += kSlots) {
+    int64_t row[kSlots];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      const int j = j0 + u;
+      // both index loads issue before either is tested
+      const int64_t at = j < f ? pr[j] : -1;
+      const bool valid = j < f && mr[j];
+      const bool inside = valid && at >= 0 && at < n;
+      cnt += valid;
+      filled = filled || (valid && !inside);
+      row[u] = inside ? at : -1;
+    }
+    Raw raw[kSlots];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      raw[u] = Raw{};
+      if (row[u] >= 0)
+        raw[u] = *reinterpret_cast<const Raw*>(x + row[u] * d + c);
+    }
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      const Tin* e = reinterpret_cast<const Tin*>(&raw[u]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += to_f32(e[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    acc[i] = filled ? nan_f32() : apply_norm(acc[i], cnt, kMean);
+#pragma unroll
+  for (int i = 0; i < VEC; i += kOut) {
+    float v[kOut];
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) v[k] = acc[i + k];
+    store_vec<kOut>(out + r * d + c + i, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K3: replaces gather_rows_pallas (legion_tpu/ops/gather_pallas.py:68):
 //   out[i] = table[ids[i]], a zero row where ids[i] < 0 (ids >= n clamp to
 //   n - 1, as JAX's gather does).
@@ -842,6 +941,24 @@ void launch_gathered(const void* h, const int32_t* pos, const uint8_t* mask,
   } else {
     gathered_agg_kernel<T, 2, 1><<<blocks, kThreads, 0, stream>>>(
         hi, pos, mask, o, n, p, f, d, ld, norm);
+  }
+}
+
+template <typename Tin, typename Tout>
+void launch_feature_mean(const void* x, const int32_t* pos,
+                         const uint8_t* mask, void* out, int64_t n, int64_t p,
+                         int f, int d, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(Tin);
+  const Tin* xi = static_cast<const Tin*>(x);
+  Tout* o = static_cast<Tout*>(out);
+  if (d % kVec == 0 && aligned(x, 16) && aligned(out, 16)) {
+    feature_mean_kernel<Tin, Tout, kVec>
+        <<<blocks_for(p * (d / kVec)), kThreads, 0, stream>>>(
+            xi, pos, mask, o, n, p, f, d);
+  } else {
+    feature_mean_kernel<Tin, Tout, 1>
+        <<<blocks_for(p * d), kThreads, 0, stream>>>(xi, pos, mask, o, n, p,
+                                                     f, d);
   }
 }
 
@@ -1211,6 +1328,30 @@ int legion_gathered_masked_mean(const void* h, int dtype, const void* pos,
     launch_gathered<float>(h, ps, ms, out, n, p, f, d, ld, norm, s);
   } else if (dtype == kBF16) {
     launch_gathered<__nv_bfloat16>(h, ps, ms, out, n, p, f, d, ld, norm, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// x: (n, d) contiguous; out: (p, d) contiguous in out_dtype.
+int legion_gathered_feature_mean(const void* x, int x_dtype, const void* pos,
+                                 const void* mask, void* out, int out_dtype,
+                                 int64_t n, int64_t p, int f, int d,
+                                 void* stream) {
+  if (p * d == 0) return cudaSuccess;
+  const int32_t* ps = static_cast<const int32_t*>(pos);
+  const uint8_t* ms = static_cast<const uint8_t*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == kF32 && out_dtype == kF32) {
+    launch_feature_mean<float, float>(x, ps, ms, out, n, p, f, d, s);
+  } else if (x_dtype == kF32 && out_dtype == kBF16) {
+    launch_feature_mean<float, __nv_bfloat16>(x, ps, ms, out, n, p, f, d, s);
+  } else if (x_dtype == kBF16 && out_dtype == kF32) {
+    launch_feature_mean<__nv_bfloat16, float>(x, ps, ms, out, n, p, f, d, s);
+  } else if (x_dtype == kBF16 && out_dtype == kBF16) {
+    launch_feature_mean<__nv_bfloat16, __nv_bfloat16>(x, ps, ms, out, n, p, f,
+                                                      d, s);
   } else {
     return cudaErrorInvalidValue;
   }

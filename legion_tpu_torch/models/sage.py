@@ -12,8 +12,10 @@ inside the kernels. The dense products stay ``F.linear``, as the JAX
 package leaves them to XLA.
 
 ``agg`` picks the aggregator, as in the reference's ``AGGREGATORS``:
-``"fanout"`` (default) runs K1 on an identity block and K2 on a gathered
-one; ``"coo_segment"`` is the scatter-based SpMM over the COO edge list
+``"fanout"`` (default) runs K1 on an identity block and, on a gathered
+one, K2 where the layer narrows or its input carries gradient, and
+``gathered_feature_mean`` on rows without gradient that it does not
+narrow; ``"coo_segment"`` is the scatter-based SpMM over the COO edge list
 (``ops/segment.py::segment_mean_coo``, ``index_add_`` in the compute
 dtype) on every block, with no transform-first and the features cast to
 the compute dtype before layer 0. It is the benchmark's baseline and a
@@ -29,9 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
+from legion_tpu_torch.ops.identity_agg import (gathered_feature_mean,
+                                               gathered_masked_mean,
                                                identity_masked_mean)
-from legion_tpu_torch.ops.segment import fanout_gather_mean, segment_mean_coo
+from legion_tpu_torch.ops.segment import segment_mean_coo
 from legion_tpu_torch.sampling.block import Block
 
 AGGREGATORS = ("fanout", "coo_segment")
@@ -89,9 +92,17 @@ class SAGEConv(nn.Module):
             h_t = self._dense(self.fc_neigh, h_src)
             h_neigh = gathered_masked_mean(h_t, block.nbr_pos,
                                            block.nbr_mask)
+        elif h_src.requires_grad:
+            # a layer that does not narrow aggregates first; a deeper
+            # model's activations carry gradient, so K2 takes their mean
+            agg = gathered_masked_mean(h_src, block.nbr_pos, block.nbr_mask)
+            h_neigh = self._dense(self.fc_neigh, agg)
         else:
-            h_neigh = self._dense(self.fc_neigh,
-                                  fanout_gather_mean(h_src, block))
+            # raw features (or an eval step's activations) carry no
+            # gradient: one pass, summed in f32, emitted in the compute dtype
+            agg = gathered_feature_mean(h_src, block.nbr_pos, block.nbr_mask,
+                                        out_dtype=self.dtype)
+            h_neigh = self._dense(self.fc_neigh, agg)
         return self._dense(self.fc_self, h_dst) + h_neigh
 
 

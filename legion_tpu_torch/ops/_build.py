@@ -42,6 +42,9 @@ _SIGNATURES = {
     # h, dtype, pos, mask, out, n, p, f, d, ld (h's row stride), norm, stream
     "legion_gathered_masked_mean": (_P, _I, _P, _P, _P, _L, _L, _I, _I, _L,
                                     _I, _P),
+    # x, x_dtype, pos, mask, out, out_dtype, n, p, f, d, stream
+    "legion_gathered_feature_mean": (_P, _I, _P, _P, _P, _I, _L, _L, _I, _I,
+                                     _P),
     # g, g_dtype, pos, mask, dx (f32 staging), n, p, f, d, ld (dx's row
     # stride), norm, stream
     "legion_gathered_masked_mean_bwd": (_P, _I, _P, _P, _P, _L, _L, _I, _I,

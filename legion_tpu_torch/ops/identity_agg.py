@@ -1,5 +1,6 @@
 """K1 and K2: masked norm-reduce aggregation over a block's fanout slots
-(port of ``legion_tpu/ops/identity_agg_pallas.py``).
+(port of ``legion_tpu/ops/identity_agg_pallas.py``), and the gathered
+feature mean.
 
 * K1 ``identity_masked_mean``: identity-layout blocks (the last hop is
   identity-appended), where the f slots of dst ``d`` are the contiguous
@@ -10,6 +11,11 @@
   gradient. Forward and backward are CUDA kernels bound in one
   ``torch.autograd.Function``; the backward scatter-adds
   ``m[d, j] * scale[d]`` into ``d_h_t[nbr_pos[d, j]]``.
+* ``gathered_feature_mean``: K2's forward with norm "mean" over raw
+  feature rows, emitted in a type of its own and with no backward, for a
+  gathered block whose layer widens (SAGE's layer 0 on a deduplicated
+  outer block aggregates before it transforms). The reference leaves this
+  case to XLA; its kernel replaces no TPU kernel.
 
 norm: "mean" (SAGE), "sqrt" (sum / sqrt(in-degree), GCN) or "sum"; a
 dst with no valid slot gives a zero row. K2 gathers with the fill
@@ -18,7 +24,8 @@ h_t's rows (after a cap overflow) makes its dst row NaN, and the
 backward drops it. The kernels live in
 ``csrc/legion_kernels.cu`` (K1 ``masked_agg_kernel``; K2
 ``gathered_agg_kernel``, ``scatter_rows_kernel`` and
-``narrow_rows_kernel``, one warp per dst row), with their source notes.
+``narrow_rows_kernel``, one warp per dst row; ``feature_mean_kernel``),
+with their source notes.
 A CPU tensor takes the plain PyTorch version beside each kernel; a CUDA
 tensor takes the kernel or raises.
 """
@@ -123,6 +130,52 @@ def identity_masked_mean(x: torch.Tensor, nbr_mask: torch.Tensor,
 
 
 identity_masked_mean.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The gathered feature mean
+# ---------------------------------------------------------------------------
+
+def gathered_feature_mean_plain(x, nbr_pos, nbr_mask,
+                                out_dtype=torch.bfloat16):
+    """K2's plain arithmetic on raw rows: the f32 sum over the valid
+    slots, one divide, one rounding to out_dtype."""
+    rows = take_rows(x, nbr_pos)                          # (P, f, D)
+    return _masked_reduce_plain(rows, nbr_mask, "mean").to(out_dtype)
+
+
+def gathered_feature_mean(x: torch.Tensor, nbr_pos: torch.Tensor,
+                          nbr_mask: torch.Tensor,
+                          out_dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """out[d] = mean over valid slots j of x[nbr_pos[d, j]]; x: (S, D) f32
+    or bf16 raw features, nbr_pos: (P, f) int32, nbr_mask: (P, f) bool;
+    out: (P, D) in out_dtype, summed in f32 and rounded once. A dst with no
+    valid slot gives a zero row, a valid slot past x's rows a NaN row."""
+    _check_args(x, nbr_mask, "mean", out_dtype)
+    if nbr_pos.shape != nbr_mask.shape or nbr_pos.dtype != torch.int32:
+        raise ValueError("nbr_pos must be int32 with nbr_mask's shape")
+    if x.device.type == "cpu":
+        return gathered_feature_mean_plain(x, nbr_pos, nbr_mask, out_dtype)
+    _build.require_cuda(x, nbr_pos, nbr_mask)
+    if x.requires_grad:
+        raise ValueError("gathered_feature_mean has no backward: its input "
+                         "is raw features")
+    p, f = nbr_mask.shape
+    out = torch.empty((p, x.shape[1]), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load_library()
+    _build.check(lib.legion_gathered_feature_mean(
+        x.data_ptr(), _build.DTYPE_CODES[x.dtype], nbr_pos.data_ptr(),
+        nbr_mask.view(torch.uint8).data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[out_dtype], x.shape[0], p, f, x.shape[1],
+        _build.stream_of(x)), "gathered_feature_mean")
+    gathered_feature_mean.launches += 1
+    return out
+
+
+gathered_feature_mean.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -77,7 +77,8 @@ import torch
 from legion_tpu_torch.ops.gat_attention import (
     edge_softmax_aggregate, edge_softmax_aggregate_backward)
 from legion_tpu_torch.ops.gather import gather_rows
-from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
+from legion_tpu_torch.ops.identity_agg import (gathered_feature_mean,
+                                               gathered_masked_mean,
                                                gathered_masked_mean_backward,
                                                identity_masked_mean)
 from legion_tpu_torch.ops.dedup import dedup_tail
@@ -97,7 +98,7 @@ METRICS = ("loss", "edges", "frontier", "cap_overflow") + MODEL_COUNTS
 COUNTED = (identity_masked_mean, gathered_masked_mean,
            gathered_masked_mean_backward, gather_rows, sample_neighbors,
            grouped_masked_sum, dedup_tail, edge_softmax_aggregate,
-           edge_softmax_aggregate_backward)
+           edge_softmax_aggregate_backward, gathered_feature_mean)
 
 
 class GraphPool:

@@ -525,6 +525,8 @@ def test_replays_count_the_launches_their_capture_recorded(
              identity_agg.identity_masked_mean)
     counting(port_sage, "gathered_masked_mean",
              identity_agg.gathered_masked_mean)
+    counting(port_sage, "gathered_feature_mean",
+             identity_agg.gathered_feature_mean)
     g = small_graph
     cfg = _cfg(port_config, "sage", "float32", g.num_classes, dropout=0.3)
     counts = {}
@@ -544,10 +546,11 @@ def test_replays_count_the_launches_their_capture_recorded(
     n, e = tr.plan.train_steps, tr.plan.valid_steps
     # K1, K2, K2 backward (not counted here), K3, sampling, K5, the
     # dedup's tail (hop 1; the last hop is appended), GAT's attention and
-    # its backward (SAGE runs neither)
+    # its backward (SAGE runs neither), the gathered feature mean (layer 0
+    # takes K1 on the appended hop)
     assert counts[True] == counts[False] == (
-        [n, n, 0, n, 2 * n, 0, n, 0, 0],
-        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e, 0, 0])
+        [n, n, 0, n, 2 * n, 0, n, 0, 0, 0],
+        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e, 0, 0, 0])
     assert len(fake_capture) == 2
     for fn in graphed.COUNTED:
         fn.launches = 0

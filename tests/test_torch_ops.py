@@ -12,15 +12,18 @@ the same sum; bitwise for the gather, a copy. K5 in bf16 sums in f32 and
 rounds once, so it lies within 2 bf16 ulps of the f32 result, while the
 reference's bf16 sum rounds at each of its f terms."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from legion_tpu_torch.ops.gather import gather_rows, gather_rows_plain
 from legion_tpu_torch.ops.identity_agg import (
-    gathered_masked_mean, gathered_masked_mean_backward,
-    gathered_masked_mean_backward_plain, gathered_masked_mean_plain,
-    identity_masked_mean, identity_masked_mean_plain)
+    gathered_feature_mean, gathered_feature_mean_plain, gathered_masked_mean,
+    gathered_masked_mean_backward, gathered_masked_mean_backward_plain,
+    gathered_masked_mean_plain, identity_masked_mean,
+    identity_masked_mean_plain)
 from legion_tpu_torch.ops.segment import (fanout_gather_mean,
                                           fanout_gather_sum, segment_mean_coo)
 from legion_tpu_torch.ops.spmm import (grouped_masked_sum,
@@ -33,7 +36,7 @@ NORMS = ("mean", "sqrt", "sum")
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LAUNCH_COUNTED = (identity_masked_mean, gathered_masked_mean,
                   gathered_masked_mean_backward, gather_rows,
-                  grouped_masked_sum)
+                  grouped_masked_sum, gathered_feature_mean)
 
 
 def _identity_case(seed, p=128, f=5, d=128, off=64):
@@ -213,6 +216,130 @@ def test_positions_past_the_rows_fill_nan_as_jax(small_graph):
                                atol=1e-6)
 
 
+# -- the gathered feature mean -----------------------------------------------
+
+def _feature_case(seed, p=96, f=10, s=400, d=128, past=(11, 50)):
+    """Raw feature rows and a gathered block over them: zero-degree dst
+    rows 4 and p - 1, and in the rows ``past`` one valid slot whose
+    position lies past the s rows (after a cap overflow)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((s, d)).astype(np.float32)
+    mask = rng.random((p, f)) > 0.3
+    mask[[4, p - 1]] = False
+    pos = rng.integers(0, s, (p, f)).astype(np.int32)
+    for i, r in enumerate(past):
+        mask[r, i % f] = True
+        pos[r, i % f] = s + 3 * i
+    return x, pos, mask
+
+
+@pytest.mark.parametrize("f", [10, 40])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_gathered_feature_mean_plain_matches_fanout_gather_mean(x_dtype, f):
+    """The plain version against the port's ``fanout_gather_mean`` in the
+    input's dtype: equal at 1e-6 in float32 (two float32 sums), within 1
+    bf16 ulp in bf16, where the old chain rounds the sum and then the
+    quotient and the new mean rounds once. Zero rows where no slot is
+    valid, NaN rows exactly where a valid slot lies past the rows, f > 32
+    (more than one chunk of the kernel's slots)."""
+    x, pos, mask = _feature_case(3, f=f)
+    dt = TORCH_DT[x_dtype]
+    xt = torch.from_numpy(x).to(dt)
+    got = gathered_feature_mean(xt, torch.from_numpy(pos),
+                                torch.from_numpy(mask), out_dtype=dt)
+    want = fanout_gather_mean(xt, Block(
+        nbr_pos=torch.from_numpy(pos), nbr_mask=torch.from_numpy(mask),
+        num_src=torch.tensor(400, dtype=torch.int32),
+        num_dst=torch.tensor(96, dtype=torch.int32)))
+    assert got.dtype == want.dtype == dt and got.shape == (96, 128)
+    nan_rows = np.zeros(96, bool)
+    nan_rows[[11, 50]] = True
+    np.testing.assert_array_equal(torch.isnan(got).any(1).numpy(), nan_rows)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert (got[4] == 0).all() and (got[-1] == 0).all()
+    ok = torch.from_numpy(~nan_rows)
+    a, b = got[ok].float(), want[ok].float()
+    if x_dtype == "float32":
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    else:
+        assert bool(((a - b).abs() <= BF16_ULP * b.abs() + 1e-30).all())
+
+
+@pytest.mark.parametrize("f", [10, 40])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_gathered_feature_mean_plain_matches_jax(x_dtype, f):
+    """Against legion_tpu's ``fanout_gather_mean`` (float32, on the same
+    input values) at the plain aggregators' 1e-5; the bf16 result is the
+    float32 one rounded once, and NaN fills the same rows."""
+    import jax.numpy as jnp
+
+    from legion_tpu.ops.segment import fanout_gather_mean as jax_fanout_mean
+    from legion_tpu.sampling.block import Block as JaxBlock
+    x, pos, mask = _feature_case(5, f=f)
+    xt = torch.from_numpy(x).to(TORCH_DT[x_dtype])
+    jblk = JaxBlock(nbr_pos=jnp.asarray(pos), nbr_mask=jnp.asarray(mask),
+                    num_src=jnp.int32(x.shape[0]), num_dst=jnp.int32(96))
+    want = np.asarray(jax_fanout_mean(jnp.asarray(xt.float().numpy()), jblk))
+    pt, mt = torch.from_numpy(pos), torch.from_numpy(mask)
+    got = gathered_feature_mean(xt, pt, mt, out_dtype=torch.float32)
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    bf = gathered_feature_mean(xt, pt, mt)
+    assert bf.dtype == torch.bfloat16
+    torch.testing.assert_close(bf, got.to(torch.bfloat16), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("identity", "identity_masked_mean"),
+    ("narrowing", "gathered_masked_mean"),
+    ("widening", "gathered_feature_mean"),
+    ("widening_with_gradient", "gathered_masked_mean")])
+def test_sageconv_takes_the_feature_mean_on_raw_rows_it_widens(
+        monkeypatch, case, want):
+    """``SAGEConv`` calls ``gathered_feature_mean`` on a gathered block it
+    does not narrow whose rows carry no gradient (raw features), and only
+    there: an identity block takes K1, a narrowing layer K2, and a deeper
+    model's activations, which carry gradient, K2 on the rows themselves.
+    The output is the plain mean's, through fc_neigh, and so is the
+    gradient of the rows."""
+    from legion_tpu_torch.models import sage
+    spies = {name: mock.Mock(wraps=getattr(sage, name)) for name in (
+        "identity_masked_mean", "gathered_masked_mean",
+        "gathered_feature_mean")}
+    for name, spy in spies.items():
+        monkeypatch.setattr(sage, name, spy)
+    x, pos, mask = _feature_case(7, p=32, f=4, s=200, d=16, past=())
+    off = None
+    if case == "identity":
+        off = 200 - 32 * 4
+        pos = (off + np.arange(32 * 4).reshape(32, 4)).astype(np.int32)
+    blk = Block(nbr_pos=torch.from_numpy(pos), nbr_mask=torch.from_numpy(mask),
+                num_src=torch.tensor(200, dtype=torch.int32),
+                num_dst=torch.tensor(32, dtype=torch.int32),
+                identity_offset=off)
+    conv = sage.SAGEConv(16, 8 if case == "narrowing" else 24)
+    conv.reset_parameters(torch.Generator().manual_seed(0))
+    grad = case == "widening_with_gradient"
+    xt = torch.from_numpy(x).requires_grad_(grad)
+    out = conv(blk, xt)
+    assert {k: s.call_count for k, s in spies.items()} == {
+        k: int(k == want) for k in spies}
+    assert out.shape == (32, 8 if case == "narrowing" else 24)
+    if case.startswith("widening"):
+        xp = torch.from_numpy(x).requires_grad_(grad)
+        mean = gathered_feature_mean_plain(xp, blk.nbr_pos, blk.nbr_mask,
+                                           torch.float32)
+        want_out = conv.fc_self(xp[:32]) + conv.fc_neigh(mean)
+        torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5)
+    if grad:
+        w = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (32, 24)).astype(np.float32))
+        (out * w).sum().backward()
+        (want_out * w).sum().backward()
+        torch.testing.assert_close(xt.grad, xp.grad, rtol=1e-5, atol=1e-5)
+
+
 # -- K3 -----------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,d", [(256, 100), (512, 128), (300, 47)])
@@ -384,6 +511,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                                             300))
     ids = torch.tensor([3, -1, 0], dtype=torch.int32)
     assert torch.equal(gather_rows(xt, ids), gather_rows_plain(xt, ids))
+    assert torch.equal(gathered_feature_mean(*args),
+                       gathered_feature_mean_plain(*args))
     x2, gm, _ = _grouped_case(3, 16, 4, 24, True)
     assert torch.equal(
         grouped_masked_sum(torch.from_numpy(x2), torch.from_numpy(gm), 4),
@@ -408,6 +537,13 @@ def test_wrappers_reject_bad_arguments():
         gathered_masked_mean(torch.from_numpy(h),
                              torch.from_numpy(pos).long(),
                              torch.from_numpy(m2))
+    with pytest.raises(ValueError, match="int32"):
+        gathered_feature_mean(torch.from_numpy(h),
+                              torch.from_numpy(pos).long(),
+                              torch.from_numpy(m2))
+    with pytest.raises(ValueError, match="dtype"):
+        gathered_feature_mean(torch.from_numpy(h).double(),
+                              torch.from_numpy(pos), torch.from_numpy(m2))
     with pytest.raises(ValueError, match="int32"):
         gather_rows(xt, torch.tensor([0, 1]))
     x2 = torch.zeros(12, 8)
@@ -508,6 +644,50 @@ def test_cuda_gathered_masked_mean_fills_nan(cuda, dtype):
         gathered_masked_mean_backward_plain(g, pt, mt, 500, "mean",
                                             torch.float32),
         rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,f,start", [(128, 10, 0), (128, 40, 0),
+                                       (47, 7, 1), (100, 3, 1)])
+def test_cuda_gathered_feature_mean(cuda, d, f, start, x_dtype, out_dtype):
+    """The kernel against its plain version on the card: one launch; a
+    float32 result within 1e-5 of the mean of the magnitudes (another
+    order of the same f32 sum), a bf16 one within one flipped rounding;
+    zero rows where no slot is valid, NaN in exactly the plain version's
+    rows where a valid slot lies past the rows, f > 16 (several chunks of
+    slots). ``start`` 1 hands in rows that begin one row into their
+    buffer: for d = 47 and 100 no 16-byte boundary, the single-element
+    loads."""
+    x, pos, mask = _feature_case(16, p=3000, f=f, s=20000, d=d,
+                                 past=(11, 50, 2999))
+    pos[[11, 50, 2999], [0, 1, 2]] = [20000, 10 ** 6, 2 ** 31 - 1]
+    full = torch.from_numpy(np.concatenate([x[:1], x])).to(
+        cuda, TORCH_DT[x_dtype])
+    xt = full[1:] if start else full[:-1]
+    pt, mt = torch.from_numpy(pos).to(cuda), torch.from_numpy(mask).to(cuda)
+    odt = TORCH_DT[out_dtype]
+    n0 = gathered_feature_mean.launches
+    got = gathered_feature_mean(xt, pt, mt, odt)
+    assert gathered_feature_mean.launches == n0 + 1
+    want = gathered_feature_mean_plain(xt, pt, mt, odt)
+    torch.cuda.synchronize()
+    assert got.dtype == odt and got.shape == (3000, d)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert nan.any(1).nonzero().flatten().tolist() == [11, 50, 2999]
+    assert (got[4] == 0).all()
+    ok = ~nan.any(1)
+    if odt == torch.float32:
+        mag = gathered_feature_mean_plain(xt.abs(), pt, mt, torch.float32)
+        assert bool(((got - want)[ok].abs() <= 1e-5 * mag[ok] + 1e-30).all())
+    else:
+        _bf16_close(got[ok], want[ok])
+    with pytest.raises(ValueError, match="backward"):
+        gathered_feature_mean(xt.clone().requires_grad_(True), pt, mt)
+    with pytest.raises(ValueError, match="device"):
+        gathered_feature_mean(xt, pt, mt.cpu())
 
 
 @pytest.mark.cuda

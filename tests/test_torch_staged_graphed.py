@@ -527,6 +527,7 @@ def _counting(monkeypatch):
     count(topo_cache, "sample_neighbors", sample.sample_neighbors)
     count(feature_cache, "gather_rows", gather.gather_rows)
     count(sage, "gathered_masked_mean", identity_agg.gathered_masked_mean)
+    count(sage, "gathered_feature_mean", identity_agg.gathered_feature_mean)
 
 
 @pytest.mark.parametrize("path,n", [("cached", 2), ("hybrid", 3)])
@@ -569,6 +570,45 @@ def test_replays_count_the_launches_of_the_steps(monkeypatch, path, n):
     assert train[at["dedup_tail"]] == hops * STEPS
     assert both[at["dedup_tail"]] == hops * (STEPS + EVAL_STEPS)
     assert train[at["gathered_masked_mean"]] > 0
+
+
+@pytest.mark.parametrize("path,n", [("cached", 2), ("hybrid", 2)])
+def test_a_widening_layer_0_launches_the_feature_mean_once_a_step(
+        monkeypatch, path, n):
+    """With layer 0 wider than the features (32 -> 64), its gathered
+    block takes ``gathered_feature_mean`` once a train and an eval step,
+    captured or not, and layer 1 (64 -> 7) K2 once; with the narrowing
+    layer 0 of the other tests (32 -> 16) it launches never."""
+    _counting(monkeypatch)
+    g = _graph()
+    seeds, labels = _seeds(g)
+    names = [fn.__name__ for fn in graphed.COUNTED]
+    mean = names.index("gathered_feature_mean")
+    k2 = names.index("gathered_masked_mean")
+    counts = {}
+    for hidden, captured in ((64, False), (64, True), (HIDDEN, False)):
+        model = build_model("sage", g.features.shape[1], hidden, 7, n, 0.0,
+                            generator=torch.Generator().manual_seed(0))
+        with _capturing(captured):
+            for fn in graphed.COUNTED:
+                fn.launches = 0
+            tr, state = (_cached if path == "cached" else _hybrid)(
+                g, n, pool=graphed.GraphPool("cpu"), model=model)
+            tr.run_epoch(state, seeds, labels,
+                         *(() if path == "cached" else (0,)))
+            train = [fn.launches for fn in graphed.COUNTED]
+            tr.eval_epoch(tr.model, *_eval_seeds(g))
+            counts[hidden, captured] = (
+                train, [fn.launches for fn in graphed.COUNTED])
+    for fn in graphed.COUNTED:
+        fn.launches = 0
+    assert counts[64, True] == counts[64, False]
+    train, both = counts[64, True]
+    assert (train[mean], both[mean]) == (STEPS, STEPS + EVAL_STEPS)
+    assert (train[k2], both[k2]) == (STEPS, STEPS + EVAL_STEPS)
+    train, both = counts[HIDDEN, False]
+    assert (train[mean], both[mean]) == (0, 0)
+    assert train[k2] == 2 * STEPS
 
 
 def test_a_rebuilt_cache_captures_anew(monkeypatch):
