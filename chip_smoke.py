@@ -138,8 +138,9 @@ exits non-zero:
    cut from the reference's 4-8 ranks to the machine's one card), each
    against its single-device twin in this call: ``MeshTrainer`` on
    ``feature_placement="hbm_sharded"`` with ``mesh_dp``'s configuration
-   (run right after it on its graph), ``run_striped_training`` on phase
-   6's cell and ``run_striped_hybrid_training`` on phase 8's. Step 0's
+   (run right after it on its graph), ``run_cached_training`` on a mesh
+   on phase 6's cell and ``run_hybrid_training`` on a mesh on phase 8's.
+   Step 0's
    loss bitwise, the rest within ``STRIPED_LOSS_RTOL`` (bf16: 1e-4);
    equal hit rate, hot fraction, staging overflow, host bytes and packed
    reads; no exchange overflow; exact launches (K3 once more a step than
@@ -272,7 +273,7 @@ exits non-zero:
    every real node, its run, feature row and label moves up by one), so
    every real run starts past edge 2^31, beside a twin where node 0 has
    degree 0. ``run_hybrid_training`` (its stages captured) and
-   ``run_striped_hybrid_training`` at one NCCL rank run two epochs each
+   ``run_hybrid_training`` on a mesh of one NCCL rank run two epochs each
    on the big CSR: phase 8's checks (finite losses, both caches fed, hit
    and hot fractions inside (0, 1), 2 reads a step plus one, exact
    launches), a steady epoch traced with each kernel as bookkept, the
@@ -3037,8 +3038,6 @@ def bigcsr(kernels, results, smi, ref):
     from legion_tpu_torch.tools import hybrid_cell, pa_cell, scale
     from legion_tpu_torch.train.hybrid_driver import (presample_hotness_host,
                                                       run_hybrid_training)
-    from legion_tpu_torch.train.striped_hybrid_driver import (
-        run_striped_hybrid_training)
     t_phase = time.perf_counter()
     lines = []
     log = _phase_log(lines)
@@ -3141,7 +3140,8 @@ def bigcsr(kernels, results, smi, ref):
                 backend = dist.get_backend()
                 reset_launches(kernels)
                 t0 = time.perf_counter()
-                sres = run_striped_hybrid_training(cfg, big, "cuda", log=log)
+                sres = run_hybrid_training(cfg, big, "cuda",
+                                           mesh=mesh.make_mesh(1), log=log)
                 striped_s = time.perf_counter() - t0
                 s_launches = read_launches(kernels)
                 st = sres["trainer"]
@@ -3369,8 +3369,8 @@ def _phase_log(lines):
 
 
 def striped_cached(kernels, results, ref):
-    """Part of phase "mesh_striped": ``run_striped_training`` at world
-    size 1 on phase 6's cell against phase 6's ``run_cached_training``
+    """Part of phase "mesh_striped": ``run_cached_training`` on a mesh of
+    world size 1 on phase 6's cell against phase 6's run without one
     (``ref``): the same seeds, so step 0 bitwise and the rest within
     ``STRIPED_LOSS_RTOL``, and the same hit rate, staging overflow and
     host bytes, no exchange overflow, and exact launches (K3 once more a
@@ -3383,21 +3383,23 @@ def striped_cached(kernels, results, ref):
     import torch.distributed as dist
 
     from legion_tpu_torch.cache.striped_pipeline import StripedCachedTrainer
+    from legion_tpu_torch.parallel import mesh
     from legion_tpu_torch.sampling.sampler import sample_batch
     from legion_tpu_torch.tools import pa_cell
     from legion_tpu_torch.train.cached_driver import run_cached_training
-    from legion_tpu_torch.train.striped_driver import run_striped_training
     lines = []
     data, _, _ = pa_cell.dataset(REPO, _phase_log(lines))
     cfg = pa_cell.config(epochs=2)
     reset_launches(kernels)
     t0 = time.perf_counter()
-    res = run_striped_training(cfg, data, "cuda", log=_phase_log(lines))
+    res = run_cached_training(cfg, data, "cuda", mesh=mesh.make_mesh(1),
+                              log=_phase_log(lines))
     run_s = time.perf_counter() - t0
     launches = read_launches(kernels)
     hist, tr = res["history"], res["trainer"]
     worst = loss_drift([h["losses"] for h in hist], ref["losses"],
-                       "run_striped_training against run_cached_training")
+                       "run_cached_training on a mesh against "
+                       "run_cached_training")
     for h, w in zip(hist, ref["epochs"]):
         for key in ("cache_hit_rate", "staging_overflow", "host_gb"):
             require(h[key] == w[key], f"epoch {h['epoch']}: {key} "
@@ -3473,9 +3475,9 @@ def striped_cached(kernels, results, ref):
 
 
 def striped_hybrid(kernels, results, ref):
-    """Part of phase "mesh_striped": ``run_striped_hybrid_training`` at
-    world size 1 on phase 8's cell against phase 8's
-    ``run_hybrid_training`` (``ref``): step 0 bitwise and the rest within
+    """Part of phase "mesh_striped": ``run_hybrid_training`` on a mesh of
+    world size 1 on phase 8's cell against phase 8's run without one
+    (``ref``): step 0 bitwise and the rest within
     ``STRIPED_LOSS_RTOL``, the same hot fraction, hit rate and packed
     reads, no exchange overflow, exact launches (K3 once more a step).
     Then one batch through the trainer's own stages: the sampling kernel
@@ -3487,25 +3489,24 @@ def striped_hybrid(kernels, results, ref):
     import torch
 
     from legion_tpu_torch.cache.striped_hybrid import StripedHybridTrainer
+    from legion_tpu_torch.parallel import mesh
     from legion_tpu_torch.parallel.feature_exchange import (owner_cap,
                                                             route_by_owner)
     from legion_tpu_torch.tools import hybrid_cell, pa_cell
     from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
-    from legion_tpu_torch.train.striped_hybrid_driver import (
-        run_striped_hybrid_training)
     from legion_tpu_torch.utils import comm
     lines = []
     data, _, _ = hybrid_cell.dataset(REPO, _phase_log(lines))
     cfg = hybrid_cell.config(epochs=2)
     reset_launches(kernels)
     t0 = time.perf_counter()
-    res = run_striped_hybrid_training(cfg, data, "cuda",
-                                      log=_phase_log(lines))
+    res = run_hybrid_training(cfg, data, "cuda", mesh=mesh.make_mesh(1),
+                              log=_phase_log(lines))
     run_s = time.perf_counter() - t0
     launches = read_launches(kernels)
     hist, tr = res["history"], res["trainer"]
     worst = loss_drift([h["losses"] for h in hist], ref["losses"],
-                       "run_striped_hybrid_training against "
+                       "run_hybrid_training on a mesh against "
                        "run_hybrid_training")
     for h, w in zip(hist, ref["epochs"]):
         for key in ("topo_hot_fraction", "feat_hit_rate", "fetches",

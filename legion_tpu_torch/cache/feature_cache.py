@@ -9,18 +9,23 @@ rows gathered from host memory into a pinned buffer and copied to the
 device, so the host->device bytes are exactly the misses' rows.
 
 ``combine_rows`` merges cached and staged rows with two calls of the
-gather kernel K3 (``ops/gather.py``) and one ``torch.where``.
+gather kernel K3 (``ops/gather.py``) and one ``torch.where``. The
+staging policy of the drivers closes the module: the probe of two fresh
+batches, the probed capacity, its growth after an overflow and the
+hybrid path's fixed capacity.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from legion_tpu_torch.data.format import host_tensor
 from legion_tpu_torch.ops.gather import gather_rows
+from legion_tpu_torch.parallel.feature_exchange import owner_counts
+from legion_tpu_torch.sampling.sampler import DeviceGraph, sample_batch
 from legion_tpu_torch.utils import trace
 
 
@@ -169,3 +174,65 @@ class FeatureCache:
         out[:n].copy_(host[:n], non_blocking=on_cuda)
         trace.count("h2d_bytes", n * host.shape[1] * host.element_size())
         return out
+
+
+# ---- staging policy ---------------------------------------------------------
+
+def round128(x) -> int:
+    return (int(x) + 127) // 128 * 128
+
+
+def probe_staging(graph: DeviceGraph, shards: List[np.ndarray], batch: int,
+                  fanouts: Sequence[int], caps: Sequence[int],
+                  hot_ids: torch.Tensor, seed: int,
+                  group: int = 1) -> Tuple[int, int]:
+    """An unbiased probe of two fresh batches (batch i of shard
+    ``i % len(shards)``) sampled at ``caps`` and planned against the built
+    hot set ``hot_ids`` (sorted). Returns (the most misses of a batch, and
+    on a cache group of ``group`` ranks the most hits of one owner, id %
+    ``group``, in a batch; 0 for ``group`` 1)."""
+    device = hot_ids.device
+    prng = np.random.default_rng(seed * 31 + 7)
+    miss = owner = 0
+    with torch.no_grad():
+        for i in range(2):
+            sb = prng.permutation(shards[i % len(shards)])[:batch]
+            sb = sb.astype(np.int32)
+            if len(sb) < batch:
+                sb = np.pad(sb, (0, batch - len(sb)), constant_values=-1)
+            out = sample_batch(
+                graph, torch.from_numpy(sb).to(device),
+                torch.tensor(batch, dtype=torch.int32, device=device),
+                torch.zeros((batch,), dtype=torch.int32, device=device),
+                fanouts, caps, dedup_last=True,
+                generator=torch.Generator(device=device).manual_seed(
+                    9000 + i))
+            pl = FeatureCache.plan_ids(hot_ids, out.frontier, 128)
+            miss = max(miss, int(pl.num_miss))
+            if group > 1:
+                owner = max(owner, int(owner_counts(
+                    torch.where(pl.hit, pl.slot, -1), group).max()))
+    return miss, owner
+
+
+def probed_miss_cap(expected, frontier_cap: int) -> int:
+    """Staging rows for ``expected`` misses a step: 1.5x them plus 1/16 of
+    the frontier cap and 1024, in 128s, at most the frontier cap."""
+    return int(min(frontier_cap,
+                   round128(expected * 1.5 + frontier_cap / 16 + 1024)))
+
+
+def grown_miss_cap(miss_cap: int, overflow: int, steps: int,
+                   frontier_cap: int) -> int:
+    """Staging rows after an epoch of ``steps`` steps that overflowed
+    ``miss_cap`` by ``overflow`` rows: twice the worst observed per-step
+    need, in 128s, at most the frontier cap."""
+    need = miss_cap + overflow / max(steps, 1)
+    return int(min(frontier_cap, round128(need * 2.0)))
+
+
+def fixed_miss_cap(frontier_cap: int) -> int:
+    """The reference hybrid driver's staging rows, neither probed nor
+    grown: 1/16 of the frontier cap plus 1024, in 128s, at most the
+    frontier cap."""
+    return int(min(frontier_cap, round128(frontier_cap // 16 + 1024)))

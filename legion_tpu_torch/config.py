@@ -30,13 +30,13 @@ Which path reads each field:
   ``utils/trace.py`` on its host rows; the other drivers accept it and do
   not read it.
 * ``cache``: ``enabled`` the dispatch; ``budget_bytes`` and
-  ``cost_model_granularity`` the cost model of the cached, hybrid and
-  striped drivers; ``presample_steps`` their presample. ``group_size``:
-  the ranks of a cache group, read by ``parallel.mesh.make_mesh`` for
-  ``MeshTrainer`` and the striped drivers
-  (``train/striped_driver.py``, ``train/striped_hybrid_driver.py``),
-  whose cost model takes the group's budget (``group_size`` x a
-  device's); the single-device drivers pass it to their cost model too.
+  ``cost_model_granularity`` the cost model of the cached and hybrid
+  drivers; ``presample_steps`` their presample. ``group_size``: the
+  ranks of a cache group, read by ``parallel.mesh.make_mesh`` for
+  ``MeshTrainer`` and for the cached and hybrid drivers on a mesh
+  (``train/cached_driver.py``, ``train/hybrid_driver.py``), whose cost
+  model takes the group's budget (``group_size`` x a device's); without
+  a mesh they pass it to their cost model too.
 * ``parallel``: ``num_devices`` the dispatch, ``MeshTrainer`` and the
   edge-partitioned driver; the ``halo_*`` fields that driver
   (``train/partitioned_driver.py``: the exchange, and the slack and

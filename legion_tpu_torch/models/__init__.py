@@ -1,12 +1,26 @@
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+from legion_tpu_torch.config import ModelConfig
 from legion_tpu_torch.models.gat import GAT  # noqa: F401
 from legion_tpu_torch.models.gcn import GCN  # noqa: F401
 from legion_tpu_torch.models.sage import SAGE  # noqa: F401
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def model_args(model: ModelConfig, in_dim: int, num_classes: int,
+               seed: int) -> Dict:
+    """``build_model``'s keyword arguments for the configuration ``model``
+    at input width ``in_dim`` and ``num_classes`` classes, its initial
+    weights drawn from a CPU generator seeded ``seed``: the one mapping
+    from the config to the model."""
+    return dict(arch=model.arch, in_dim=in_dim, hidden_dim=model.hidden_dim,
+                num_classes=num_classes, num_layers=model.num_layers,
+                dropout=model.dropout, dtype=model.dtype,
+                num_heads=model.num_heads,
+                generator=torch.Generator().manual_seed(seed))
 
 
 def build_model(arch: str, in_dim: int, hidden_dim: int, num_classes: int,

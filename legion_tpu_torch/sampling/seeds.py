@@ -97,6 +97,15 @@ def epoch_train_seeds(rng: np.random.Generator, shard_ids: List[np.ndarray],
     return out, counts
 
 
+def seeds_of_epoch(seed: int, epoch: int, shard_ids: List[np.ndarray],
+                   plan: SeedPlan) -> np.ndarray:
+    """Epoch ``epoch``'s (num_shards, steps, batch) train seeds of a run
+    seeded ``seed``: ``epoch_train_seeds`` on a generator seeded from the
+    two, the one rule of every driver."""
+    return epoch_train_seeds(np.random.default_rng(seed * 100003 + epoch),
+                             shard_ids, plan)[0]
+
+
 def epoch_eval_seeds(shard_ids: List[np.ndarray], steps: int,
                      per_shard_batch: Tuple[int, ...], pad_batch: int
                      ) -> Tuple[np.ndarray, np.ndarray]:

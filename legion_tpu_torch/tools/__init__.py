@@ -5,8 +5,6 @@
   share;
 * ``profile_cached``: that cell's steady-state breakdown under
   ``torch.profiler`` (``python -m legion_tpu_torch.tools.profile_cached``);
-* ``ab_trainer.py``: a main-path A/B of two checkouts on the same saved
-  graph (run as a script, see its docstring);
 * ``k2_bench.py``: K2's forward, backward and the backward's three passes
   at the shapes the port runs them at, of this checkout or another one
   (run as a script, see its docstring);

@@ -1,6 +1,6 @@
 """The three cache-group paths at cache axis 2 against cache axis 1, on two
 ranks of one machine: ``MeshTrainer`` on ``feature_placement="hbm_sharded"``,
-``run_striped_training`` and ``run_striped_hybrid_training``.
+``run_cached_training`` and ``run_hybrid_training`` on a mesh.
 
     python -m legion_tpu_torch.tools.cache_group_cell OUT.json
     python -m legion_tpu_torch.tools.cache_group_cell OUT.json --device cpu --small
@@ -42,9 +42,8 @@ from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.parallel.feature_exchange import sharded_row_fetch_stats
 from legion_tpu_torch.parallel.trainer import MeshTrainer
 from legion_tpu_torch.sampling.sampler import sample_batch
-from legion_tpu_torch.train.striped_driver import run_striped_training
-from legion_tpu_torch.train.striped_hybrid_driver import (
-    run_striped_hybrid_training)
+from legion_tpu_torch.train.cached_driver import run_cached_training
+from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
 from legion_tpu_torch.utils import comm
 
 CLASSES = 47
@@ -163,8 +162,8 @@ def run_rank(device: torch.device, out_path: str, small: bool) -> None:
 
         # striped cached training
         _reset()
-        res = run_striped_training(cfgs["cached"], data, device, mesh=m,
-                                   log=q)
+        res = run_cached_training(cfgs["cached"], data, device, mesh=m,
+                                  log=q)
         out["launches"][f"cached_k{k}"] = _read(device)
         tr = res["trainer"]
         out[f"cached_k{k}"] = {"history": _history(res["history"]),
@@ -178,8 +177,8 @@ def run_rank(device: torch.device, out_path: str, small: bool) -> None:
 
         # striped hybrid training
         _reset()
-        res = run_striped_hybrid_training(cfgs["hybrid"], data, device,
-                                          mesh=m, log=q)
+        res = run_hybrid_training(cfgs["hybrid"], data, device, mesh=m,
+                                  log=q)
         out["launches"][f"hybrid_k{k}"] = _read(device)
         tr = res["trainer"]
         out[f"hybrid_k{k}"] = {"history": _history(res["history"]),

@@ -25,7 +25,7 @@ host feature and topology GB (useful and copied), staging overflow, host
 sampler seconds and loss, the peak host resident set, the peak device
 memory and the card's name and power limit.
 
-``--mesh`` runs the striped hybrid driver on the same graph with the
+``--mesh`` runs the hybrid driver on a mesh, on the same graph with the
 reference's mesh settings instead (fanouts (5, 4), batch 64, hidden 32,
 float32, budget 256 MiB, 2 presample steps, cache group 2, one epoch of
 two steps a rank): the reference ran it on a virtual CPU mesh; here two
@@ -59,8 +59,6 @@ from legion_tpu_torch.data import synthetic
 from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.tools import hybrid_cell, pa_cell, scale
 from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
-from legion_tpu_torch.train.striped_hybrid_driver import (
-    run_striped_hybrid_training)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -88,7 +86,7 @@ def parse(argv=None) -> argparse.Namespace:
     p.add_argument("steps", nargs="?", type=int, default=6,
                    help="training steps of each epoch")
     p.add_argument("--mesh", action="store_true",
-                   help="the striped hybrid driver on two ranks instead")
+                   help="the hybrid driver on a two-rank mesh instead")
     p.add_argument("--probe", action="store_true",
                    help="the machine's RAM, disk, cores and generator rate")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -132,8 +130,9 @@ def _mesh_rank(device, cfg_json: str, path: str, out_dir: str) -> None:
         ids[ids % MESH_RANKS == r][: MESH_STEPS * MESH_BATCH + 1]
         for r in range(MESH_RANKS)])
     t0 = time.perf_counter()
-    res = run_striped_hybrid_training(cfg, data, device,
-                                      log=lambda s: None)
+    res = run_hybrid_training(cfg, data, device,
+                              mesh=mesh.make_mesh(cfg.cache.group_size),
+                              log=lambda s: None)
     tr = res["trainer"]
     scale.shares(tr.host_indices, data.indices, "the host CSR's indices")
     h = res["history"][-1]
@@ -154,7 +153,7 @@ def _mesh_rank(device, cfg_json: str, path: str, out_dir: str) -> None:
 
 
 def run_mesh(args, data, path: str) -> dict:
-    """Two ranks of the striped hybrid driver, each loading the graph by
+    """Two ranks of the hybrid driver on a mesh, each loading the graph by
     mmap; on the card both share it over gloo."""
     cfg = mesh_config()
     with tempfile.TemporaryDirectory() as d:

@@ -16,12 +16,13 @@ chosen driver cannot honour, and dispatches as ``train.py`` does: to
 ``--devices`` other than 1, on that many ranks (one card each; gloo ranks
 with ``--device cpu``; 0 = every card this process sees) to
 ``MeshTrainer`` (``--features hbm_sharded`` stripes the table over each
-cache group of ``--cache-group`` ranks), ``run_striped_training`` (with
-``--cache-budget-gb``) or ``run_striped_hybrid_training`` (with
-``--topology host``). ``--partitioned`` runs ``run_partitioned_training``
-on ``--devices`` ranks (world size 1 in this process; under torchrun, on
-the ranks torchrun started: ``parallel/launch.py``), with a dataset
-directory's ``partition_<devices>_bn`` where it has one.
+cache group of ``--cache-group`` ranks), ``run_cached_training`` (with
+``--cache-budget-gb``) or ``run_hybrid_training`` (with ``--topology
+host``), each given the mesh of ``--cache-group``-rank cache groups.
+``--partitioned`` runs ``run_partitioned_training`` on ``--devices``
+ranks (world size 1 in this process; under torchrun, on the ranks
+torchrun started: ``parallel/launch.py``), with a dataset directory's
+``partition_<devices>_bn`` where it has one.
 """
 
 from __future__ import annotations
@@ -285,9 +286,8 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         if not cfg.cache.enabled:
             _warn("--topology host without --cache-budget-gb: zero hot "
                   "cache, every hop/feature is host-served")
-        from legion_tpu_torch.train.striped_hybrid_driver import (
-            striped_hybrid_rank)
-        _spawn(striped_hybrid_rank, args, cfg, source)
+        from legion_tpu_torch.train.hybrid_driver import hybrid_rank
+        _spawn(hybrid_rank, args, cfg, source)
     elif topo_host:
         if cfg.cache.group_size > 1:
             _warn("--cache-group > 1 needs --devices > 1; running "
@@ -298,8 +298,8 @@ def dispatch(args, ap, cfg: Config, data, source, topo_host: bool) -> None:
         from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
         run_hybrid_training(cfg, data, device)
     elif cfg.cache.enabled and multi:
-        from legion_tpu_torch.train.striped_driver import striped_rank
-        _spawn(striped_rank, args, cfg, source)
+        from legion_tpu_torch.train.cached_driver import cached_rank
+        _spawn(cached_rank, args, cfg, source)
     elif cfg.cache.enabled:
         if cfg.cache.group_size > 1:
             _warn("--cache-group > 1 needs --devices > 1; running "

@@ -34,13 +34,13 @@ from legion_tpu_torch.cache.hotness import (observed_caps,
                                             probe_frontier_maxima)
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.data.format import GraphData, pad_feature_dim
-from legion_tpu_torch.models import build_model
+from legion_tpu_torch.models import build_model, model_args
 from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.sampler import (DeviceGraph, gather_features,
                                                sample_batch)
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
-                                             epoch_train_seeds,
-                                             make_seed_plan, shard_node_set)
+                                             make_seed_plan, seeds_of_epoch,
+                                             shard_node_set)
 from legion_tpu_torch.train.graphed import (MODEL_COUNTS, EpochScan,
                                             EvalScan, GraphPool)
 from legion_tpu_torch.train.train_state import (TrainState,
@@ -322,12 +322,9 @@ class Trainer:
             self.caps = self._probe_caps()
 
         num_classes = cfg.dataset.num_classes or data.num_classes
-        init_gen = torch.Generator().manual_seed(cfg.train.seed)
-        self.model = build_model(
-            cfg.model.arch, self.features.shape[1], cfg.model.hidden_dim,
-            num_classes, cfg.model.num_layers, cfg.model.dropout,
-            dtype=cfg.model.dtype, generator=init_gen,
-            num_heads=cfg.model.num_heads).to(self.device)
+        self.model = build_model(**model_args(
+            cfg.model, self.features.shape[1], num_classes,
+            cfg.train.seed)).to(self.device)
         self.state = create_train_state(self.model, cfg.train.learning_rate,
                                         rank_seed(cfg.train.seed, rank),
                                         self.device)
@@ -463,10 +460,8 @@ class Trainer:
         with self._profiled(epoch), trace.epoch("train") as root:
             with trace.span("epoch.prepare"):
                 with trace.span("epoch.seeds"):
-                    rng = np.random.default_rng(
-                        self.cfg.train.seed * 100003 + epoch)
-                    seeds = epoch_train_seeds(rng, shards,
-                                              self.plan)[0][which]
+                    seeds = seeds_of_epoch(self.cfg.train.seed, epoch,
+                                           shards, self.plan)[which]
                 run = self._load_epoch(seeds, uniforms)
             root.steps = seeds.shape[0]
             with trace.span("epoch.steps"):

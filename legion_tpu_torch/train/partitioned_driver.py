@@ -36,7 +36,7 @@ import torch.distributed as dist
 from legion_tpu_torch.config import Config
 from legion_tpu_torch.data.format import GraphData
 from legion_tpu_torch.data.partition import edge_cut_fraction, partition_graph
-from legion_tpu_torch.models import build_model
+from legion_tpu_torch.models import build_model, model_args
 from legion_tpu_torch.parallel.dp import save_every_rank
 from legion_tpu_torch.parallel.launch import put_shard_distributed
 from legion_tpu_torch.parallel.mesh import Mesh, captures_steps
@@ -46,8 +46,8 @@ from legion_tpu_torch.parallel.multihost import (HaloPath, PartitionedTrainer,
 from legion_tpu_torch.parallel.trainer import _quiet
 from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.seeds import (epoch_eval_seeds,
-                                             epoch_train_seeds,
-                                             make_seed_plan, shard_node_set)
+                                             make_seed_plan, seeds_of_epoch,
+                                             shard_node_set)
 from legion_tpu_torch.train.graphed import GraphPool
 from legion_tpu_torch.train.loop import rank_seed
 from legion_tpu_torch.train.train_state import (create_train_state,
@@ -167,13 +167,8 @@ def run_partitioned_training(cfg: Config, data: GraphData,
     setup["owner_s"] = span.seconds
 
     # ---- model and state: the same weights on every rank -----------------
-    model = build_model(cfg.model.arch, data.feature_dim,
-                        cfg.model.hidden_dim, num_classes,
-                        cfg.model.num_layers, cfg.model.dropout,
-                        dtype=cfg.model.dtype,
-                        num_heads=cfg.model.num_heads,
-                        generator=torch.Generator().manual_seed(
-                            cfg.train.seed)).to(device)
+    model = build_model(**model_args(cfg.model, data.feature_dim,
+                                     num_classes, cfg.train.seed)).to(device)
     state = create_train_state(model, cfg.train.learning_rate,
                                rank_seed(cfg.train.seed, rank), device)
     if (cfg.train.checkpoint_dir
@@ -212,9 +207,8 @@ def run_partitioned_training(cfg: Config, data: GraphData,
     for epoch in range(state.epoch, cfg.train.epochs):
         with trace.epoch("train") as root:
             with trace.span("epoch.prepare"), trace.span("epoch.seeds"):
-                ep_rng = np.random.default_rng(cfg.train.seed * 100003
-                                               + epoch)
-                s, _ = epoch_train_seeds(ep_rng, shards, plan)  # (k, steps, b)
+                s = seeds_of_epoch(cfg.train.seed, epoch, shards,
+                                   plan)                    # (k, steps, b)
             rec = tr.run_epoch(state, s[rank], labels_all[s[rank]])
             root.steps = rec["steps"]
             with trace.span("epoch.record"):

@@ -48,7 +48,6 @@ import legion_tpu_torch.train.loop
 import legion_tpu_torch.train.graphed
 import legion_tpu_torch.config
 import legion_tpu_torch.data.synthetic
-import legion_tpu_torch.tools.ab_trainer
 import legion_tpu_torch.tools.k2_bench
 import legion_tpu_torch.tools.k4_bench
 import legion_tpu_torch.tools.pa_cell
@@ -64,8 +63,6 @@ import legion_tpu_torch.parallel.feature_exchange
 import legion_tpu_torch.cache.striped
 import legion_tpu_torch.cache.striped_pipeline
 import legion_tpu_torch.cache.striped_hybrid
-import legion_tpu_torch.train.striped_driver
-import legion_tpu_torch.train.striped_hybrid_driver
 import legion_tpu_torch.tools.cache_group_cell
 import legion_tpu_torch.utils.comm
 import legion_tpu_torch.utils.trace

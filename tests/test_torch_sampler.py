@@ -116,6 +116,24 @@ def test_seeds_module_equals_original():
                                   jax_seeds.interleave_shards(a[0]))
 
 
+
+def test_seeds_of_epoch_is_the_drivers_rule():
+    """``seeds_of_epoch`` is ``epoch_train_seeds`` on a generator seeded
+    ``seed * 100003 + epoch``, the rule the reference's drivers spell
+    out, bit for bit for two epochs (which differ)."""
+    ids = np.random.default_rng(3).permutation(5000).astype(np.int32)
+    shards = seeds.shard_node_set(ids, 3)
+    plan = seeds.make_seed_plan([len(s) for s in shards], [400] * 3,
+                                [7] * 3, 100, 64)
+    for seed in (0, 11):
+        got = [seeds.seeds_of_epoch(seed, e, shards, plan) for e in (0, 1)]
+        for e in (0, 1):
+            want, _ = seeds.epoch_train_seeds(
+                np.random.default_rng(seed * 100003 + e), shards, plan)
+            np.testing.assert_array_equal(got[e], want)
+        assert not np.array_equal(got[0], got[1])
+
+
 @pytest.mark.parametrize("slack,align,last", [
     (1.2, 8, None), (1.03, 128, None), (1.03, 128, 10), (1.0, 1, 3)])
 def test_observed_caps_equals_original(slack, align, last):

@@ -47,6 +47,7 @@ import torch
 
 from legion_tpu_torch import config as port_config
 from legion_tpu_torch import runtime
+from legion_tpu_torch.cache import feature_cache
 from legion_tpu_torch.cache.feature_cache import FeatureCache
 from legion_tpu_torch.cache.hybrid import HybridTrainer
 from legion_tpu_torch.cache.pipeline import CachedTrainer
@@ -58,8 +59,7 @@ from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.sampling import sampler as port_sampler
 from legion_tpu_torch.sampling.block import SampledBatch, frontier_caps
 from legion_tpu_torch.sampling.sampler import DeviceGraph
-from legion_tpu_torch.train import cached_driver, graphed
-from legion_tpu_torch.train import striped_driver, striped_hybrid_driver
+from legion_tpu_torch.train import cached_driver, graphed, hybrid_driver
 from legion_tpu_torch.train.train_state import (create_train_state,
                                                 state_tensors)
 from legion_tpu_torch.utils import comm, trace
@@ -628,8 +628,8 @@ def test_a_rebuilt_cache_captures_anew(monkeypatch):
     monkeypatch.setattr(CachedTrainer, "__init__", tracking_init)
     monkeypatch.setattr(CachedTrainer, "release", tracking_release)
     calls = iter([128])           # the first capacity: 128 rows, too few
-    round128 = cached_driver._round128
-    monkeypatch.setattr(cached_driver, "_round128",
+    round128 = feature_cache.round128
+    monkeypatch.setattr(feature_cache, "round128",
                         lambda x: next(calls, None) or round128(x))
     g = _graph()
     with faked_capture() as captures:
@@ -659,11 +659,11 @@ def _striped_rank(device, d):
     g = _graph()
     out = {}
     for name, run, cfg, module in (
-            ("cached", striped_driver.run_striped_training,
-             _cached_cfg(port_config, dropout=0.3, group=2), striped_driver),
-            ("hybrid", striped_hybrid_driver.run_striped_hybrid_training,
+            ("cached", cached_driver.run_cached_training,
+             _cached_cfg(port_config, dropout=0.3, group=2), cached_driver),
+            ("hybrid", hybrid_driver.run_hybrid_training,
              _hybrid_cfg(port_config, dropout=0.3, group=2),
-             striped_hybrid_driver)):
+             hybrid_driver)):
         for captured in (False, True):
             comm.reset_counts()
             if captured:
@@ -693,7 +693,7 @@ def striped_two():
 
 @pytest.mark.parametrize("path", ["cached", "hybrid"])
 def test_striped_trainers_capture_at_two_ranks(striped_two, path):
-    """``run_striped_training`` and ``run_striped_hybrid_training`` at 2
+    """``run_cached_training`` and ``run_hybrid_training`` on a mesh of 2
     gloo ranks with dropout, eager and under the stand-in capture (told
     that the group captures): the same losses, validation and test
     figures bitwise, and the same collectives, counted by the

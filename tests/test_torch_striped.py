@@ -1,5 +1,5 @@
 """Striped cached training (``cache/striped.py``'s ``StripedFeatureCache``,
-``cache/striped_pipeline.py``, ``train/striped_driver.py``) and
+``cache/striped_pipeline.py``, ``train/cached_driver.py`` on a mesh) and
 ``MeshTrainer`` on ``feature_placement="hbm_sharded"`` over a cache group,
 against ``legion_tpu`` and against the port's single-device drivers.
 
@@ -15,14 +15,14 @@ Two spawns of single-threaded gloo ranks, each a module-scoped fixture:
   exchange figures and the eval counts exactly. The same ranks build the
   feature matrix of a frontier through caches striped 1, 2 and 4 ways
   (with an owner cap that demotes): bitwise the single-device cache's.
-* 2 ranks: ``run_striped_training`` at cache group 2 against cache group
+* 2 ranks: ``run_cached_training`` at cache group 2 against cache group
   1 with the same group budget (so the same hot set): bitwise the same
   losses; kill and resume at an epoch end gives exactly the
   uninterrupted run.
 
-On one rank (in this process) ``run_striped_training`` is exactly
-``run_cached_training``. The ranks import this module by name and load
-no JAX."""
+On one rank (in this process) ``run_cached_training`` on a mesh is
+exactly ``run_cached_training`` without one. The ranks import this
+module by name and load no JAX."""
 
 import dataclasses
 import os
@@ -44,7 +44,6 @@ from legion_tpu_torch.parallel.trainer import MeshTrainer
 from legion_tpu_torch.sampling.block import frontier_caps
 from legion_tpu_torch.sampling.sampler import DeviceGraph
 from legion_tpu_torch.train.cached_driver import run_cached_training
-from legion_tpu_torch.train.striped_driver import run_striped_training
 from legion_tpu_torch.train.train_state import create_train_state
 from legion_tpu_torch.utils import comm
 
@@ -260,8 +259,8 @@ def _two_rank_checks(device, d):
         # the same group budget, so the same hot set
         cfg = _cached_cfg(port_config, group=k, budget=(1 << 17) // k)
         comm.reset_counts()
-        res = run_striped_training(cfg, g, device, mesh=mesh.make_mesh(k),
-                                   log=q)
+        res = run_cached_training(cfg, g, device, mesh=mesh.make_mesh(k),
+                                  log=q)
         out[k] = {"history": [{kk: v for kk, v in h.items()}
                               for h in res["history"]],
                   "test_acc": res["test_acc"], "mesh": res["mesh"],
@@ -270,14 +269,14 @@ def _two_rank_checks(device, d):
     ck = os.path.join(d, "ck")
     m2 = mesh.make_mesh(2)
     kw = dict(dropout=0.3, group=2, budget=1 << 16)
-    whole = run_striped_training(_cached_cfg(port_config, **kw), g, device,
-                                 mesh=m2, log=q)
-    first = run_striped_training(_cached_cfg(port_config, epochs=1, ck=ck,
-                                             **kw), g, device, mesh=m2,
-                                 log=q)
+    whole = run_cached_training(_cached_cfg(port_config, **kw), g, device,
+                                mesh=m2, log=q)
+    first = run_cached_training(_cached_cfg(port_config, epochs=1, ck=ck,
+                                            **kw), g, device, mesh=m2,
+                                log=q)
     logs = []
-    rest = run_striped_training(_cached_cfg(port_config, ck=ck, **kw), g,
-                                device, mesh=m2, log=logs.append)
+    rest = run_cached_training(_cached_cfg(port_config, ck=ck, **kw), g,
+                               device, mesh=m2, log=logs.append)
     out["resume"] = {
         "whole": [h["losses"] for h in whole["history"]],
         "first": [h["losses"] for h in first["history"]],
@@ -406,9 +405,9 @@ def test_kill_and_resume_at_two_ranks(two):
 
 @pytest.mark.parametrize("arch", ["sage", "lp_sage"])
 def test_one_rank_is_the_cached_driver(tmp_path, arch):
-    """On one gloo rank ``run_striped_training`` is ``run_cached_training``
-    exactly: losses, hit rate, host bytes, validation and test (dropout
-    0.3, two epochs)."""
+    """On one gloo rank ``run_cached_training`` on a mesh is
+    ``run_cached_training`` without one exactly: losses, hit rate, host
+    bytes, validation and test (dropout 0.3, two epochs)."""
     cfg = _cached_cfg(port_config, dropout=0.3, budget=1 << 16)
     if arch == "lp_sage":
         cfg = dataclasses.replace(
@@ -420,7 +419,8 @@ def test_one_rank_is_the_cached_driver(tmp_path, arch):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
                             world_size=1, rank=0)
     try:
-        got = run_striped_training(cfg, g, "cpu", log=lambda s: None)
+        got = run_cached_training(cfg, g, "cpu", mesh=mesh.make_mesh(1),
+                                  log=lambda s: None)
     finally:
         dist.destroy_process_group()
     assert got["mesh"] == {"data": 1, "cache": 1}
@@ -436,26 +436,27 @@ def test_one_rank_is_the_cached_driver(tmp_path, arch):
 
 def test_the_driver_refuses_what_it_does_not_run():
     cfg = _cached_cfg(port_config)
+    one = mesh.Mesh(data=1, cache=1, rank=0)
     with pytest.raises(ValueError, match="CacheConfig"):
-        run_striped_training(dataclasses.replace(
+        run_cached_training(dataclasses.replace(
             cfg, cache=port_config.CacheConfig(enabled=False)), _graph(),
-            "cpu")
-    with pytest.raises(ValueError, match="striped_hybrid_driver"):
-        run_striped_training(dataclasses.replace(
+            "cpu", mesh=one)
+    with pytest.raises(ValueError, match="run_hybrid_training"):
+        run_cached_training(dataclasses.replace(
             cfg, dataset=dataclasses.replace(cfg.dataset,
                                              topology_placement="host")),
-            _graph(), "cpu")
+            _graph(), "cpu", mesh=one)
 
 
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [1, 2, 4])
 def test_rank_eval_is_the_reference_drivers_plan(n):
     """Each rank's eval seeds, counts and labels are its columns of the
     reference striped driver's interleaved eval plan (short shards padded
-    with -1)."""
+    with -1); on one rank, the plan the drivers without a mesh use."""
     from legion_tpu.sampling.seeds import (epoch_eval_seeds,
                                            interleave_shards, shard_node_set)
     from legion_tpu_torch.sampling.seeds import shard_node_set as port_shard
-    from legion_tpu_torch.train.striped_driver import rank_eval
+    from legion_tpu_torch.train.cached_driver import rank_eval
     g = _graph()
     ids = np.asarray(g.valid_ids)[:-3]
     labels = np.asarray(g.labels)
@@ -477,31 +478,31 @@ def test_rank_eval_is_the_reference_drivers_plan(n):
 # -- the driver at 4 ranks against the reference's ----------------------------
 
 def _driver_rank(device, d):
-    """``run_striped_training`` at (data 2 x cache 2) with the reference's
+    """``run_cached_training`` at (data 2 x cache 2) with the reference's
     presample result, initial weights and every batch's uniforms."""
-    from legion_tpu_torch.cache import striped_pipeline
+    from legion_tpu_torch.cache import feature_cache, striped_pipeline
     from legion_tpu_torch.cache.hotness import HotnessResult
-    from legion_tpu_torch.train import striped_driver
+    from legion_tpu_torch.train import cached_driver
     rank = dist.get_rank()
     ref = np.load(os.path.join(d, "driver.npz"))
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
-    striped_driver.presample_hotness = lambda *a, **k: HotnessResult(
+    cached_driver.presample_hotness = lambda *a, **k: HotnessResult(
         t(ref["node_hot"]), t(ref["edge_hot"]), t(ref["max_frontier"]),
         t(ref["max_per_hop"]))
-    build = striped_driver.build_model
+    build = cached_driver.build_model
 
     def build_from_ref(*a, **k):
         m = build(*a, **k)
         m.load_state_dict(torch.load(os.path.join(d, "driver_init.pt")))
         return m
-    striped_driver.build_model = build_from_ref
-    sample, probe = striped_driver.sample_batch, iter(range(2))
+    cached_driver.build_model = build_from_ref
+    sample, probe = feature_cache.sample_batch, iter(range(2))
 
     def sample_probe(*a, generator, **k):
         i = next(probe)
         return sample(*a, uniforms=[t(ref[f"p{i}_{h}"]) for h in range(2)],
                       **k)
-    striped_driver.sample_batch = sample_probe
+    feature_cache.sample_batch = sample_probe
     cls = striped_pipeline.StripedCachedTrainer
     run_epoch, eval_epoch = cls.run_epoch, cls.eval_epoch
 
@@ -514,8 +515,9 @@ def _driver_rank(device, d):
         return eval_epoch(self, model, s, c, lab, uniforms=lambda i, h: t(
             ref[f"e{rank}_{i}_{h}"]))
     cls.run_epoch, cls.eval_epoch = run_keyed, eval_keyed
-    res = run_striped_training(_cached_cfg(port_config, group=2, world=4),
-                               _graph(), device, log=lambda s: None)
+    res = run_cached_training(_cached_cfg(port_config, group=2, world=4),
+                              _graph(), device, mesh=mesh.make_mesh(2),
+                              log=lambda s: None)
     torch.save({"history": [{k: v for k, v in h.items()}
                             for h in res["history"]],
                 "test_acc": res["test_acc"], "mesh": res["mesh"]},
@@ -587,8 +589,8 @@ def _reference_driver(d):
 
 
 def test_striped_driver_matches_the_reference_at_four_ranks():
-    """``run_striped_training`` at (data 2 x cache 2) from the reference
-    driver's presample result, weights and batch uniforms (dropout 0):
+    """``run_cached_training`` at (data 2 x cache 2) from the reference
+    striped driver's presample result, weights and batch uniforms (dropout 0):
     each epoch's loss within rtol 1e-5, the same hit rate, staging and
     exchange overflow and sampled edges, validation and test accuracy
     exactly, on every rank."""

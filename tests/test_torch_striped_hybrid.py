@@ -1,5 +1,5 @@
 """Striped hybrid training (``cache/striped.py``'s ``StripedTopoCache``,
-``cache/striped_hybrid.py``, ``train/striped_hybrid_driver.py``) and the
+``cache/striped_hybrid.py``, ``train/hybrid_driver.py`` on a mesh) and the
 host frontier probe (``cache/hotness.py``), against ``legion_tpu`` and
 against the port's single-device hybrid driver.
 
@@ -12,10 +12,11 @@ bitwise equal; with each rank's grid rows fixed (one (M, f) array per
 rank), the draws are bitwise the same at every group size and equal to
 the single-device ``TopoCache.sample_hot`` on those rows. Each rank's
 stripe is the reference's stripe. One spawn of 2 ranks runs
-``run_striped_hybrid_training`` at cache group 2 against group 1 with the
+``run_hybrid_training`` at cache group 2 against group 1 with the
 same group budget: the same losses within 1e-5 relative (bitwise unless a
 hot request is demoted), and kill and resume at an epoch end exactly. On
-one rank (in this process) the driver is ``run_hybrid_training`` exactly.
+one rank (in this process) the driver on a mesh is the driver without one
+exactly.
 The ranks import this module by name and load no JAX."""
 
 import dataclasses
@@ -33,9 +34,8 @@ from legion_tpu_torch.cache.striped import StripedTopoCache
 from legion_tpu_torch.cache.topo_cache import TopoCache
 from legion_tpu_torch.data.synthetic import random_power_law_graph
 from legion_tpu_torch.parallel import mesh
-from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
-from legion_tpu_torch.train.striped_hybrid_driver import (
-    _probe_owner_caps, run_striped_hybrid_training)
+from legion_tpu_torch.train.hybrid_driver import (_probe_owner_caps,
+                                                  run_hybrid_training)
 from legion_tpu_torch.utils import comm
 
 torch.set_num_threads(2)
@@ -171,20 +171,20 @@ def _driver_rank_checks(device, d):
     for k in (1, 2):
         # the same group budget, so the same hot sets
         cfg = _cfg(port_config, group=k, budget=(192 << 10) // k)
-        res = run_striped_hybrid_training(cfg, g, device,
-                                          mesh=mesh.make_mesh(k), log=q)
+        res = run_hybrid_training(cfg, g, device, mesh=mesh.make_mesh(k),
+                                  log=q)
         out[k] = {"history": res["history"], "test_acc": res["test_acc"],
                   "mesh": res["mesh"], "alpha": res["cost"].alpha,
                   "topo_capacity": res["cost"].topo_capacity}
     ck = os.path.join(d, "ck")
     m2 = mesh.make_mesh(2)
     kw = dict(dropout=0.3, group=2)
-    whole = run_striped_hybrid_training(_cfg(port_config, **kw), g, device,
-                                        mesh=m2, log=q)
-    first = run_striped_hybrid_training(
+    whole = run_hybrid_training(_cfg(port_config, **kw), g, device,
+                                mesh=m2, log=q)
+    first = run_hybrid_training(
         _cfg(port_config, epochs=1, ck=ck, **kw), g, device, mesh=m2, log=q)
-    rest = run_striped_hybrid_training(_cfg(port_config, ck=ck, **kw), g,
-                                       device, mesh=m2, log=q)
+    rest = run_hybrid_training(_cfg(port_config, ck=ck, **kw), g,
+                               device, mesh=m2, log=q)
     out["resume"] = {
         "whole": [h["losses"] for h in whole["history"]],
         "first": [h["losses"] for h in first["history"]],
@@ -318,16 +318,18 @@ def test_kill_and_resume_at_two_ranks(two):
 
 
 def test_one_rank_is_the_hybrid_driver(tmp_path):
-    """On one gloo rank ``run_striped_hybrid_training`` is
-    ``run_hybrid_training`` exactly (dropout 0.3, two epochs): losses,
-    hot fraction, hit rate, host bytes, fetches, validation and test."""
+    """On one gloo rank ``run_hybrid_training`` on a mesh is
+    ``run_hybrid_training`` without one exactly (dropout 0.3, two
+    epochs): losses, hot fraction, hit rate, host bytes, fetches,
+    validation and test."""
     cfg = _cfg(port_config, dropout=0.3)
     g = _graph()
     want = run_hybrid_training(cfg, g, "cpu", log=lambda s: None)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
                             world_size=1, rank=0)
     try:
-        got = run_striped_hybrid_training(cfg, g, "cpu", log=lambda s: None)
+        got = run_hybrid_training(cfg, g, "cpu", mesh=mesh.make_mesh(1),
+                                  log=lambda s: None)
     finally:
         dist.destroy_process_group()
     assert got["mesh"] == {"data": 1, "cache": 1}
