@@ -12,8 +12,12 @@ device and are fetched once per epoch.
 
 Each epoch is an epoch root of ``utils/trace.py`` (``epoch.prepare``:
 ``epoch.seeds``, ``epoch.labels``, ``epoch.load``; ``epoch.steps``;
-``epoch.read``; ``epoch.record``), and its record carries the root's
-``spans`` and ``counts``; an evaluation is an ``eval`` root. With
+``epoch.prefetch``; ``epoch.read``; ``epoch.record``), and its record
+carries the root's ``spans`` and ``counts``; an evaluation is an
+``eval`` root. While an epoch's steps run on the device the host draws
+the next epoch's seeds and labels (``epoch.prefetch``), which the next
+call takes when it is that epoch of the same shard and plan (counter
+``seeds_prefetched``) and draws afresh otherwise. With
 ``train.profile_dir`` set, epoch 0 runs under ``torch.profiler``
 (``trace.profiled``) and its trace is written into that directory. On a
 CUDA device that trace holds the epoch's first step (run eagerly, as the
@@ -24,7 +28,7 @@ the reference's epoch-0 trace holds the compile of its jitted epoch.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -250,6 +254,20 @@ def rank_seed(seed: int, rank: int) -> int:
         1, np.uint64)[0] >> 1)
 
 
+class EpochDraw(NamedTuple):
+    """An epoch's train seeds of one shard and their labels, with what
+    they were drawn for: ``key`` (run seed, epoch, shard index, plan) and
+    the shard id arrays themselves, matched by identity."""
+    key: Tuple
+    shards: Tuple[np.ndarray, ...]
+    seeds: np.ndarray
+    labels: np.ndarray
+
+    def serves(self, key: Tuple, shards: Sequence[np.ndarray]) -> bool:
+        return (self.key == key and len(self.shards) == len(shards)
+                and all(a is b for a, b in zip(self.shards, shards)))
+
+
 class Trainer:
     """Single-device trainer with the topology and the whole feature table
     in device memory, whatever ``feature_placement`` says (as the
@@ -338,6 +356,8 @@ class Trainer:
         self.fns_eval = self._step_fns(self.eval_caps, pool)
         self.eval_generator = torch.Generator(device=self.device)
         self.history: list[Dict] = []
+        # the next epoch's draw, made while this epoch's steps ran
+        self.prefetched: Optional[EpochDraw] = None
 
     def _step_fns(self, caps: Sequence[int],
                   pool: Optional[GraphPool]) -> StepFns:
@@ -388,11 +408,13 @@ class Trainer:
 
     # -- epoch loops --------------------------------------------------------
 
-    def _load_epoch(self, seeds: np.ndarray, uniforms: Optional[Callable]):
-        """The labels of (steps, batch) seeds and the epoch scan's run
-        loaded with both (the spans ``epoch.labels`` and ``epoch.load``)."""
-        with trace.span("epoch.labels"):
-            labels = np.asarray(self.data.labels, np.int32)[seeds]
+    def _labels_of(self, seeds: np.ndarray) -> np.ndarray:
+        return np.asarray(self.data.labels, np.int32)[seeds]
+
+    def _load_epoch(self, seeds: np.ndarray, labels: np.ndarray,
+                    uniforms: Optional[Callable]):
+        """The epoch scan's run loaded with (steps, batch) seeds and their
+        labels (the span ``epoch.load``)."""
         with trace.span("epoch.load"):
             return self.fns.epoch_scan.load(
                 self.state, self.graph, self.features,
@@ -405,10 +427,40 @@ class Trainer:
         (steps, 5) float64 device tensor. ``uniforms(step, hop)`` replaces the
         generator's sampling draws (parity tests); ``step`` is the state's
         global step."""
-        run = self._load_epoch(seeds, uniforms)
+        with trace.span("epoch.labels"):
+            labels = self._labels_of(seeds)
+        run = self._load_epoch(seeds, labels, uniforms)
         return self.fns.epoch_scan.replay(run, self.state, self.graph,
                                           self.features, seeds.shape[0],
                                           uniforms)
+
+    def _draw_epoch(self, epoch: int, shards, which: int) -> EpochDraw:
+        """Epoch ``epoch``'s seeds of shard ``which`` of ``shards``
+        (``seeds_of_epoch``) and their labels."""
+        seeds = seeds_of_epoch(self.cfg.train.seed, epoch, shards,
+                               self.plan)[which]
+        return EpochDraw(self._draw_key(epoch, which), tuple(shards), seeds,
+                         self._labels_of(seeds))
+
+    def _draw_key(self, epoch: int, which: int) -> Tuple:
+        return (self.cfg.train.seed, epoch, which, self.plan)
+
+    def _take_epoch(self, epoch: int, shards, which: int):
+        """(seeds, labels) of epoch ``epoch``, shard ``which``: the held
+        draw (``prefetched``, counted ``seeds_prefetched``) where it was
+        drawn for them, else drawn now; the held draw is dropped either
+        way. The spans ``epoch.seeds`` and ``epoch.labels``."""
+        held, self.prefetched = self.prefetched, None
+        hit = held is not None and held.serves(self._draw_key(epoch, which),
+                                               shards)
+        if hit:
+            trace.count("seeds_prefetched", 1)
+        with trace.span("epoch.seeds"):
+            seeds = held.seeds if hit else seeds_of_epoch(
+                self.cfg.train.seed, epoch, shards, self.plan)[which]
+        with trace.span("epoch.labels"):
+            labels = held.labels if hit else self._labels_of(seeds)
+        return seeds, labels
 
     def _epoch_record(self, epoch: int, metrics: torch.Tensor,
                       dt: float) -> Dict:
@@ -455,19 +507,23 @@ class Trainer:
                      uniforms: Optional[Callable]) -> Dict:
         """One epoch of shard ``which`` of the lockstep seeds of
         ``shards``, as an epoch root whose spans and counts the record
-        carries. ``epoch_s`` is the root's seconds up to the record less
-        its ``epoch.seeds``: from the seeds' end to the metrics' read."""
+        carries. Once the steps are queued, and before their metrics are
+        read, epoch ``epoch + 1``'s seeds and labels are drawn and held
+        (``epoch.prefetch``), whatever the run's epoch count: the window
+        of a caller may run past it. ``epoch_s`` is the root's seconds up
+        to the record less its ``epoch.seeds``: from the seeds' end to
+        the metrics' read."""
         with self._profiled(epoch), trace.epoch("train") as root:
             with trace.span("epoch.prepare"):
-                with trace.span("epoch.seeds"):
-                    seeds = seeds_of_epoch(self.cfg.train.seed, epoch,
-                                           shards, self.plan)[which]
-                run = self._load_epoch(seeds, uniforms)
+                seeds, labels = self._take_epoch(epoch, shards, which)
+                run = self._load_epoch(seeds, labels, uniforms)
             root.steps = seeds.shape[0]
             with trace.span("epoch.steps"):
                 metrics = self.fns.epoch_scan.replay(
                     run, self.state, self.graph, self.features, root.steps,
                     uniforms)
+            with trace.span("epoch.prefetch"):
+                self.prefetched = self._draw_epoch(epoch + 1, shards, which)
             with trace.span("epoch.read"):
                 metrics = self._read_metrics(metrics)
             with trace.span("epoch.record"):

@@ -25,12 +25,15 @@ to its clock pair.
 The names (the drivers, ``cache/pipeline.py``, ``cache/hybrid.py``,
 ``train/graphed.py``): ``epoch.prepare`` (seeds, labels, the loads into
 the static rows: ``epoch.seeds``, ``epoch.labels``, ``epoch.load``),
-``epoch.steps``, ``epoch.read``, ``epoch.record``; ``stage.<label>`` for
-each call of a captured step or stage and ``stage.capture`` for a first
-call's warm-up and capture; ``pipeline.dispatch``,
+``epoch.steps``, ``epoch.prefetch`` (``Trainer``: the next epoch's seeds
+and labels drawn while the steps run), ``epoch.read``, ``epoch.record``;
+``stage.<label>`` for each call of a captured step or stage and
+``stage.capture`` for a first call's warm-up and capture;
+``pipeline.dispatch``,
 ``pipeline.plan_wait``, ``pipeline.stage``, ``pipeline.consume``;
 ``hybrid.fetch``, ``hybrid.host_sample``; ``setup.*``; counters
-``h2d_bytes`` (bytes copied host->device), ``fetches``,
+``h2d_bytes`` (bytes copied host->device), ``seeds_prefetched`` (1 an
+epoch that took the draw held from the epoch before), ``fetches``,
 ``host_topo_copied_bytes``, ``attn_slots`` (GAT: the slots its attention
 scored in the epoch, self slots included, over every layer; counted on
 the device in each step and read with the epoch's metrics, so it adds no

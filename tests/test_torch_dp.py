@@ -34,6 +34,7 @@ from legion_tpu_torch.data.synthetic import random_power_law_graph
 from legion_tpu_torch.parallel import mesh
 from legion_tpu_torch.parallel.dp import GradMean
 from legion_tpu_torch.parallel.trainer import MeshTrainer
+from legion_tpu_torch.sampling.seeds import seeds_of_epoch
 from legion_tpu_torch.train.graphed import METRICS
 from legion_tpu_torch.train.loop import Trainer, make_step_fns
 from legion_tpu_torch.utils import comm
@@ -121,8 +122,21 @@ def _rank_checks(device, d, world):
     if world == 2:
         ck = os.path.join(d, "ck")
         kw = dict(dropout=0.3)
-        whole = MeshTrainer(_cfg(port_config, world, epochs=2, **kw), g,
-                            device).fit(log=lambda s: None)
+        whole_tr = MeshTrainer(_cfg(port_config, world, epochs=2, **kw), g,
+                               device)
+        whole = whole_tr.fit(log=lambda s: None)
+        run = whole_tr.fns.epoch_scan.runs[False]
+        steps = whole_tr.plan.train_steps
+        want = seeds_of_epoch(0, 1, whole_tr.shards_train,
+                              whole_tr.plan)[rank]
+        out["prefetch"] = {
+            "counts": [h["counts"].get("seeds_prefetched", 0)
+                       for h in whole["history"]],
+            "seeds": run.seeds[:steps].clone(),
+            "labels": run.labels[:steps].clone(),
+            "want": torch.from_numpy(want),
+            "want_labels": torch.from_numpy(
+                np.asarray(g.labels, np.int32)[want])}
         first = MeshTrainer(_cfg(port_config, world, epochs=1, ck=ck, **kw),
                             g, device).fit(log=lambda s: None)
         resumed = MeshTrainer(_cfg(port_config, world, epochs=2, ck=ck, **kw),
@@ -301,6 +315,21 @@ def test_kill_and_resume_at_two_ranks(run2):
         assert res["rest"] == res["whole"][1:]
         assert res["valid"][1] == res["valid"][0][1:]
         assert res["test"][0] == res["test"][1]
+
+
+def test_each_rank_takes_its_own_prefetched_shard(run2):
+    """Two consecutive epochs at two ranks (the uninterrupted run of the
+    kill-and-resume case): epoch 1 takes the draw each rank held from
+    epoch 0 (one ``seeds_prefetched``, none in epoch 0) and loads its own
+    shard's rows of ``seeds_of_epoch`` and their labels."""
+    _, _, ranks = run2
+    for r in ranks:
+        p = r["prefetch"]
+        assert p["counts"] == [0, 1]
+        assert torch.equal(p["seeds"], p["want"])
+        assert torch.equal(p["labels"], p["want_labels"])
+    assert not torch.equal(ranks[0]["prefetch"]["seeds"],
+                           ranks[1]["prefetch"]["seeds"])
 
 
 def test_hbm_sharded_across_ranks_is_refused_by_name(run2):

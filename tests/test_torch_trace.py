@@ -10,6 +10,7 @@ import dataclasses
 import itertools
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +20,7 @@ from legion_tpu_torch.cache.feature_cache import cache_dtype_for
 from legion_tpu_torch.config import (CacheConfig, Config, DatasetConfig,
                                      ModelConfig, SamplerConfig, TrainConfig)
 from legion_tpu_torch.data.synthetic import random_power_law_graph
+from legion_tpu_torch.sampling.seeds import seeds_of_epoch
 from legion_tpu_torch.train.cached_driver import run_cached_training
 from legion_tpu_torch.train.hybrid_driver import run_hybrid_training
 from legion_tpu_torch.train.loop import Trainer
@@ -169,13 +171,14 @@ def test_trainer_epoch_carries_its_spans_and_counts(graph):
     steps = rec["steps"]
     assert set(rec["spans"]) == {
         "epoch", "epoch.prepare", "epoch.seeds", "epoch.labels",
-        "epoch.load", "epoch.steps", "epoch.read", "epoch.record",
-        "stage.train_step"}
+        "epoch.load", "epoch.steps", "epoch.prefetch", "epoch.read",
+        "epoch.record", "stage.train_step"}
     assert rec["spans"]["stage.train_step"][0] == steps
     _assert_nested(rec["spans"], "epoch.prepare",
                    ("epoch.seeds", "epoch.labels", "epoch.load"))
     _assert_nested(rec["spans"], "epoch", (
-        "epoch.prepare", "epoch.steps", "epoch.read", "epoch.record"))
+        "epoch.prepare", "epoch.steps", "epoch.prefetch", "epoch.read",
+        "epoch.record"))
     # seeds and labels up
     assert rec["counts"] == {"h2d_bytes": 2 * steps * B * 4}
     assert 0 < rec["epoch_s"] <= rec["spans"]["epoch"][1]
@@ -195,6 +198,70 @@ def test_epoch_s_leaves_out_the_seeds(graph, ticks):
     spans = rec["spans"]
     assert spans["epoch.seeds"][1] == 1.0
     assert rec["epoch_s"] == spans["epoch"][1] - 2 - spans["epoch.seeds"][1]
+
+
+PREFETCH_EPOCHS = (0, 1, 2, 5, 6)
+
+
+@pytest.fixture(scope="module")
+def prefetch_run(graph):
+    """A Trainer's epochs 0, 1, 2, 5, 6 in that order: the trainer, and
+    each epoch's record with the seeds and labels its run's static rows
+    held after it."""
+    tr = Trainer(_cfg(graph), graph, device="cpu")
+    out = []
+    for e in PREFETCH_EPOCHS:
+        rec = tr.train_one_epoch(e)
+        run, steps = tr.fns.epoch_scan.runs[False], rec["steps"]
+        out.append((e, rec, run.seeds[:steps].clone(),
+                    run.labels[:steps].clone()))
+    return tr, out
+
+
+def test_every_epoch_trains_on_its_own_seeds_in_any_order(graph,
+                                                          prefetch_run):
+    """Each epoch loads exactly ``seeds_of_epoch``'s seeds and their
+    labels, whether the draw was held from the epoch before (1, 2, 6) or
+    made at the call (0, and 5 after 2: the held draw was for 3); only
+    the held ones count ``seeds_prefetched``, and the bytes up are the
+    same either way."""
+    tr, runs = prefetch_run
+    labels = np.asarray(graph.labels, np.int32)
+    for e, rec, seeds, labs in runs:
+        want = seeds_of_epoch(tr.cfg.train.seed, e, tr.shards_train,
+                              tr.plan)[0]
+        assert torch.equal(seeds, torch.from_numpy(want)), e
+        assert torch.equal(labs, torch.from_numpy(labels[want])), e
+        assert rec["counts"]["h2d_bytes"] == 2 * rec["steps"] * B * 4
+    assert [rec["counts"].get("seeds_prefetched", 0)
+            for _, rec, _, _ in runs] == [0, 1, 1, 0, 1]
+    assert tr.prefetched.key[1] == 7
+
+
+def test_a_held_draw_trains_as_a_fresh_one(graph, prefetch_run):
+    """A trainer whose held draw is dropped before every call draws each
+    epoch afresh and gives bitwise the losses of one that took it."""
+    _, runs = prefetch_run
+    tr = Trainer(_cfg(graph), graph, device="cpu")
+    for e, rec, _, _ in runs[:3]:
+        tr.prefetched = None
+        got = tr.train_one_epoch(e)
+        assert "seeds_prefetched" not in got["counts"]
+        assert got["losses"] == rec["losses"], e
+
+
+def test_another_shard_draws_afresh(graph):
+    """The held draw is for the shard it was drawn from: the next epoch of
+    another shard draws its own seeds and counts no hit."""
+    tr = Trainer(_cfg(graph), graph, device="cpu", num_shards=2)
+    tr.train_one_epoch(0, shard=0)
+    rec = tr.train_one_epoch(1, shard=1)
+    assert "seeds_prefetched" not in rec["counts"]
+    want = seeds_of_epoch(tr.cfg.train.seed, 1, [tr.shards_train[1]],
+                          tr.plan)[0]
+    run = tr.fns.epoch_scan.runs[False]
+    assert torch.equal(run.seeds[:rec["steps"]], torch.from_numpy(want))
+    assert tr.train_one_epoch(2, shard=1)["counts"]["seeds_prefetched"] == 1
 
 
 def test_cached_epoch_spans_stage_s_and_bytes(graph, setup_tally):
