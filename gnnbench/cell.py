@@ -6,7 +6,8 @@ names ``BENCHMARK.json`` gives.
 * ``configs/<config>.json``: the graph's sizes (top-level numbers), the
   model (``model``: its ``arch`` names a module of ``models/``), the
   placement of features and topology, and the driver that runs it
-  (``driver``: a module of ``drivers/``);
+  (``driver``: a module of ``drivers/``); a typed graph's optional
+  ``node_types``, ``relations`` and ``feature_dtype`` (``check_schema``);
 * ``traffic/<traffic>.json``: the mini-batches (batch, fanouts), the
   cache budget as a share of the feature table, and the driver's warm-up
   epochs before the window.
@@ -34,8 +35,61 @@ def load_cell(name: str) -> Dict:
     cell = load_json("workloads", f"{name}.json")
     cell["name"] = name
     cell["configuration"] = load_json("configs", f"{cell['config']}.json")
+    check_schema(cell["configuration"])
     cell["traffic_mix"] = load_json("traffic", f"{cell['traffic']}.json")
     return cell
+
+
+# relation ids fit a signed byte
+MAX_RELATIONS = 127
+FEATURE_DTYPES = ("float32", "float16")
+
+
+def check_schema(conf: Dict) -> None:
+    """Refuse, naming the fault, a configuration whose typed graph does not
+    hold together. A typed graph lists ``node_types`` (``name``,
+    ``num_nodes``, in id order; type 0 holds the labelled nodes) whose
+    counts sum to ``num_nodes``, and ``relations`` (``name``, ``src``,
+    ``dst``, ``avg_in_degree``, ``zipf_alpha``) between known types, at
+    most ``MAX_RELATIONS`` of them and no two on one (src, dst) pair, so
+    that an edge's endpoints fix its relation. ``feature_dtype`` is one of
+    ``FEATURE_DTYPES``. A homogeneous configuration has neither list."""
+    name = conf.get("name")
+    dtype = conf.get("feature_dtype", "float32")
+    if dtype not in FEATURE_DTYPES:
+        raise ValueError(f"configuration {name!r}: feature_dtype {dtype!r} "
+                         f"is not one of {FEATURE_DTYPES}")
+    types, rels = conf.get("node_types"), conf.get("relations")
+    if types is None and rels is None:
+        return
+    if not types or not rels:
+        raise ValueError(f"configuration {name!r}: a typed graph needs both "
+                         "node_types and relations")
+    names = [t["name"] for t in types]
+    if len(set(names)) != len(names):
+        raise ValueError(f"configuration {name!r}: node type names "
+                         f"{names} repeat")
+    total = sum(int(t["num_nodes"]) for t in types)
+    if total != int(conf["num_nodes"]):
+        raise ValueError(f"configuration {name!r}: num_nodes "
+                         f"{conf['num_nodes']} is not the node types' sum "
+                         f"{total}")
+    if len(rels) > MAX_RELATIONS:
+        raise ValueError(f"configuration {name!r}: {len(rels)} relations, "
+                         f"more than {MAX_RELATIONS}")
+    pairs: Dict = {}
+    for r in rels:
+        for end in ("src", "dst"):
+            if r[end] not in names:
+                raise ValueError(f"configuration {name!r}: relation "
+                                 f"{r['name']!r} names unknown {end} type "
+                                 f"{r[end]!r}")
+        pair = (r["src"], r["dst"])
+        if pair in pairs:
+            raise ValueError(f"configuration {name!r}: relations "
+                             f"{pairs[pair]!r} and {r['name']!r} share the "
+                             f"(src, dst) types {pair}")
+        pairs[pair] = r["name"]
 
 
 def benchmark() -> Dict:

@@ -32,13 +32,14 @@ def readings(observer, setup: Dict, inputs, cell: Dict, device,
     reference.no_tf32()
     model = cell["configuration"]["model"]
     dev = torch.device(device)
-    indptr = torch.from_numpy(inputs.indptr).to(dev)
-    indices = torch.from_numpy(inputs.indices).to(dev)
+    graph = [None if a is None else torch.from_numpy(a).to(dev)
+             for a in (inputs.indptr, inputs.indices, inputs.edge_rel,
+                       inputs.node_type_offsets)]
     out = {"observed_steps": len(observer.steps),
-           "sampler_faults": sum(reference.sampler_faults(s, indptr, indices)
+           "sampler_faults": sum(reference.sampler_faults(s, *graph)
                                  for s in observer.steps),
            "dropped_rows": int(dropped)}
-    del indptr, indices
+    del graph
     feats = torch.from_numpy(inputs.features).to(dev)
     out["row_faults"] = sum(reference.row_faults(s["x"], s["frontier"], feats)
                             for s in observer.steps if s["x"] is not None)

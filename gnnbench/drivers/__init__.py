@@ -27,9 +27,13 @@ def load_weights(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
 
 
 def graph_data(inputs):
-    """The port's ``GraphData`` over the generated host arrays."""
+    """The port's ``GraphData`` over the generated host arrays; a typed
+    graph's also hands it ``edge_rel`` (each edge's relation id, aligned
+    with ``indices``) and ``node_type_offsets`` (the types' id ranges)."""
     from legion_tpu_torch.data.format import GraphData
+    typed = {k: getattr(inputs, k) for k in ("edge_rel", "node_type_offsets")
+             if getattr(inputs, k) is not None}
     return GraphData(indptr=inputs.indptr, indices=inputs.indices,
                      features=inputs.features, labels=inputs.labels,
                      train_ids=inputs.train_ids, valid_ids=inputs.valid_ids,
-                     test_ids=inputs.test_ids)
+                     test_ids=inputs.test_ids, **typed)

@@ -12,6 +12,13 @@ A module holds, in plain PyTorch and importing nothing of the port:
   holds the kept entries of layer ``i``'s output (None: no dropout
   there), kept values scaled by ``1 / keep``; with ``lowp`` every
   product's operands are rounded through ``reference.quantize``.
+* ``TYPED`` (optional, default False): a module for typed graphs sets it
+  True, and ``logits`` then also takes two keywords, each one entry per
+  block in sampling order: ``rels``, the relation id of each slot's edge
+  (a long tensor of ``nbr_pos``'s shape on the reference's device, or None
+  where the program's block carried none), and ``num_dst``, the block's
+  live dst rows (an int; rows past it are padding, which a normalisation
+  over the batch leaves out). Every other module is called without them.
 * ``in_width(weights)``: the padded width of the rows the first layer
   takes.
 * ``flops(sizes, model)``: the matrix-product operations of one train

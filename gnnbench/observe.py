@@ -110,11 +110,13 @@ class Observer:
         b = refs["batch"]
         blocks = [(_host(k.nbr_pos), _host(k.nbr_mask), int(k.num_src),
                    int(k.num_dst), k.identity_offset) for k in b.blocks]
+        rels = [_host(getattr(k, "nbr_rel", None)) for k in b.blocks]
         x = refs.get("x")
         self.steps.append({
             "seeds": _host(b.seeds), "labels": _host(b.labels),
             "num_seeds": int(b.num_seeds), "frontier": _host(b.frontier),
             "num_frontier": int(b.num_frontier), "blocks": blocks,
+            "rels": rels,
             "h": [_host(refs.get(f"h{i}"))
                   for i in range(len(self.model.layers))],
             "x": x if isinstance(x, torch.Tensor) and x.device.type == "cpu"

@@ -15,6 +15,9 @@ A step ``s`` the program ran is a dict of host tensors:
   num_dst, identity_offset)``; the dst rows of hop k are rows
   ``[0, nbr_pos.shape[0])`` of the frontier, its src rows are
   ``frontier[nbr_pos]``;
+* ``rels``: per hop in sampling order, the relation id of each slot's
+  edge (``nbr_pos``'s shape; the port's ``Block.nbr_rel``), or None where
+  the block carries none (every block of a homogeneous graph);
 * ``h``: by layer, the hidden rows that reached layer ``i``, after
   dropout (their zeros give the dropout mask the program drew on layer
   ``i - 1``'s output), None where nothing was noted (always layer 0);
@@ -51,10 +54,12 @@ def no_tf32() -> None:
 
 # -- the sampler's blocks -----------------------------------------------------
 
-def _members(indptr: torch.Tensor, indices: torch.Tensor, v: torch.Tensor,
+def _edge_of(indptr: torch.Tensor, indices: torch.Tensor, v: torch.Tensor,
              u: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
-    """(n,) bool: ``u[i]`` is among the in-neighbours of ``v[i]``."""
-    out = torch.zeros(v.shape[0], dtype=torch.bool, device=v.device)
+    """(n,) int64: the address in ``indices`` of the first edge from
+    ``u[i]`` into ``v[i]``, -1 where ``u[i]`` is no in-neighbour of
+    ``v[i]``."""
+    out = torch.full((v.shape[0],), -1, dtype=torch.int64, device=v.device)
     for s in range(0, v.shape[0], chunk):
         vs, us = v[s:s + chunk].long(), u[s:s + chunk]
         start, deg = indptr[vs], indptr[vs + 1] - indptr[vs]
@@ -64,12 +69,14 @@ def _members(indptr: torch.Tensor, indices: torch.Tensor, v: torch.Tensor,
         j = torch.arange(width, device=v.device)
         addr = (start[:, None] + j).clamp(max=indices.shape[0] - 1)
         hit = (indices[addr] == us[:, None]) & (j < deg[:, None])
-        out[s:s + chunk] = hit.any(1)
+        first = hit.to(torch.uint8).argmax(1)
+        out[s:s + chunk] = torch.where(hit.any(1), start + first, -1)
     return out
 
 
-def sampler_faults(step: Dict, indptr: torch.Tensor,
-                   indices: torch.Tensor) -> int:
+def sampler_faults(step: Dict, indptr: torch.Tensor, indices: torch.Tensor,
+                   edge_rel: Optional[torch.Tensor] = None,
+                   node_type_offsets: Optional[torch.Tensor] = None) -> int:
     """How many of the step's sampled rows break the sampler's contract:
     the seeds lead the frontier; a dst row ``d`` below ``num_dst`` holds
     ``min(deg, fanout)`` valid slots, the first ones, each naming an
@@ -77,14 +84,20 @@ def sampler_faults(step: Dict, indptr: torch.Tensor,
     deduplicated hop numbers distinct ids, each new one drawn in this hop,
     and points every slot inside its count; an identity-appended hop puts
     slot ``(d, j)`` at row ``offset + d * fanout + j``; the ids past the
-    last count are padding."""
+    last count are padding. On a typed graph (``edge_rel``: each edge's
+    relation id) each valid slot's ``rels`` entry is the relation of the
+    edge it names, and a block without ``rels`` counts every live dst row;
+    with ``node_type_offsets`` each seed is of type 0, the labelled one."""
     dev = indptr.device
     fr = step["frontier"].to(dev).long()
     seeds = step["seeds"].to(dev).long()
     ns = int(step["num_seeds"])
     faults = int((fr[:ns] != seeds[:ns]).sum())
+    if node_type_offsets is not None:
+        faults += int((seeds[:ns] >= int(node_type_offsets[1])).sum())
+    rels = step.get("rels") or [None] * len(step["blocks"])
     prev = ns
-    for pos, mask, num_src, num_dst, off in step["blocks"]:
+    for (pos, mask, num_src, num_dst, off), rel in zip(step["blocks"], rels):
         pos, mask = pos.to(dev).long(), mask.to(dev)
         p, f = pos.shape
         num_src, num_dst = int(num_src), int(num_dst)
@@ -105,8 +118,14 @@ def sampler_faults(step: Dict, indptr: torch.Tensor,
         bad_row |= (mask & ((pos < 0) | (pos >= num_src))).any(1)
         dd, jj = torch.nonzero(mask, as_tuple=True)
         u = fr[safe[dd, jj]]
-        ok = (u >= 0) & _members(indptr, indices, fr[dd].clamp(min=0),
-                                u.clamp(min=0))
+        addr = _edge_of(indptr, indices, fr[dd].clamp(min=0), u.clamp(min=0))
+        ok = (u >= 0) & (addr >= 0)
+        if edge_rel is not None:
+            if rel is None:
+                bad_row |= live
+            else:
+                ok &= edge_rel[addr.clamp(min=0)].long() == \
+                    rel.to(dev).long()[dd, jj]
         bad = torch.zeros(p, dtype=torch.bool, device=dev)
         bad[dd[~ok]] = True
         faults += int((bad_row | bad).sum())
@@ -206,17 +225,25 @@ def follow(steps: Sequence[Dict], weights0: Dict[str, torch.Tensor],
                model["adam_eps"])
     keep = 1.0 - model["dropout"]
     d = features.shape[1]
+    typed = getattr(arch, "TYPED", False)
     losses, first_grad = [], None
     for step in steps:
         fr = step["frontier"].to(dev).long()
         pad = arch.in_width(params)
         x = torch.zeros((fr.shape[0], pad), dtype=torch.float32, device=dev)
         live = fr >= 0
-        x[live, :d] = features[fr[live]]
+        x[live, :d] = features[fr[live]].float()
         blocks = [(b[0].to(dev).long(), b[1].to(dev)) for b in step["blocks"]]
+        extra = {}
+        if typed:
+            rels = step.get("rels") or [None] * len(blocks)
+            extra = {"rels": [None if r is None else r.to(dev).long()
+                              for r in rels],
+                     "num_dst": [int(b[3]) for b in step["blocks"]]}
         leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         logits = arch.logits(leaves, x, blocks,
-                             drop_masks(step, len(blocks), dev), keep, lowp)
+                             drop_masks(step, len(blocks), dev), keep, lowp,
+                             **extra)
         num = int(step["num_seeds"])
         loss = masked_ce(logits, step["labels"].to(dev),
                          num // 2 if keep_half else num)
@@ -282,8 +309,9 @@ def compare(got: Dict, ref: Dict, weights0: Dict[str, torch.Tensor]) -> Dict:
 def initial_weights(shapes: Dict[str, Sequence[int]], seed: int,
                     device) -> Dict[str, torch.Tensor]:
     """The weights both sides start from: each matrix normal with variance
-    1 / fan_in, each bias zero, drawn on ``device`` in one call from
-    ``seed``."""
+    1 / fan_in, drawn on ``device`` in one call from ``seed``; a vector
+    named ``*.weight`` (a normalisation's scale) one, every other vector
+    (a bias, a normalisation's shift) zero."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) ^ 0x5EED)
     mats = {k: s for k, s in shapes.items() if len(s) == 2}
@@ -295,6 +323,8 @@ def initial_weights(shapes: Dict[str, Sequence[int]], seed: int,
             n = math.prod(s)
             out[k] = flat[at:at + n].reshape(s) / math.sqrt(s[1])
             at += n
+        elif k.endswith(".weight"):
+            out[k] = torch.ones(s, device=device)
         else:
             out[k] = torch.zeros(s, device=device)
     return out

@@ -1,5 +1,7 @@
 """The realized sizes of the observed steps, averaged: what the per-layer
-metrics count bytes and operations from."""
+metrics count bytes and operations from. On a typed graph (the steps carry
+``rels``) each block also gives ``valid_by_rel``: its mean valid slots of
+each relation, by relation id."""
 
 from __future__ import annotations
 
@@ -27,6 +29,14 @@ def realized(steps: List[Dict], cell: Dict) -> Dict:
                 blk(s)[0][blk(s)[1]]).numel())),
             "num_dst": mean(lambda s: blk(s)[3]),
             "num_src": mean(lambda s: blk(s)[2])})
+        typed = [(s["rels"][k], blk(s)[1]) for s in steps
+                 if s.get("rels") and s["rels"][k] is not None]
+        if typed:
+            r = len(conf["relations"])
+            ids = [rel.long()[mask] for rel, mask in typed]
+            count = sum(torch.bincount(v[(v >= 0) & (v < r)], minlength=r)
+                        for v in ids)
+            blocks[-1]["valid_by_rel"] = [int(c) / len(typed) for c in count]
     x = next((s["x"] for s in steps if s.get("x") is not None), None)
     return {"seeds": mean(lambda s: s["num_seeds"]),
             "hop1_rows": blocks[0]["num_src"] if blocks else 0.0,

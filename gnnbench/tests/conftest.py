@@ -32,19 +32,39 @@ DEEPER = {"sage-products.b8000.3layers": ("sage-products.b8000", 3,
                                           {"loss_gap": 2.5e-3})}
 
 
+TINY_NODES, TINY_DEGREE, TINY_TYPE = 3000, 8.0, 8
+
+
+def tiny_graph(conf: dict) -> None:
+    """Cut configuration ``conf`` in place to about ``TINY_NODES`` nodes
+    and in-degrees of at most ``TINY_DEGREE``, with 700 / 100 / 100 split
+    ids. A typed graph's node types keep their shares of the nodes, at
+    least ``TINY_TYPE`` a type, and each relation's in-degree is capped."""
+    conf.update(num_nodes=TINY_NODES, avg_in_degree=TINY_DEGREE,
+                train_nodes=700, valid_nodes=100, test_nodes=100)
+    types = conf.get("node_types")
+    if not types:
+        return
+    total = sum(t["num_nodes"] for t in types)
+    for t in types:
+        t["num_nodes"] = max(TINY_TYPE,
+                             round(TINY_NODES * t["num_nodes"] / total))
+    for r in conf["relations"]:
+        r["avg_in_degree"] = min(r["avg_in_degree"], TINY_DEGREE)
+    conf["num_nodes"] = sum(t["num_nodes"] for t in types)
+
+
 def tiny_cell(name: str) -> dict:
-    """Cell ``name`` (or a ``DEEPER`` one) cut to 3000 nodes, 700 train
-    ids, batch 128, fanouts [5, 3, 2] to its number of hops: the same
-    drivers, model and checks."""
+    """Cell ``name`` (or a ``DEEPER`` one) cut to about 3000 nodes
+    (``tiny_graph``), 700 train ids, batch 128, fanouts [5, 3, 2] to its
+    number of hops: the same drivers, model and checks."""
     base, layers, limits = DEEPER.get(name, (name, None, {}))
     c = load_cell(base)
     mix = c["traffic_mix"]
     if layers is not None:
         c["configuration"]["model"]["num_layers"] = layers
         mix["fanouts"] += mix["fanouts"][-1:] * (layers - len(mix["fanouts"]))
-    c["configuration"].update(num_nodes=3000, avg_in_degree=8.0,
-                              train_nodes=700, valid_nodes=100,
-                              test_nodes=100)
+    tiny_graph(c["configuration"])
     mix.update(batch_size=128, fanouts=[5, 3, 2][:len(mix["fanouts"])])
     c["limits"] = {**TINY_LIMITS, **limits}
     return c
