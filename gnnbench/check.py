@@ -40,19 +40,22 @@ def readings(observer, setup: Dict, inputs, cell: Dict, device,
                                  for s in observer.steps),
            "dropped_rows": int(dropped)}
     del graph
-    feats = torch.from_numpy(inputs.features).to(dev)
-    out["row_faults"] = sum(reference.row_faults(s["x"], s["frontier"], feats)
+    # the table stays on the host: each step's rows are gathered there
+    feats = torch.from_numpy(inputs.features)
+    out["row_faults"] = sum(reference.row_faults(s["x"], s["frontier"], feats,
+                                                 dev)
                             for s in observer.steps if s["x"] is not None)
     out["rows_checked_steps"] = sum(s["x"] is not None
                                     for s in observer.steps)
-    ref = reference.follow(observer.steps, setup["weights"], feats, model)
+    ref = reference.follow(observer.steps, setup["weights"], feats, model,
+                           device=dev)
     out.update(reference.compare(program_run(observer, setup, model), ref,
                                  setup["weights"]))
     if control:
         for name, kw in (("control", dict(lowp=True)),
                          ("half_batch", dict(keep_half=True))):
             got = reference.follow(observer.steps, setup["weights"], feats,
-                                   model, **kw)
+                                   model, device=dev, **kw)
             out.update({f"{name}.{k}": v for k, v in
                         reference.compare(got, ref,
                                           setup["weights"]).items()})

@@ -8,10 +8,15 @@ A module holds, in plain PyTorch and importing nothing of the port:
   the reference follows. ``weights`` maps the port's parameter names to
   tensors; ``x`` is the rows the first layer takes, padded to
   ``in_width(weights)`` columns; ``blocks`` come in sampling order, each
-  ``(nbr_pos, nbr_mask)`` as ``reference.py`` describes them; ``drop[i]``
-  holds the kept entries of layer ``i``'s output (None: no dropout
-  there), kept values scaled by ``1 / keep``; with ``lowp`` every
-  product's operands are rounded through ``reference.quantize``.
+  ``(nbr_pos, nbr_mask)`` as ``reference.py`` describes them; ``drop``
+  has one entry per entry of the program's ``model.layers``, and
+  ``drop[i]`` holds the kept entries of entry ``i``'s output (None: no
+  dropout there, as after the last entry), kept values scaled by
+  ``1 / keep``; with ``lowp`` every product's operands are rounded
+  through ``reference.quantize``. ``model.layers`` may hold entries past
+  the last block (a head): entry ``i`` below the number of blocks takes
+  block ``n - 1 - i``, and an entry past them takes no block and no
+  ``rels``.
 * ``TYPED`` (optional, default False): a module for typed graphs sets it
   True, and ``logits`` then also takes two keywords, each one entry per
   block in sampling order: ``rels``, the relation id of each slot's edge
@@ -26,10 +31,20 @@ A module holds, in plain PyTorch and importing nothing of the port:
   or None where the module does not count them (``step_mfu`` is then
   left out).
 
-The reference reads layer ``i``'s dropout mask from the input the
-program hands layer ``i + 1`` (``observe.py``): the port's model takes
-``forward(blocks, x, ...)``, holds its layers in ``model.layers``, and
-hands each layer the previous one's output after its dropout.
+The reference reads entry ``i``'s dropout mask from the rows the
+program hands entry ``i + 1`` (``observe.py``): the port's model takes
+``forward(blocks, x, ...)``, holds its layers in ``model.layers`` (a
+layer over a block called ``(block, h)``, a head's entry called on ``h``
+alone), and hands each entry the previous one's output after its
+dropout. A dropout inside an entry, not between two, is not followed.
+
+``sizes.realized``, which ``flops`` reads, gives on a typed cell each
+block's ``src_by_type`` and ``dst_by_type`` (its mean live rows of each
+node type) and ``relation_types`` (each relation's ``[src type, dst
+type]`` by index), so that a projection per relation over its source
+type's rows can be counted. The check hands ``logits`` rows gathered
+from the host table a step at a time, never the whole table on the
+device.
 """
 
 from __future__ import annotations

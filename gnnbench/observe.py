@@ -8,7 +8,9 @@ changing what the device executes:
   ``cache/pipeline.py``): its train loss is wrapped to note the batch it
   is handed (the sampled blocks, the frontier, the seeds and labels);
 * forward pre-hooks on the model: the feature rows it is handed, and the
-  hidden rows each layer after the first is handed (after dropout);
+  hidden rows each entry of ``model.layers`` after the first is handed
+  (after dropout): an entry called ``(block, h)`` or, as a head's entry
+  past the last block, on ``h`` alone;
 * ``GraphedStep.__call__`` (``train/graphed.py``): after each call that
   trained, the device is synchronised and the step's tensors copied to
   the host, with the optimizer's first moments after the first step and
@@ -78,14 +80,17 @@ class Observer:
                                         else value)
 
     def watch_model(self, model: torch.nn.Module) -> None:
-        """Hooks on ``model``: the rows it is handed, and the input of
-        each layer ``i`` after the first (noted as ``h<i>``)."""
+        """Hooks on ``model``: the rows it is handed, and the rows each
+        entry ``i`` of ``model.layers`` after the first is handed (noted
+        as ``h<i>``): ``args[1]`` of an entry called ``(block, h)``,
+        ``args[0]`` of one called on ``h`` alone."""
         self.model = model
         model.register_forward_pre_hook(
             lambda mod, args: self.note("x", args[1]))
         for i, layer in enumerate(model.layers[1:], start=1):
             layer.register_forward_pre_hook(
-                lambda mod, args, key=f"h{i}": self.note(key, args[1]))
+                lambda mod, args, key=f"h{i}": self.note(
+                    key, args[0] if len(args) == 1 else args[1]))
 
     # -- the steps ----------------------------------------------------------
 

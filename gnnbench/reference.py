@@ -18,16 +18,20 @@ A step ``s`` the program ran is a dict of host tensors:
 * ``rels``: per hop in sampling order, the relation id of each slot's
   edge (``nbr_pos``'s shape; the port's ``Block.nbr_rel``), or None where
   the block carries none (every block of a homogeneous graph);
-* ``h``: by layer, the hidden rows that reached layer ``i``, after
-  dropout (their zeros give the dropout mask the program drew on layer
-  ``i - 1``'s output), None where nothing was noted (always layer 0);
+* ``h``: by entry ``i`` of the program's ``model.layers`` (its blocks'
+  layers, then any head entries), the hidden rows that reached entry
+  ``i``, after dropout (their zeros give the dropout mask the program
+  drew on entry ``i - 1``'s output), None where nothing was noted
+  (always entry 0);
 * ``x``: the feature rows the program delivered to the model, where the
   step was observed outside a graph replay (else None).
 
 Sampling and dropout are random, so the reference follows the program's
 draws: it checks each drawn block against the CSR (``sampler_faults``)
 and takes the dropout masks from ``h``, then computes everything else
-from the inputs and its own weights.
+from the inputs and its own weights. A step's feature rows are gathered
+from the table where it lives, the host in a run's check, and moved to
+the device one step at a time (``frontier_rows``).
 """
 
 from __future__ import annotations
@@ -143,18 +147,31 @@ def sampler_faults(step: Dict, indptr: torch.Tensor, indices: torch.Tensor,
 
 # -- the rows delivered -----------------------------------------------------
 
-def row_faults(x: torch.Tensor, frontier: torch.Tensor,
-               features: torch.Tensor) -> int:
+def frontier_rows(features, frontier: torch.Tensor, device) -> torch.Tensor:
+    """(M, F) on ``device``: the feature row of each id of ``frontier``
+    in the table's own dtype, a zero row for padding. The rows are
+    gathered where ``features`` (a numpy array or a tensor) lives, the
+    host for a run's check, and only they are moved: the table is never
+    copied to the device whole."""
+    table = torch.as_tensor(features)
+    fr = frontier.to(table.device).long()
+    live = fr >= 0
+    rows = torch.zeros((fr.shape[0], table.shape[1]), dtype=table.dtype,
+                       device=table.device)
+    rows[live] = table[fr[live]]
+    return rows.to(device)
+
+
+def row_faults(x: torch.Tensor, frontier: torch.Tensor, features,
+               device) -> int:
     """Rows of ``x`` that are not the feature row of their frontier id in
     ``x``'s dtype (zero columns past the table's width, a zero row for
-    padding)."""
-    dev = features.device
-    fr = frontier.to(dev).long()
-    want = torch.zeros((fr.shape[0], x.shape[1]), dtype=x.dtype, device=dev)
-    live = fr >= 0
-    d = features.shape[1]
-    want[live, :d] = features[fr[live]].to(x.dtype)
-    return int((x.to(dev) != want).any(1).sum())
+    padding), compared on ``device``."""
+    rows = frontier_rows(features, frontier, device)
+    want = torch.zeros((rows.shape[0], x.shape[1]), dtype=x.dtype,
+                       device=device)
+    want[:, :rows.shape[1]] = rows.to(x.dtype)
+    return int((x.to(device) != want).any(1).sum())
 
 
 # -- the model step ---------------------------------------------------------
@@ -201,9 +218,9 @@ class Adam:
 
 
 def drop_masks(step: Dict, layers: int, device) -> List[Optional[torch.Tensor]]:
-    """Layer i's kept entries, read from the hidden rows the program fed
-    layer i + 1 (a kept entry of a positive ReLU output is nonzero; a
-    zero one contributes nothing either way)."""
+    """Entry i's kept entries, read from the hidden rows the program fed
+    entry i + 1 of ``model.layers`` (a kept entry of a positive ReLU
+    output is nonzero; a zero one contributes nothing either way)."""
     masks: List[Optional[torch.Tensor]] = [None] * layers
     for i, h in enumerate(step["h"][1:layers], start=1):
         if h is not None:
@@ -212,27 +229,28 @@ def drop_masks(step: Dict, layers: int, device) -> List[Optional[torch.Tensor]]:
 
 
 def follow(steps: Sequence[Dict], weights0: Dict[str, torch.Tensor],
-           features: torch.Tensor, model: Dict, lowp: bool = False,
-           keep_half: bool = False) -> Dict:
-    """The reference run of ``steps``: per step the loss, the first step's
-    gradient, and the parameters after the last. ``lowp``: every product
-    in float8 (the control). ``keep_half``: the loss over the first half
-    of each batch's seeds only (a planted fault)."""
+           features, model: Dict, lowp: bool = False,
+           keep_half: bool = False, device=None) -> Dict:
+    """The reference run of ``steps`` on ``device`` (default: where
+    ``features`` is), each step's rows gathered from ``features`` by
+    ``frontier_rows``: per step the loss, the first step's gradient, and
+    the parameters after the last. ``lowp``: every product in float8 (the
+    control). ``keep_half``: the loss over the first half of each batch's
+    seeds only (a planted fault)."""
     arch = models.module(model["arch"])
-    dev = features.device
+    dev = torch.as_tensor(features).device if device is None \
+        else torch.device(device)
     params = {k: v.to(dev, torch.float32).clone() for k, v in weights0.items()}
     opt = Adam(params, model["learning_rate"], tuple(model["adam_betas"]),
                model["adam_eps"])
     keep = 1.0 - model["dropout"]
-    d = features.shape[1]
     typed = getattr(arch, "TYPED", False)
     losses, first_grad = [], None
     for step in steps:
-        fr = step["frontier"].to(dev).long()
-        pad = arch.in_width(params)
-        x = torch.zeros((fr.shape[0], pad), dtype=torch.float32, device=dev)
-        live = fr >= 0
-        x[live, :d] = features[fr[live]].float()
+        rows = frontier_rows(features, step["frontier"], dev)
+        x = torch.zeros((rows.shape[0], arch.in_width(params)),
+                        dtype=torch.float32, device=dev)
+        x[:, :rows.shape[1]] = rows.float()
         blocks = [(b[0].to(dev).long(), b[1].to(dev)) for b in step["blocks"]]
         extra = {}
         if typed:
@@ -242,8 +260,8 @@ def follow(steps: Sequence[Dict], weights0: Dict[str, torch.Tensor],
                      "num_dst": [int(b[3]) for b in step["blocks"]]}
         leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
         logits = arch.logits(leaves, x, blocks,
-                             drop_masks(step, len(blocks), dev), keep, lowp,
-                             **extra)
+                             drop_masks(step, len(step["h"]), dev), keep,
+                             lowp, **extra)
         num = int(step["num_seeds"])
         loss = masked_ce(logits, step["labels"].to(dev),
                          num // 2 if keep_half else num)
