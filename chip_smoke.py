@@ -44,13 +44,18 @@ exits non-zero:
    ``Trainer``, whose train and eval steps are captured as CUDA graphs
    and replayed (``train/graphed.py``; a replay adds the launches its
    capture recorded to each wrapper's count); every kernel's launch count
-   over that run must be > 0 but K5's, which SAGE does not reach. Then GCN at the same width on
-   the same graph, one epoch and a validation pass each in bf16 and in
+   over that run must be > 0 but K5's, which SAGE does not reach, and the
+   gathered feature mean's, the cached path's (the activation-dropout
+   forward and backward, in the kernel table like every kernel, are
+   counted and held on every full-width path below: once a train step
+   after each layer but the last, never in an eval step). Then GCN at
+   the same width on the same graph, one epoch and a validation pass each in bf16 and in
    float32: finite losses, no cap overflow, one batch's logits against
    the plain versions on the CPU, and exact launch counts (bf16: K1 once
    per train and eval step, K2 forward once per step and backward once
    per train step, K5 never; float32: K5 once per train and eval step,
-   K1 never), held again in a ``torch.profiler`` trace of 5 replays of
+   K1 never; both: the activation-dropout forward and backward once per
+   train step), held again in a ``torch.profiler`` trace of 5 replays of
    the captured step (each kernel by name). Then GAT (``"gat"``: PyG's
    ogbn-products example, 3 layers of 4 heads of 128, fanout [10,10,10],
    every hop deduplicated, bf16): its edge-softmax kernels against their
@@ -62,7 +67,14 @@ exits non-zero:
    pass (finite losses, no cap overflow, scored slots counted), and the
    launches a step, counted and traced: the attention's forward and
    backward 3 times each, the sampling kernel and the dedup's tail 3
-   times, K3 once;
+   times, K3 once, the activation-dropout forward and backward twice
+   (none in the validation pass). Then the activation and dropout
+   between layers (``"act_dropout"``, ``check_act_dropout``): its two
+   kernels at the main path's layer-0 shape (its hop-1 cap x 256 bf16,
+   ReLU) and GAT's (its layer-0 dst cap x 512 bf16, ELU), rate 0.5,
+   against the plain chain from the same generator state (ReLU's output,
+   gradient and mask bitwise, ELU's within 1 bf16 ulp), warm and cold ms
+   beside the byte bound and the chain's ms;
 5. learning: the reference's verify recipe (50k-node planted-label
    graph, 2 epochs) must reach validation accuracy > 0.15 (7x chance),
    one batch's logits from the kernels must match the plain versions on
@@ -345,6 +357,8 @@ def require(cond, what):
 
 def kernel_table():
     """name -> (wrapper holding the launch count, TPU kernel it replaces)."""
+    from legion_tpu_torch.ops.act_dropout import (act_dropout,
+                                                  act_dropout_backward)
     from legion_tpu_torch.ops.dedup import dedup_tail
     from legion_tpu_torch.ops.gather import gather_rows
     from legion_tpu_torch.ops.identity_agg import (
@@ -371,6 +385,10 @@ def kernel_table():
         "dedup_tail": (dedup_tail, None),
         # no TPU kernel: the reference leaves this mean to XLA
         "gathered_feature_mean": (gathered_feature_mean, None),
+        # no TPU kernel: the reference leaves the activation and the
+        # dropout between layers to XLA
+        "act_dropout": (act_dropout, None),
+        "act_dropout_backward": (act_dropout_backward, None),
     }
 
 
@@ -963,6 +981,8 @@ TRACE_NAMES = {"identity_masked_mean": "masked_agg_kernel",
                "dedup_tail": "dedup_tail_kernel",
                "gathered_feature_mean": "feature_mean_kernel",
                "edge_softmax_aggregate": "edge_softmax_fwd_kernel",
+               "act_dropout": "act_dropout_fwd_kernel",
+               "act_dropout_backward": "act_dropout_bwd_kernel",
                # one src-row pass a backward call
                "edge_softmax_aggregate_backward": "edge_softmax_src_kernel"}
 
@@ -1870,7 +1890,8 @@ def gcn_path(kernels, data, dtype):
             "grouped_masked_sum": (0 if bf16 else t, 0 if bf16 else e),
             "gathered_masked_mean": (t, e),
             "gathered_masked_mean_backward": (t, 0),
-            "dedup_tail": (t, e), "gathered_feature_mean": (0, 0)}
+            "dedup_tail": (t, e), "gathered_feature_mean": (0, 0),
+            "act_dropout": (t, 0), "act_dropout_backward": (t, 0)}
     for name, (nt, ne) in want.items():
         require((train_launches[name], eval_launches[name]) == (nt, ne),
                 f"GCN {dtype} launched {name} {nt} times in {t} train steps "
@@ -2055,7 +2076,10 @@ def gat_path(kernels, data):
     captured step, each kernel counted by name in a ``torch.profiler``
     trace: the sampling kernel and the dedup's tail 3 times a step, K3
     once, the attention's forward 3 times and its backward 3 times (one
-    ``edge_softmax_src_kernel`` each), K1, K2 and K5 never."""
+    ``edge_softmax_src_kernel`` each), the activation-dropout forward and
+    backward twice (after layers 0 and 1), K1, K2 and K5 never; the
+    validation pass launches no activation-dropout. Returns the phase's
+    line, whose ``launches`` are the epoch's and the validation pass's."""
     import torch
 
     from legion_tpu_torch.config import (Config, DatasetConfig, ModelConfig,
@@ -2106,6 +2130,10 @@ def gat_path(kernels, data):
     rec = tr.train_one_epoch(0)
     train_launches = read_launches(all_kernels)
     valid_acc = tr.evaluate("valid")
+    launches = read_launches(kernels)          # the epoch's and the eval's
+    require(all(launches[k] == train_launches[k]
+                for k in ("act_dropout", "act_dropout_backward")),
+            f"GAT's eval steps launch no activation-dropout: {launches}")
     require(all(math.isfinite(v) for v in rec["losses"]), "finite GAT losses")
     require(rec["cap_overflow"] == 0, "no cap overflow in GAT")
     require(rec["counts"].get("attn_slots", 0) > 0,
@@ -2113,7 +2141,8 @@ def gat_path(kernels, data):
     per_step = {k: 0 for k in all_kernels}
     per_step.update(sample_neighbors=3, dedup_tail=3, gather_rows=1,
                     edge_softmax_aggregate=3,
-                    edge_softmax_aggregate_backward=3)
+                    edge_softmax_aggregate_backward=3, act_dropout=2,
+                    act_dropout_backward=2)
     t = rec["steps"]
     require(train_launches == {k: t * n for k, n in per_step.items()},
             f"GAT launched {train_launches} in {t} train steps, want "
@@ -2126,13 +2155,96 @@ def gat_path(kernels, data):
             "attn_slots_per_step": rec["counts"]["attn_slots"] / t,
             "ms_per_step": 1e3 * rec["epoch_s"] / t,
             "edges_per_s": rec["edges_per_s"], "valid_acc": valid_acc,
-            "launches_per_step": per_step, "replays_traced": traced,
-            "kernel_checks": checks,
+            "launches_per_step": per_step, "launches": launches,
+            "replays_traced": traced, "kernel_checks": checks,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     emit(line)
     del tr
     torch.cuda.empty_cache()
     return line
+
+
+def act_dropout_case(rows, width, act, seed):
+    """One shape of ``check_act_dropout``: the kernels against the plain
+    chain (``dropout`` after the activation) from one generator state."""
+    import torch
+
+    from legion_tpu_torch.ops.act_dropout import (
+        ACTIVATIONS, act_dropout, act_dropout_backward, act_dropout_forward,
+        act_dropout_traffic, dropout, unpack_bits)
+    dev, rate, keep = torch.device("cuda"), 0.5, 0.5
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((rows, width), generator=gen, device=dev).bfloat16()
+    g = torch.randn((rows, width), generator=gen, device=dev).bfloat16()
+    n, what = h.numel(), f"act_dropout {act} at {[rows, width]} bf16"
+
+    def run(fn):
+        x = h.clone().requires_grad_(True)
+        out = fn(x, torch.Generator(device=dev).manual_seed(seed + 1))
+        (dx,) = torch.autograd.grad(out, x, g)
+        return out.detach(), dx
+
+    def chain(x, gen):
+        return dropout(ACTIVATIONS[act](x), rate, gen)
+    out, dh = run(lambda x, gen: act_dropout(x, act, rate, gen))
+    want, want_dh = run(chain)
+    u = torch.rand((rows, width), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    _, bits = act_dropout_forward(h, u, keep, act)
+    kept = (u < keep) & (h > 0) if act == "relu" else u < keep
+    require(torch.equal(unpack_bits(bits, n), kept.reshape(-1)),
+            f"{what}: the mask is the chain's")
+    if act == "elu":
+        require(within_bf16(out, want) and within_bf16(dh, want_dh),
+                f"{what}: output and gradient within 1 bf16 ulp")
+    else:
+        require(torch.equal(out, want) and torch.equal(dh, want_dh),
+                f"{what}: output and gradient bitwise the chain's")
+    traffic = act_dropout_traffic(n, 2, act)
+    x = h.clone().requires_grad_(True)
+    plain = chain(x, torch.Generator(device=dev).manual_seed(seed + 2))
+    rec = {"shape": [rows, width], "act": act, "dtype": "bfloat16",
+           "kept_share": float(kept.float().mean()),
+           "fwd": {"max_abs_err": float((out.float() - want.float()).abs()
+                                        .max()),
+                   **bound(traffic["forward"], 0),
+                   "ms": time_ms(lambda: act_dropout_forward(h, u, keep,
+                                                             act)),
+                   "cold_ms": time_ms(lambda: act_dropout_forward(
+                       h, u, keep, act), cold=True),
+                   # the draw and the kernel, against the chain it replaced
+                   "op_ms": time_ms(lambda: act_dropout(h, act, rate, gen)),
+                   "plain_ms": time_ms(lambda: chain(h, gen)),
+                   "library_ms": None},
+           "bwd": {"max_abs_err": float((dh.float() - want_dh.float()).abs()
+                                        .max()),
+                   **bound(traffic["backward"], 0),
+                   "ms": time_ms(lambda: act_dropout_backward(g, bits, h,
+                                                              keep, act)),
+                   "cold_ms": time_ms(lambda: act_dropout_backward(
+                       g, bits, h, keep, act), cold=True),
+                   "plain_ms": time_ms(lambda: torch.autograd.grad(
+                       plain, x, g, retain_graph=True)),
+                   "library_ms": None}}
+    return rec
+
+
+def check_act_dropout(results, relu_rows, elu_rows):
+    """The activation-dropout kernels (``ops/act_dropout.py``) at the main
+    path's layer-0 shape (``relu_rows`` x 256, ReLU) and GAT's
+    (``elu_rows`` x 512, ELU), bf16, rate 0.5; the main path's shape
+    fills the kernels line's results of both, each shape their
+    ``shapes``. The byte bound: forward h, the f32 uniforms and the
+    output once and a bit an element; backward the gradient, the bits and
+    dh (ELU: h). Their launches are counted on every full-width path."""
+    cases = {"sage_layer0_relu": act_dropout_case(relu_rows, 256, "relu", 11),
+             "gat_layer0_elu": act_dropout_case(elu_rows, 512, "elu", 13)}
+    for name, part in (("act_dropout", "fwd"),
+                       ("act_dropout_backward", "bwd")):
+        results[name].update(
+            {k: cases["sage_layer0_relu"][part][k] for k in KERNEL_KEYS},
+            shapes={c: r[part] for c, r in cases.items()})
+    return {"phase": "act_dropout", "cases": cases}
 
 
 def gcn_learns(data):
@@ -2278,13 +2390,14 @@ def mesh_dp(kernels, results, data, smi):
     a step plus one of the epoch's metrics (and a step counted alone one
     all-reduce of exactly the parameter bytes), and the launch counts
     must be exact: per train step the sampling kernel 2, K1, K2 forward,
-    K2 backward and K3 once each, K5 never; per eval step the same but
-    K2 backward. After the run every kernel of the path is held against
-    its plain version on one batch of the MeshTrainer sampled at its loose
-    caps (``kernel_checks``): the sampling kernel on both hops, K3 on the
-    whole frontier (-1 padding included), K1 on the identity block and K2
-    forward and backward on layer 1's block, each with the tolerance of
-    the main path's check."""
+    K2 backward, K3 and the activation-dropout forward and backward once
+    each, K5 never; per eval step the same but K2 backward and the
+    activation-dropout. After the run every kernel of the path is held
+    against its plain version on one batch of the MeshTrainer sampled at
+    its loose caps (``kernel_checks``): the sampling kernel on both hops,
+    K3 on the whole frontier (-1 padding included), K1 on the identity
+    block and K2 forward and backward on layer 1's block, each with the
+    tolerance of the main path's check."""
     import torch
     import torch.distributed as dist
 
@@ -2372,11 +2485,12 @@ def mesh_dp(kernels, results, data, smi):
                   "gathered_masked_mean": t,
                   "gathered_masked_mean_backward": t, "gather_rows": t,
                   "grouped_masked_sum": 0, "dedup_tail": t,
-                  "gathered_feature_mean": 0}
+                  "gathered_feature_mean": 0, "act_dropout": t,
+                  "act_dropout_backward": t}
     want_eval = dict(want_train, sample_neighbors=2 * e,
                      identity_masked_mean=e, gathered_masked_mean=e,
                      gathered_masked_mean_backward=0, gather_rows=e,
-                     dedup_tail=e)
+                     dedup_tail=e, act_dropout=0, act_dropout_backward=0)
     require(train_launches == want_train and eval_launches == want_eval,
             f"exact launches: train {train_launches} (want {want_train}), "
             f"eval {eval_launches} (want {want_eval})")
@@ -2531,7 +2645,8 @@ def cached_path(kernels, results, dedups):
     h = hist[-1]
     for name in ("sample_neighbors", "gathered_masked_mean",
                  "gathered_masked_mean_backward", "gather_rows",
-                 "dedup_tail", "gathered_feature_mean"):
+                 "dedup_tail", "gathered_feature_mean", "act_dropout",
+                 "act_dropout_backward"):
         require(launches[name] > 0, f"the cached path launched {name}")
     cost = {k: getattr(res["cost"], k) for k in (
         "feat_capacity", "topo_capacity", "alpha", "saved_feat_bytes")}
@@ -2802,9 +2917,10 @@ def hybrid_launches(hist, data, hops):
     launches a step (hops 1.. of this batch, hop 0 of the next) plus the
     epoch's prologue, K2 forward and backward once a step, K3 for the
     cached and for the staged rows, the dedup's tail at every hop, the
-    gathered feature mean once a step (layer 0 widens 32 -> 256). The
-    eval passes (valid after each epoch, test) take batches of
-    ``pa_cell.BATCH`` seeds and launch no backward."""
+    gathered feature mean once a step (layer 0 widens 32 -> 256), the
+    activation-dropout forward and backward once a train step. The eval
+    passes (valid after each epoch, test) take batches of
+    ``pa_cell.BATCH`` seeds and launch no backward and no dropout."""
     from legion_tpu_torch.tools import pa_cell
     train_steps = sum(h["steps"] for h in hist)
     eval_steps = [(len(ids) - 1) // pa_cell.BATCH + 1 for ids in (
@@ -2815,7 +2931,8 @@ def hybrid_launches(hist, data, hops):
             "gathered_masked_mean_backward": train_steps,
             "gather_rows": 2 * steps,
             "identity_masked_mean": 0, "grouped_masked_sum": 0,
-            "dedup_tail": hops * steps, "gathered_feature_mean": steps}
+            "dedup_tail": hops * steps, "gathered_feature_mean": steps,
+            "act_dropout": train_steps, "act_dropout_backward": train_steps}
 
 
 def require_hybrid_launches(launches, hist, data, hops, what):
@@ -3096,7 +3213,8 @@ def bigcsr(kernels, results, smi, ref):
         want = {"sample_neighbors": hops * n + 1, "gathered_masked_mean": n,
                 "gathered_masked_mean_backward": n, "gather_rows": 2 * n,
                 "identity_masked_mean": 0, "grouped_masked_sum": 0,
-                "dedup_tail": hops * n, "gathered_feature_mean": n}
+                "dedup_tail": hops * n, "gathered_feature_mean": n,
+                "act_dropout": n, "act_dropout_backward": n}
         require(traced == counted == want,
                 f"a steady epoch traced {traced} and counted {counted} "
                 f"launches, want {want}")
@@ -3344,7 +3462,8 @@ def mesh_sharded(kernels, data, dp_losses, dp_ms):
     want = {"sample_neighbors": 2 * t, "identity_masked_mean": t,
             "gathered_masked_mean": t, "gathered_masked_mean_backward": t,
             "gather_rows": 2 * t, "grouped_masked_sum": 0, "dedup_tail": t,
-            "gathered_feature_mean": 0}
+            "gathered_feature_mean": 0, "act_dropout": t,
+            "act_dropout_backward": t}
     require(launches == want, f"exact launches {launches} (want {want})")
     m, d = tr.caps[-1], tr.features.shape[1]
     a2a = t * comm.exact_exchange_bytes(m, 1, d)["all_to_all"]
@@ -3822,7 +3941,8 @@ def mesh_partitioned(kernels, results, smi, cached_ref):
             "gathered_masked_mean": t + e,
             "gathered_masked_mean_backward": t, "gather_rows": t + e,
             "grouped_masked_sum": 0, "dedup_tail": 2 * (t + e),
-            "gathered_feature_mean": t + e}
+            "gathered_feature_mean": t + e, "act_dropout": t,
+            "act_dropout_backward": t}
     require(launches == want, f"exact launches over {t} train and {e} eval "
             f"steps: {launches} (want {want})")
     same = (torch.equal(batch.frontier, pbatch.frontier)
@@ -3976,7 +4096,8 @@ def mesh_partitioned_k2(smi):
     overflow anywhere, validation accuracy > 0.15 at both world sizes,
     and the launches per step are those the CPU test pins: at 2 ranks the
     sampling kernel 4 times (twice a hop), K3 3 times, K2 forward once
-    (layer 1; layer 0 widens 100 -> 256), K2 backward once a train step;
+    (layer 1; layer 0 widens 100 -> 256), K2 backward and the
+    activation-dropout forward and backward once a train step;
     at 1 rank the sampling kernel twice and K3 once. Returns rank 0's
     launches of the 2-rank driver run."""
     from legion_tpu_torch.tools import partition_cell
@@ -4008,12 +4129,14 @@ def mesh_partitioned_k2(smi):
                       "gather_rows": k3 * t, "grouped_masked_sum": 0,
                       "dedup_tail": 2 * t, "edge_softmax_aggregate": 0,
                       "edge_softmax_aggregate_backward": 0,
-                      "gathered_feature_mean": t}
+                      "gathered_feature_mean": t, "act_dropout": t,
+                      "act_dropout_backward": t}
             want_e = dict(want_t, sample_neighbors=per_hop * e,
                           gathered_masked_mean=e,
                           gathered_masked_mean_backward=0,
                           gather_rows=k3 * e, dedup_tail=2 * e,
-                          gathered_feature_mean=e)
+                          gathered_feature_mean=e, act_dropout=0,
+                          act_dropout_backward=0)
             require(r["train_launches"] == want_t
                     and r["eval_launches"] == want_e,
                     f"{what}: launches per step, train {r['train_launches']}"
@@ -4053,11 +4176,16 @@ def mesh_partitioned_k2(smi):
 OGB_EPOCHS = 3
 
 
+# the kernels that a train step launches and an eval step does not
+TRAIN_ONLY = ("gathered_masked_mean_backward", "act_dropout",
+              "act_dropout_backward")
+
+
 def per_step(launches, train_steps, eval_steps):
-    """Launches per step as exact fractions: the backward kernel's per
+    """Launches per step as exact fractions: a ``TRAIN_ONLY`` kernel's per
     train step, every other kernel's per train or eval step."""
     return {name: Fraction(n, train_steps + (
-        0 if name == "gathered_masked_mean_backward" else eval_steps))
+        0 if name in TRAIN_ONLY else eval_steps))
         for name, n in launches.items()}
 
 
@@ -4258,8 +4386,10 @@ def bench_phase(kernels, smi, data, main_rec):
     full width for ``BENCH_STEPS`` steps (a warm-up pass and two timed
     trials) for each variant: ``fanout`` must launch per step exactly what
     the main path launches per step (K1, K2 forward and backward, K3
-    once, the sampling kernel twice, K5 never) and ``coo_segment`` K3
-    once and the sampling kernel twice, no K1 or K2; finite losses; and
+    and the activation-dropout forward and backward once, the sampling
+    kernel twice, K5 never) and ``coo_segment`` K3 and the
+    activation-dropout once each and the sampling kernel twice, no K1 or
+    K2; finite losses; and
     5 replays of a fresh variant's captured step traced: the profiler's
     kernel counts and the bookkeeping must both be 5 times those launches
     per step. (b) The graph saved under a fresh ``--cache-dir`` and ``python -m
@@ -4275,13 +4405,15 @@ def bench_phase(kernels, smi, data, main_rec):
     want = {"fanout": {"identity_masked_mean": 1, "gathered_masked_mean": 1,
                        "gathered_masked_mean_backward": 1, "gather_rows": 1,
                        "sample_neighbors": 2, "grouped_masked_sum": 0,
-                       "dedup_tail": 1, "gathered_feature_mean": 0},
+                       "dedup_tail": 1, "gathered_feature_mean": 0,
+                       "act_dropout": 1, "act_dropout_backward": 1},
             "coo_segment": {"identity_masked_mean": 0,
                             "gathered_masked_mean": 0,
                             "gathered_masked_mean_backward": 0,
                             "gather_rows": 1, "sample_neighbors": 2,
                             "grouped_masked_sum": 0, "dedup_tail": 1,
-                            "gathered_feature_mean": 0}}
+                            "gathered_feature_mean": 0, "act_dropout": 1,
+                            "act_dropout_backward": 1}}
     main_per_step = per_step(main_rec["launches"], *main_rec["steps"])
     require(main_per_step == want["fanout"],
             f"the main path's launches per step {main_per_step}")
@@ -4508,7 +4640,7 @@ def main():
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     # what the ogb_products phase holds its run to: the same Trainer's
     # launches per step, and its steady epoch beside its own
-    main_rec = {"launches": launches,
+    main_rec = {"launches": launches, "caps": list(tr.caps),
                 "steps": (sum(r["steps"] for r in epochs),
                           tr.plan.valid_steps),
                 "ms_per_step": 1e3 * epochs[-1]["epoch_s"]
@@ -4534,7 +4666,13 @@ def main():
     # GAT (PyG's products example) on the same graph: its attention
     # kernels at layers 0 and 2, an epoch, and its launches a step
     announce("gat")
-    gat_path(kernels, data)
+    gat = gat_path(kernels, data)
+    by_path["gat"] = gat["launches"]
+    torch.cuda.empty_cache()
+    # the activation and dropout between layers at SAGE's and GAT's
+    # layer-0 shapes
+    announce("act_dropout")
+    emit(check_act_dropout(results, main_rec["caps"][1], gat["caps"][2]))
     torch.cuda.empty_cache()
     # MeshTrainer at world size 1 through NCCL on the same graph, then on
     # the table striped over its one-rank cache group

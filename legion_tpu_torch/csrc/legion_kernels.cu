@@ -1,11 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels of legion_tpu_torch.
 //
-// Each kernel but the dedup's, the gathered feature mean's and GAT's
-// replaces a Pallas TPU kernel of legion_tpu/ops/ and computes what that
-// kernel computes, redesigned for the H100 rather than copied block by
-// block; the dedup's tail (dedup_tail_kernel) and the gathered feature mean
-// (feature_mean_kernel) replace chains of PyTorch passes, and GAT's
-// edge-softmax kernels (last below) replace none: legion_tpu has no GAT.
+// Each kernel but the dedup's, the gathered feature mean's, GAT's and the
+// activation-dropout's replaces a Pallas TPU kernel of legion_tpu/ops/ and
+// computes what that kernel computes, redesigned for the H100 rather than
+// copied block by block; the dedup's tail (dedup_tail_kernel), the gathered
+// feature mean (feature_mean_kernel) and the activation and dropout between
+// layers (act_dropout_*_kernel, last below) replace chains of PyTorch
+// passes, and GAT's edge-softmax kernels replace none: legion_tpu has no
+// GAT.
 // All are scans, gathers, reductions or scatters with no matrix product: at
 // the main-path shapes they do < 1 FLOP per byte moved, far below the ~295
 // FLOP/byte at which the H100's bf16 tensor cores would bound them, so no
@@ -35,6 +37,9 @@
 //    and every valid slot's load of a chunk issued before the first add.
 //  * The dedup's tail streams the sorted ids once; a decoupled look-back
 //    carries its one count across tiles, so it takes one launch.
+//  * The activation and dropout stream h, the uniforms and the output once
+//    forward, and the gradients and a bit an element back: bytes bound
+//    them, met by 16-byte words and a grid-stride loop.
 //  * GAT's edge-softmax aggregation (last below) gathers each slot's row
 //    segment as K2 does, with one warp per (dst row, head) so that a
 //    head's softmax is a warp's reductions; its backward turns the slots
@@ -50,7 +55,8 @@
 // cudaGetLastError(). Wrappers and plain PyTorch versions of each kernel:
 // legion_tpu_torch/ops/identity_agg.py, legion_tpu_torch/ops/gather.py,
 // legion_tpu_torch/ops/sample.py, legion_tpu_torch/ops/spmm.py,
-// legion_tpu_torch/ops/dedup.py and legion_tpu_torch/ops/gat_attention.py.
+// legion_tpu_torch/ops/dedup.py, legion_tpu_torch/ops/gat_attention.py and
+// legion_tpu_torch/ops/act_dropout.py.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -804,28 +810,47 @@ sample_neighbors_kernel(const int32_t* __restrict__ indptr,
   }
 }
 
+// The card's SM count, read into *sms where it is still 0: a process
+// drives one kind of card, so a caller keeps it in a static.
+cudaError_t sm_count(int* sms) {
+  if (*sms != 0) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return err;
+}
+
+// As many blocks of `kernel` at `threads` a block as the card holds at
+// once, found into *resident where it is still 0 (a static of the caller,
+// one per kernel instance).
+template <typename K>
+cudaError_t resident_blocks(K kernel, int threads, int* resident) {
+  if (*resident != 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
+  }
+  if (err != cudaSuccess) return err;
+  *resident = sms * per_sm;
+  return cudaSuccess;
+}
+
 // The persistent grid of sample_neighbors_kernel<B>: as many blocks as the
-// card holds at once, found once per B (a process drives one kind of
-// card), and no more than the (tile, slice) items need.
+// card holds at once (resident_blocks), and no more than the (tile, slice)
+// items need.
 template <int B>
 cudaError_t launch_sample(const int32_t* indptr, const int32_t* indices,
                           const int32_t* frontier, const float* u,
                           int32_t* out, int64_t p, int f, int per,
                           cudaStream_t stream) {
   static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, sample_neighbors_kernel<B>, kSampleThreads, 0);
-    }
-    if (err != cudaSuccess) return err;
-    resident = sms * per_sm;
-  }
+  const cudaError_t err =
+      resident_blocks(sample_neighbors_kernel<B>, kSampleThreads, &resident);
+  if (err != cudaSuccess) return err;
   const int slices = (f + per - 1) / per;
   constexpr int kWarpsPerBlock = kSampleThreads / kWarp;
   const int64_t wanted =
@@ -1426,14 +1451,8 @@ int legion_sample_neighbors(const void* indptr, const void* indices,
   // kSampleWarpsPerSm warps on every SM, else the tile is cut into slices
   // until they do; never more than 32.
   static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   const int64_t tiles = (p + kWarp - 1) / kWarp;
   const int64_t fill = static_cast<int64_t>(sms) * kSampleWarpsPerSm / tiles;
   const int cut = static_cast<int>(fill < 1 ? 1 : fill < f ? fill : f);
@@ -2290,6 +2309,259 @@ int legion_edge_softmax_bwd(const void* g, const void* z, const void* a_src,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+}  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// The activation and dropout between layers
+// (legion_tpu_torch/ops/act_dropout.py): over the n elements of h, with u
+// torch.rand's float32 uniforms as drawn and keep = 1 - rate,
+//
+//   out[i] = u[i] < keep ? act(h[i]) / keep : 0
+//   dh[i]  = u[i] < keep ? act'(h[i]) * (g[i] / keep) : 0
+//
+// act is ReLU or ELU (alpha 1). act(h) and g / keep are
+// rounded to h's type where F.relu / F.elu and the dropout's division
+// round them, and ELU takes expm1f and expf as PyTorch's CUDA kernels do,
+// so the kernels give the bits of that chain.
+//
+// Replaces no TPU kernel: legion_tpu's models leave the activation and the
+// dropout to XLA, which fuses them. PyTorch runs them as the activation, a
+// comparison, a division and a where against a broadcast 0-dim zero (its
+// non-vectorised elementwise kernel), and a backward for each.
+//
+// Bound: bytes. A few operations an element against, in bf16, 8 bytes
+// forward (h 2, u 4, out 2) and 4 backward (g 2, dh 2; ELU reads h, 2
+// more), beside the mask. Design: the forward keeps one bit an element
+// (bit i % 8 of byte i / 8): kept, and for ReLU kept and h > 0, which is
+// all the backward needs but ELU's h, a sixteenth of the bf16 bytes. One
+// thread a group of 8 elements, in a grid-stride loop over as many blocks
+// as the card holds at once: h, out, g and dh move in 16-byte words (one a
+// bf16 group, two a float one), u in two, and a group's bits in one byte,
+// so a warp's bits are one 32-byte sector. The group that ends past n, or
+// every group of a tensor off a 16-byte boundary, moves element by
+// element.
+// ---------------------------------------------------------------------------
+namespace {
+
+enum Act { kActRelu = 1, kActElu = 2 };
+constexpr int kGroup = 8;
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// The `count` (<= 8) elements at p as f32, the rest 0; 16-byte words where
+// `vec` (p on a 16-byte boundary) and the group is whole.
+template <typename T>
+__device__ __forceinline__ void load_group(const T* __restrict__ p, bool vec,
+                                           int count, float (&o)[kGroup]) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec && count == kGroup) {
+#pragma unroll
+    for (int k = 0; k < kGroup; k += kV) {
+      float w[kV];
+      load_vec<kV>(p + k, w);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) o[k + i] = w[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) o[i] = i < count ? to_f32(p[i]) : 0.0f;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_group(T* __restrict__ p, bool vec,
+                                            int count,
+                                            const float (&v)[kGroup]) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec && count == kGroup) {
+#pragma unroll
+    for (int k = 0; k < kGroup; k += kV) {
+      float w[kV];
+#pragma unroll
+      for (int i = 0; i < kV; ++i) w[i] = v[k + i];
+      store_vec<kV>(p + k, w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (i < count) p[i] = from_f32<T>(v[i]);
+    }
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+act_dropout_fwd_kernel(const T* __restrict__ h, const float* __restrict__ u,
+                       float keep, T* __restrict__ out,
+                       uint8_t* __restrict__ bits, int64_t n, bool vec) {
+  const int64_t groups = (n + kGroup - 1) / kGroup;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t grp = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       grp < groups; grp += stride) {
+    const int64_t i0 = grp * kGroup;
+    const int count = n - i0 < kGroup ? static_cast<int>(n - i0) : kGroup;
+    float x[kGroup], r[kGroup], y[kGroup];
+    load_group(h + i0, vec, count, x);
+    load_group(u + i0, vec, count, r);
+    unsigned byte = 0;
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      float a = x[i];
+      if (ACT == kActRelu) {
+        a = a <= 0.0f ? 0.0f : a;  // NaN passes, as in F.relu
+      } else if (ACT == kActElu) {
+        a = round_to<T>(a <= 0.0f ? expm1f(a) : a);
+      }
+      const bool kept = r[i] < keep;
+      y[i] = kept ? a / keep : 0.0f;
+      const bool bit = ACT == kActRelu ? kept && !(x[i] <= 0.0f) : kept;
+      byte |= static_cast<unsigned>(bit && i < count) << i;
+    }
+    store_group(out + i0, vec, count, y);
+    bits[grp] = static_cast<uint8_t>(byte);
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads)
+act_dropout_bwd_kernel(const T* __restrict__ g,
+                       const uint8_t* __restrict__ bits,
+                       const T* __restrict__ h, float keep,
+                       T* __restrict__ dh, int64_t n, bool vec) {
+  const int64_t groups = (n + kGroup - 1) / kGroup;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t grp = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       grp < groups; grp += stride) {
+    const int64_t i0 = grp * kGroup;
+    const int count = n - i0 < kGroup ? static_cast<int>(n - i0) : kGroup;
+    float gr[kGroup], x[kGroup], d[kGroup];
+    load_group(g + i0, vec, count, gr);
+    if (ACT == kActElu) load_group(h + i0, vec, count, x);
+    const unsigned byte = bits[grp];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      float t = round_to<T>(gr[i] / keep);
+      if (ACT == kActElu) t = x[i] <= 0.0f ? t * expf(x[i]) : t;
+      d[i] = (byte >> i) & 1u ? t : 0.0f;
+    }
+    store_group(dh + i0, vec, count, d);
+  }
+}
+
+// As many blocks as the card holds at once of `kernel` (resident_blocks),
+// and no more than the groups of n need.
+template <typename K>
+cudaError_t stride_blocks(K kernel, int* resident, int64_t n,
+                          unsigned* blocks) {
+  const cudaError_t err = resident_blocks(kernel, kThreads, resident);
+  if (err != cudaSuccess) return err;
+  const int64_t want = ((n + kGroup - 1) / kGroup + kThreads - 1) / kThreads;
+  *blocks = static_cast<unsigned>(want < *resident ? want : *resident);
+  return cudaSuccess;
+}
+
+template <typename T, int ACT>
+cudaError_t launch_act_dropout_fwd(const void* h, const float* u, float keep,
+                                   void* out, uint8_t* bits, int64_t n,
+                                   cudaStream_t s) {
+  static int resident = 0;
+  unsigned blocks = 0;
+  cudaError_t err = stride_blocks(act_dropout_fwd_kernel<T, ACT>, &resident,
+                                  n, &blocks);
+  if (err != cudaSuccess) return err;
+  const bool vec = aligned(h, 16) && aligned(u, 16) && aligned(out, 16);
+  act_dropout_fwd_kernel<T, ACT><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(h), u, keep, static_cast<T*>(out), bits, n, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT>
+cudaError_t launch_act_dropout_bwd(const void* g, const uint8_t* bits,
+                                   const void* h, float keep, void* dh,
+                                   int64_t n, cudaStream_t s) {
+  static int resident = 0;
+  unsigned blocks = 0;
+  cudaError_t err = stride_blocks(act_dropout_bwd_kernel<T, ACT>, &resident,
+                                  n, &blocks);
+  if (err != cudaSuccess) return err;
+  const bool vec = aligned(g, 16) && aligned(dh, 16) &&
+                   (ACT != kActElu || aligned(h, 16));
+  act_dropout_bwd_kernel<T, ACT><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(g), bits, static_cast<const T*>(h), keep,
+      static_cast<T*>(dh), n, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t act_dropout_fwd(const void* h, const float* u, float keep,
+                            int act, void* out, uint8_t* bits, int64_t n,
+                            cudaStream_t s) {
+  switch (act) {
+    case kActRelu:
+      return launch_act_dropout_fwd<T, kActRelu>(h, u, keep, out, bits, n, s);
+    case kActElu:
+      return launch_act_dropout_fwd<T, kActElu>(h, u, keep, out, bits, n, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t act_dropout_bwd(const void* g, const uint8_t* bits,
+                            const void* h, float keep, int act, void* dh,
+                            int64_t n, cudaStream_t s) {
+  switch (act) {
+    case kActRelu:
+      return launch_act_dropout_bwd<T, kActRelu>(g, bits, h, keep, dh, n, s);
+    case kActElu:
+      return launch_act_dropout_bwd<T, kActElu>(g, bits, h, keep, dh, n, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// h and out: n elements of dtype; u: n floats; bits: (n + 7) / 8 bytes.
+int legion_act_dropout_fwd(const void* h, int dtype, const void* u,
+                           float keep, int act, void* out, void* bits,
+                           int64_t n, void* stream) {
+  if (n == 0) return cudaSuccess;
+  const float* uf = static_cast<const float*>(u);
+  uint8_t* b = static_cast<uint8_t*>(bits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return act_dropout_fwd<float>(h, uf, keep, act, out, b,
+                                                   n, s);
+  if (dtype == kBF16) {
+    return act_dropout_fwd<__nv_bfloat16>(h, uf, keep, act, out, b, n, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// g and dh: n elements of dtype; bits from the forward; h, the forward's
+// input, read for ELU only.
+int legion_act_dropout_bwd(const void* g, int dtype, const void* bits,
+                           const void* h, float keep, int act, void* dh,
+                           int64_t n, void* stream) {
+  if (n == 0) return cudaSuccess;
+  const uint8_t* b = static_cast<const uint8_t*>(bits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return act_dropout_bwd<float>(g, b, h, keep, act, dh, n,
+                                                   s);
+  if (dtype == kBF16) {
+    return act_dropout_bwd<__nv_bfloat16>(g, b, h, keep, act, dh, n, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@ Per layer, for a block whose dst rows are the first ``dst_cap`` rows of
 * the heads concatenated (the last layer: their mean), plus ``bias``,
   plus ``skip(h_dst)``, a linear with bias.
 
-ELU and dropout between layers, none after the last. Dropping a sampled
+ELU and dropout between layers (one ``ops/act_dropout.py`` call in a
+train step), none after the last. Dropping a sampled
 slot that points at the dst's own row, then adding one self slot, is
 ``GATConv``'s ``remove_self_loops`` followed by ``add_self_loops`` in the
 deduplicated numbering. So GAT needs every hop deduplicated
@@ -39,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from legion_tpu_torch.models.sage import _dropout, _lecun_normal_
+from legion_tpu_torch.models.sage import _lecun_normal_
+from legion_tpu_torch.ops.act_dropout import act_dropout
 from legion_tpu_torch.ops.gat_attention import (edge_softmax_aggregate,
                                                scored_slots)
 from legion_tpu_torch.sampling.block import Block
@@ -129,9 +131,8 @@ class GAT(nn.Module):
         for i, (layer, block) in enumerate(zip(self.layers, blocks)):
             h = layer(block, h)
             if i != self.num_layers - 1:
-                h = F.elu(h)
-                if use_dropout:
-                    h = _dropout(h, self.dropout, generator)
+                h = (act_dropout(h, "elu", self.dropout, generator)
+                     if use_dropout else F.elu(h))
         return h
 
     def step_counts(self, blocks: Sequence[Block], rows: Sequence[int]

@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from legion_tpu_torch.models.sage import _dropout, _lecun_normal_
+from legion_tpu_torch.models.sage import _lecun_normal_
+from legion_tpu_torch.ops.act_dropout import act_dropout
 from legion_tpu_torch.ops.identity_agg import (gathered_masked_mean,
                                                identity_masked_mean)
 from legion_tpu_torch.ops.segment import (block_dst_degree,
@@ -107,10 +108,11 @@ class GCN(nn.Module):
         # An identity first block hands the raw features to K1 or K5: no
         # whole-array cast of the largest tensor.
         h = x if blocks[0].identity_offset is not None else x.to(self.dtype)
+        # layer i's ReLU and layer i + 1's dropout follow each other: one
+        # act_dropout call in a train step
         for i, (layer, block) in enumerate(zip(self.layers, blocks)):
-            if i != 0 and use_dropout:
-                h = _dropout(h, self.dropout, generator)
             h = layer(block, h)
             if i != self.num_layers - 1:
-                h = F.relu(h)
+                h = (act_dropout(h, "relu", self.dropout, generator)
+                     if use_dropout else F.relu(h))
         return h

@@ -3,8 +3,10 @@
 
 Per layer ``h' = W_self h_dst + W_neigh mean_{u in sampled N(dst)} h_u +
 b``, with the bias on the self path only, ReLU and dropout between
-layers and none after the last. Blocks arrive in model order (outermost
-hop first); the dst nodes of a block are the first ``dst_cap`` src rows.
+layers and none after the last (one ``ops/act_dropout.py`` call in a
+train step, ``F.relu`` alone in an eval step). Blocks arrive in model
+order (outermost hop first); the dst nodes of a block are the first
+``dst_cap`` src rows.
 
 Mixed precision as in the reference: parameters stay float32 and are cast
 to the compute dtype at each ``F.linear``; aggregation sums in float32
@@ -31,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from legion_tpu_torch.ops.act_dropout import act_dropout
 from legion_tpu_torch.ops.identity_agg import (gathered_feature_mean,
                                                gathered_masked_mean,
                                                identity_masked_mean)
@@ -106,18 +109,6 @@ class SAGEConv(nn.Module):
         return self._dense(self.fc_self, h_dst) + h_neigh
 
 
-def _dropout(h: torch.Tensor, rate: float,
-             generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout with an explicit generator (flax's semantics:
-    keep with probability 1 - rate and scale kept values by 1/keep)."""
-    keep = 1.0 - rate
-    if keep == 0.0:
-        return torch.zeros_like(h)
-    mask = torch.rand(h.shape, generator=generator, device=h.device) < keep
-    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
-                                                   device=h.device))
-
-
 class SAGE(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int = 2, dropout: float = 0.5,
@@ -154,7 +145,6 @@ class SAGE(nn.Module):
         for i, (layer, block) in enumerate(zip(self.layers, blocks)):
             h = layer(block, h)
             if i != self.num_layers - 1:
-                h = F.relu(h)
-                if use_dropout:
-                    h = _dropout(h, self.dropout, generator)
+                h = (act_dropout(h, "relu", self.dropout, generator)
+                     if use_dropout else F.relu(h))
         return h

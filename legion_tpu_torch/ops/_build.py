@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # launcher name -> argtypes (every launcher returns a cudaError_t as int)
 _SIGNATURES = {
     # x, x_dtype, mask, out, out_dtype, n, p, f, d, offset, norm, stream
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "legion_edge_softmax_bwd": (_P, _P, _P, _L, _P, _L, _I, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L,
                                 _I, _P, _P, _P, _L, _L, _I, _I, _I, _P),
+    # h, dtype, u, keep, act, out, bits, n, stream
+    "legion_act_dropout_fwd": (_P, _I, _P, _F, _I, _P, _P, _L, _P),
+    # g, dtype, bits, h, keep, act, dh, n, stream
+    "legion_act_dropout_bwd": (_P, _I, _P, _P, _F, _I, _P, _L, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

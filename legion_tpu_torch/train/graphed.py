@@ -74,6 +74,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from legion_tpu_torch.ops.act_dropout import (act_dropout,
+                                              act_dropout_backward)
 from legion_tpu_torch.ops.gat_attention import (
     edge_softmax_aggregate, edge_softmax_aggregate_backward)
 from legion_tpu_torch.ops.gather import gather_rows
@@ -98,7 +100,8 @@ METRICS = ("loss", "edges", "frontier", "cap_overflow") + MODEL_COUNTS
 COUNTED = (identity_masked_mean, gathered_masked_mean,
            gathered_masked_mean_backward, gather_rows, sample_neighbors,
            grouped_masked_sum, dedup_tail, edge_softmax_aggregate,
-           edge_softmax_aggregate_backward, gathered_feature_mean)
+           edge_softmax_aggregate_backward, gathered_feature_mean,
+           act_dropout, act_dropout_backward)
 
 
 class GraphPool:

@@ -55,7 +55,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from legion_tpu_torch import config as port_config
 from legion_tpu_torch.models import sage as port_sage
 from legion_tpu_torch.models.convert import params_from_flax
-from legion_tpu_torch.ops import dedup, gather, identity_agg, sample, spmm
+from legion_tpu_torch.ops import (act_dropout, dedup, gather, identity_agg,
+                                  sample, spmm)
 from legion_tpu_torch.parallel.trainer import MeshTrainer
 from legion_tpu_torch.sampling import sampler as port_sampler
 from legion_tpu_torch.train import graphed
@@ -527,6 +528,7 @@ def test_replays_count_the_launches_their_capture_recorded(
              identity_agg.gathered_masked_mean)
     counting(port_sage, "gathered_feature_mean",
              identity_agg.gathered_feature_mean)
+    counting(port_sage, "act_dropout", act_dropout.act_dropout)
     g = small_graph
     cfg = _cfg(port_config, "sage", "float32", g.num_classes, dropout=0.3)
     counts = {}
@@ -547,10 +549,11 @@ def test_replays_count_the_launches_their_capture_recorded(
     # K1, K2, K2 backward (not counted here), K3, sampling, K5, the
     # dedup's tail (hop 1; the last hop is appended), GAT's attention and
     # its backward (SAGE runs neither), the gathered feature mean (layer 0
-    # takes K1 on the appended hop)
+    # takes K1 on the appended hop), the activation-dropout (a train step's
+    # one position between layers) and its backward (not counted here)
     assert counts[True] == counts[False] == (
-        [n, n, 0, n, 2 * n, 0, n, 0, 0, 0],
-        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e, 0, 0, 0])
+        [n, n, 0, n, 2 * n, 0, n, 0, 0, 0, n, 0],
+        [n + e, n + e, 0, n + e, 2 * (n + e), 0, n + e, 0, 0, 0, n, 0])
     assert len(fake_capture) == 2
     for fn in graphed.COUNTED:
         fn.launches = 0

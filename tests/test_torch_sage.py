@@ -17,7 +17,7 @@ from legion_tpu.sampling.sampler import gather_features as jax_gather_features
 from legion_tpu.sampling.sampler import sample_batch as jax_sample_batch
 from legion_tpu_torch.models import build_model
 from legion_tpu_torch.models.convert import params_from_flax
-from legion_tpu_torch.models.sage import _dropout
+from legion_tpu_torch.ops.act_dropout import dropout
 from legion_tpu_torch.sampling.block import frontier_caps
 from tests.test_torch_sampler import padded_seeds, to_torch_batch
 
@@ -110,13 +110,13 @@ def test_init_is_seeded_lecun_normal():
 
 def test_dropout_semantics():
     h = torch.ones(200, 100)
-    out = _dropout(h, 0.25, torch.Generator().manual_seed(0))
+    out = dropout(h, 0.25, torch.Generator().manual_seed(0))
     kept = out != 0
     assert abs(float(kept.float().mean()) - 0.75) < 0.02
     assert torch.allclose(out[kept], torch.full_like(out[kept], 1 / 0.75))
-    again = _dropout(h, 0.25, torch.Generator().manual_seed(0))
+    again = dropout(h, 0.25, torch.Generator().manual_seed(0))
     assert torch.equal(out, again)
-    assert (_dropout(h, 1.0, torch.Generator()) == 0).all()
+    assert (dropout(h, 1.0, torch.Generator()) == 0).all()
 
 
 def test_dropout_needs_a_generator(small_graph):
